@@ -1,0 +1,24 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+Only the configs the port serves so far are listed; later slices add
+the rest of ``repro.configs.registry``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+from repro_torch.configs import qwen3_8b
+from repro_torch.configs.base import ModelConfig
+
+_MODULES = (qwen3_8b,)
+
+CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+SMOKE_CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.SMOKE for m in _MODULES}
+ARCH_NAMES: Tuple[str, ...] = tuple(CONFIGS)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    table = SMOKE_CONFIGS if smoke else CONFIGS
+    if name not in table:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(table)}")
+    return table[name]

@@ -1,0 +1,191 @@
+"""Block assembly for the dense-attention stack.
+
+The JAX model stacks its repeating unit of blocks with a grouped
+``lax.scan`` (params and caches carry a leading group axis). PyTorch runs
+eagerly, so the port holds one block per layer, in layer order: a params
+dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
+layer. ``plan_layers`` is kept to read the reference's grouped layout
+(models/convert.py). This slice ports plain attention layers with dense
+(SwiGLU) MLPs: MLA, sliding-window caches, Mamba, RWKV and MoE layers
+raise until their slices (ROADMAP queue A).
+
+Pool tensors are updated IN PLACE (decode appends, prefill inserts,
+unpark restores): JAX returns new pools that XLA updates in place under
+jit, while eager torch would copy every pool on every step.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import paged_append
+from repro_torch.models.attention import (chunked_causal_attention,
+                                          paged_decode_attention)
+from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
+                                       rope_angles)
+
+
+def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
+    """Return (prefix pairs, unit pairs, n_groups) of (kind, mlp_kind),
+    the grouping of the JAX stack's params and caches."""
+    pairs = list(zip(cfg.layer_kinds(), cfg.mlp_kinds()))
+    for prefix in (0, 1, 2):
+        rest = pairs[prefix:]
+        if not rest:
+            continue
+        for p in (1, 2, 4, 8):
+            if len(rest) % p:
+                continue
+            unit = rest[:p]
+            if all(rest[i] == unit[i % p] for i in range(len(rest))):
+                return pairs[:prefix], unit, len(rest) // p
+    return pairs, [], 0
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless every layer is plain attention + a dense MLP."""
+    kinds = set(zip(cfg.layer_kinds(), cfg.mlp_kinds()))
+    if kinds != {("attn", "dense")} or cfg.mla is not None \
+            or cfg.swa_window or cfg.act != "swiglu":
+        raise ValueError(
+            f"{cfg.name}: the port serves plain-attention + SwiGLU stacks "
+            f"so far (layers {sorted(kinds)}, mla={cfg.mla is not None}, "
+            f"swa_window={cfg.swa_window}, act={cfg.act}); the other "
+            f"families wait for their slices (ROADMAP queue A6-A10)")
+
+
+# --------------------------------------------------------------------------
+# attention block
+# --------------------------------------------------------------------------
+
+def _qkv(x, p, cfg: ModelConfig):
+    """x: [..., D] -> q [..., H, hd], k/v [..., KV, hd] (normed, no rope)."""
+    hd = cfg.head_dim
+    H = p["wq"].shape[1] // hd
+    KV = p["wk"].shape[1] // hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(*x.shape[:-1], H, hd)
+    k = k.reshape(*x.shape[:-1], KV, hd)
+    v = v.reshape(*x.shape[:-1], KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def attn_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
+    """Prefill attention. x: [B,S,D]. The cache, when wanted, is K/V
+    zero-padded to ``ctx["cache_len"]`` ([B, cache_len, KV, hd])."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg)
+    angles = rope_angles(torch.arange(S, device=x.device), cfg.head_dim,
+                         cfg.rope_theta)
+    q = apply_rope(q, angles)
+    k = apply_rope(k, angles)
+    out = chunked_causal_attention(q, k, v, window=cfg.swa_window)
+    out = out.reshape(B, S, -1) @ p["wo"]
+    cache = None
+    if want_cache:
+        pad = ctx.get("cache_len", S) - S
+        cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    return out, cache
+
+
+def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
+    """Paged decode. x: [B,D]; cache {k,v: [NP,page,KV,hd]} is the pool
+    shared by every slot; ctx carries positions/lengths [B], page_table
+    [B,MP] and the optional ``active`` mask. The new token's K/V is
+    written into its page in place (inactive slots' writes dropped), then
+    attention reads through the table over ``lengths + 1`` positions."""
+    positions, lengths = ctx["positions"], ctx["lengths"]
+    table = ctx["page_table"]
+    q, k_new, v_new = _qkv(x, p, cfg)                  # [B,H,hd],[B,KV,hd]
+    ang = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q[:, None], ang[:, None])[:, 0]
+    k_new = apply_rope(k_new[:, None], ang[:, None])[:, 0]
+    paged_append(cache["k"], cache["v"], k_new, v_new, table, positions,
+                 active=ctx.get("active"))
+    out = paged_decode_attention(q.contiguous(), table, cache["k"],
+                                 cache["v"], lengths + 1)
+    return out.reshape(x.shape[0], -1) @ p["wo"], cache
+
+
+def apply_block(p, x, cfg: ModelConfig, ctx, cache=None,
+                want_cache: bool = False):
+    """norm -> attention -> residual -> norm -> MLP -> residual.
+    Returns (x, new_cache)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if ctx["mode"] == "decode":
+        a, new_cache = attn_decode_paged(h, p["attn"], cfg, ctx, cache)
+    else:
+        a, new_cache = attn_forward(h, p["attn"], cfg, ctx,
+                                    want_cache=want_cache)
+    x = x + a
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + dense_mlp(h2, p["mlp"], cfg), new_cache
+
+
+def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
+                want_caches: bool = False):
+    """Run every block in layer order. Returns (x, new_caches)."""
+    new_caches = []
+    for i, bp in enumerate(params["blocks"]):
+        c = caches[i] if caches is not None else None
+        x, nc = apply_block(bp, x, cfg, ctx, cache=c, want_cache=want_caches)
+        new_caches.append(nc)
+    return x, new_caches
+
+
+# --------------------------------------------------------------------------
+# caches and page-granular movement
+# --------------------------------------------------------------------------
+
+def init_paged_stack_caches(cfg: ModelConfig, n_pages: int, page_size: int,
+                            dtype, device) -> List[Dict[str, torch.Tensor]]:
+    """Shared pools: every attention layer holds [NP, page, KV, hd] K and
+    V pools, shared by all serving slots and separated only by the page
+    table."""
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def dense_to_pages(dense_caches, n_pages: int, page_size: int):
+    """Chunk a batch-1 dense cache list into page-granular data: leaves
+    [1, L, KV, hd] -> [n_pages, page, KV, hd] (L >= n_pages * page; the
+    prefill pads to cache_len, so tail pages past the length are zeros,
+    masked by ``lengths`` at attention time)."""
+    def one(d):
+        L = d.shape[1]
+        return d[0].reshape((L // page_size, page_size)
+                            + tuple(d.shape[2:]))[:n_pages]
+    return [{k: one(v) for k, v in layer.items()} for layer in dense_caches]
+
+
+def gather_pages(pool_caches, page_ids):
+    """Pull the listed pages out of every pool (copies, on the pools'
+    device)."""
+    ids = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=pool_caches[0]["k"].device)
+    return [{k: pool[ids] for k, pool in layer.items()}
+            for layer in pool_caches]
+
+
+def scatter_pages(pool_caches, page_data, page_ids):
+    """Write page-granular data into the listed pool pages, IN PLACE.
+    Returns the same pool list."""
+    dev = pool_caches[0]["k"].device
+    ids = torch.as_tensor(page_ids, dtype=torch.long, device=dev)
+    for layer, data in zip(pool_caches, page_data):
+        for k, pool in layer.items():
+            pool.index_copy_(0, ids, data[k].to(device=dev,
+                                                 dtype=pool.dtype))
+    return pool_caches

@@ -13,3 +13,5 @@ jax.config.update("jax_platform_name", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (subprocess/multidevice)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skipped without one)")

@@ -1,0 +1,60 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in
+``src/repro_torch`` or ``chip_smoke.py``, and a missing card is an error
+unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def test_no_jax_or_repro_imports():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), line, root)
+           for f in files for line, root in _imported_roots(f)
+           if root in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_engine_and_launcher_import_without_jax_or_repro():
+    code = ("import sys\n"
+            "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    from repro_torch.models import lm
+    cfg = SMOKE_CONFIGS["qwen3-8b"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert len(params["blocks"]) == cfg.n_layers
