@@ -7,17 +7,21 @@ Phases, each printing one JSON object per line:
 
 1. device  — card name, power limit (nvidia-smi), torch and CUDA versions;
 2. build   — nvcc build of every kernel source in the checkout;
-3. kernels — each kernel against its plain PyTorch version on the card,
-             on the shape sweeps of tests/test_kernels.py and at the
-             serving path's shapes, with CUDA-event times of the kernel,
-             the plain version and a library call, and the bound;
-4. model   — qwen3-8b at full width, 2 layers, fp32 (TF32 off): prefill
-             and paged decode on the card (kernels) against the CPU
-             (plain path) on the same weights;
-5. serve   — qwen3-8b at full width and depth in bf16 through the paged
-             engine: 8 requests, launch counts of both kernels, a second
-             run that must give identical streams, and one decode span
-             traced with torch.profiler (device kernel time by name);
+3. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 WKV-6
+             decode, B4 WKV-6 chunked prefill) against its plain PyTorch
+             version on the card, on the shape sweeps of
+             tests/test_kernels.py and at the serving paths' shapes, with
+             CUDA-event times of the kernel, the plain version and a
+             library call where one exists, and the bound;
+4. model   — qwen3-8b and rwkv6-1.6b at full width, 2 layers, fp32 (TF32
+             off): prefill and decode on the card (kernels) against the
+             CPU (plain path) on the same weights;
+5. serve   — qwen3-8b through the paged engine and rwkv6-1.6b through the
+             recurrent engine, each at full width and depth in bf16: 8
+             requests, launch counts of the path's kernels, a second run
+             that must give identical streams (for rwkv6 a third with
+             fewer pages than slots, which parks and must agree too), and
+             one decode span traced with torch.profiler;
 6. the kernels line, the nvidia-smi line, and the final ok line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -44,6 +48,13 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:119"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:117"
+WKV_DECODE_REPLACES = "src/repro/kernels/wkv6.py:101"
+WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
+# WKV-6 outputs are fp32 whatever r/k/v's dtype, and kernel and plain
+# version do fp32 math on the same upcast inputs: the tolerances of
+# tests/test_kernels.py for the chunked y and state, and for decode
+WKV_TOL = {"y": 2e-4, "state": 2e-5, "decode": 1e-5}
+NO_WKV_LIBRARY = "none: no single PyTorch call computes WKV-6"
 
 
 def emit(obj) -> None:
@@ -188,9 +199,104 @@ def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
     return rec
 
 
+def _wkv_inputs(torch, seed, B, S, H, hd, dtype):
+    """r, k, v [B,S,H,hd] in `dtype`; logw in the model's clamp range;
+    u [H,hd] and S0 [B,H,hd,hd] fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    r, k, v = (rnd(B, S, H, hd).to(dtype) for _ in range(3))
+    logw = -torch.exp(torch.clamp(rnd(B, S, H, hd), -8, 0.5))
+    return r, k, v, logw, rnd(H, hd) * 0.1, rnd(B, H, hd, hd) * 0.1
+
+
+def _max_err(torch, pairs):
+    return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+
+
+def check_wkv_chunked(torch, wk, B, S, H, hd, dtype, chunk=32, seed=0,
+                      timed=True):
+    r, k, v, logw, u, s0 = _wkv_inputs(torch, seed, B, S, H, hd, dtype)
+    y, s = wk.wkv6_chunked(r, k, v, logw, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    ey, es = wk.wkv6_chunked_plain(r, k, v, logw, u, s0, chunk=chunk)
+    tol_y, tol_s = WKV_TOL["y"], WKV_TOL["state"]
+    ok = bool(torch.allclose(y, ey, atol=tol_y, rtol=tol_y)
+              and torch.allclose(s, es, atol=tol_s, rtol=tol_s))
+    # what these inputs need, chunk by chunk (c valid tokens): the
+    # strictly-lower scores and their product with v, 2*c*(c-1)*hd; the
+    # carried state read and updated, 4*c*hd^2; fp32 math, fp32 peak
+    C = min(chunk, S)
+    cs = [C] * (S // C) + ([S % C] if S % C else [])
+    flops = B * H * sum(2 * c * (c - 1) * hd + 4 * c * hd * hd for c in cs)
+    nbytes = (B * S * H * hd * (3 * r.element_size() + 4 + 4)
+              + 4 * u.numel() + 2 * 4 * s0.numel())
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    name = str(dtype).split(".")[-1]
+    rec = {"phase": "kernels", "kernel": "wkv6_chunked",
+           "shape": {"B": B, "S": S, "H": H, "hd": hd, "chunk": C},
+           "dtype": name, "max_err": _max_err(torch, ((y, ey), (s, es))),
+           "tol": {"y": tol_y, "state": tol_s}, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(
+            lambda: wk.wkv6_chunked(r, k, v, logw, u, s0, chunk=chunk),
+            torch)
+        rec["plain_ms"] = time_ms(
+            lambda: wk.wkv6_chunked_plain(r, k, v, logw, u, s0,
+                                          chunk=chunk), torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_WKV_LIBRARY
+    emit(rec)
+    require(ok, f"wkv6_chunked disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
+    """One token against the plain version at 1e-5, and against the t = 1
+    column of the chunked kernel at the chunked tolerances."""
+    r, k, v, logw, u, s0 = _wkv_inputs(torch, seed, B, 1, H, hd, dtype)
+    w = torch.exp(logw)
+    args = (r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+    y, s = wk.wkv6_decode(*args)
+    cy, cs = wk.wkv6_chunked(r, k, v, torch.log(w), u, s0, chunk=1)
+    torch.cuda.synchronize()
+    ey, es = wk.wkv6_decode_plain(*args)
+    tol = WKV_TOL["decode"]
+    ok = bool(torch.allclose(y, ey, atol=tol, rtol=tol)
+              and torch.allclose(s, es, atol=tol, rtol=tol)
+              and torch.allclose(cy[:, 0], y, atol=WKV_TOL["y"],
+                                 rtol=WKV_TOL["y"])
+              and torch.allclose(cs, s, atol=WKV_TOL["state"],
+                                 rtol=WKV_TOL["state"]))
+    # read r, k, v, w, u and the state once, write y and the new state
+    nbytes = (B * H * hd * (3 * r.element_size() + 4 + 4)
+              + 4 * u.numel() + 2 * 4 * s0.numel())
+    b_ms, b_by = bound(nbytes, 7.0 * B * H * hd * hd, "float32")
+    rec = {"phase": "kernels", "kernel": "wkv6_decode",
+           "shape": {"B": B, "H": H, "hd": hd},
+           "dtype": str(dtype).split(".")[-1],
+           "max_err": _max_err(torch, ((y, ey), (s, es))),
+           "max_err_vs_chunked_t1": _max_err(torch, ((cy[:, 0], y),
+                                                     (cs, s))),
+           "tol": tol, "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: wk.wkv6_decode(*args), torch)
+        rec["plain_ms"] = time_ms(lambda: wk.wkv6_decode_plain(*args),
+                                  torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_WKV_LIBRARY
+    emit(rec)
+    require(ok, f"wkv6_decode disagrees with its plain version: {rec}")
+    return rec
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv6 as wk
     f32, bf16 = torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
         for B, H, KV, S, hd in ((2, 4, 2, 256, 64), (1, 4, 4, 200, 32),
@@ -204,6 +310,13 @@ def phase_kernels(torch):
     for window in (32, 96):
         check_flash(torch, fa, 2, 4, 2, 256, 32, f32, window=window,
                     timed=False)
+    for dtype in (f32, bf16):
+        for B, S, H, hd, chunk in ((2, 64, 2, 8, 16), (1, 50, 3, 16, 32),
+                                   (2, 33, 1, 8, 8), (2, 1, 2, 8, 32)):
+            check_wkv_chunked(torch, wk, B, S, H, hd, dtype, chunk=chunk,
+                              timed=False)
+        for B, H, hd in ((2, 2, 8), (1, 3, 16), (4, 1, 8)):
+            check_wkv_decode(torch, wk, B, H, hd, dtype, timed=False)
     # the serving path's shapes (qwen3-8b: H 32, KV 8, hd 128)
     main = {}
     for S in (200, 1000, 1531):
@@ -211,6 +324,11 @@ def phase_kernels(torch):
     for MP in (16, 128):
         main[("paged", MP)] = check_paged(torch, pa, 4, 32, 8, 128, 640, 16,
                                           MP, bf16)
+    # rwkv6-1.6b's (H 32, hd 64): prefill passes bf16 r/k/v, decode fp32
+    for S in (200, 1000, 1531):
+        main[("wkv6_chunked", S)] = check_wkv_chunked(torch, wk, 1, S, 32,
+                                                      64, bf16)
+    main[("wkv6_decode", 4)] = check_wkv_decode(torch, wk, 4, 32, 64, f32)
     return main
 
 
@@ -277,6 +395,18 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
                 f"model phase: {name} differs beyond {tol} "
                 f"(max abs {errs[name]})")
 
+    # attention stacks decode through a page table; RWKV stacks carry
+    # per-slot state, compared layer by layer after prefill and each step
+    paged = tf.paged_stack_supported(cfg)
+
+    def close_state(name):
+        if paged:
+            return
+        for a_layer, b_layer in zip(card["state"]["caches"],
+                                    cpu["state"]["caches"]):
+            for key in a_layer:
+                close(f"{name}_{key}", a_layer[key], b_layer[key])
+
     runs = {}
     for dev, params in (("cpu", p_cpu), (device, p_gpu)):
         t = torch.as_tensor(tokens, device=dev)
@@ -285,13 +415,15 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
         hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits, st = lm.prefill(params, t, cfg,
                                 cache_len=max_pages * page)
+        if paged:
+            st = _paged_state(torch, lm, tf, cfg, st["caches"], n_seq,
+                              n_prompt, page, max_pages, dev)
         runs[dev] = {"params": params, "hidden": hidden, "logits": [logits],
-                     "state": _paged_state(torch, lm, tf, cfg, st["caches"],
-                                           n_seq, n_prompt, page, max_pages,
-                                           dev)}
+                     "state": st}
     cpu, card = runs["cpu"], runs[device]
     close("prefill_hidden", card["hidden"], cpu["hidden"])
     close("prefill_logits", card["logits"][0], cpu["logits"][0])
+    close_state("prefill_state")
     toks = []
     for _ in range(steps):
         want = lm.select_token(cpu["logits"][-1])
@@ -305,8 +437,10 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
                                             r["state"], cfg)
             r["logits"].append(lg)
         close("decode_logits", card["logits"][-1], cpu["logits"][-1])
+        close_state("decode_state")
     rec = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+           "state": "page pools" if paged else "per-slot carry, compared",
            "prompts": [n_prompt] * n_seq, "decode_steps": steps,
            "tol": tol, "max_abs_err": errs, "greedy_tokens": toks,
            "tokens_equal": True}
@@ -369,8 +503,13 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
         eng.step()
         sync(torch, device)
         wall = t.elapsed()
+    # device-side rows only (kernels, copies, memsets): an op's row
+    # repeats the device time of the kernels it launched
+    from torch.autograd import DeviceType
     events = [(e.key, e.self_device_time_total / 1e3, e.count)
-              for e in prof.key_averages() if e.self_device_time_total > 0]
+              for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU
+              and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e[1])
     busy = sum(ms for _, ms, _ in events) / 1e3
     return {"decode_steps": eng.stats["decode_steps"] - steps,
@@ -379,11 +518,27 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
             "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in events[:10]]}
 
 
-def phase_serve(torch, cfg, ecfg, prompt_lens=PROMPT_LENS, max_new=32,
-                seed=0, device="cuda"):
-    import numpy as np
+def _wrappers():
+    """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv6 as wk
+    return {"flash_attention": fa.flash_attention,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "wkv6_chunked": wk.wkv6_chunked,
+            "wkv6_decode": wk.wkv6_decode}
+
+
+def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
+                seed=0, device="cuda", park_pages=None):
+    """Serve 8 requests at full width and depth. ``path`` maps each kernel
+    the serving path must run to the counter its launches follow per
+    layer ("prefills" or "decode_steps"); every kernel's count is set to
+    0 just before the run and read just after. With ``park_pages`` a
+    third run with that many pages (fewer than slots) must park, unpark
+    and give the same streams."""
+    import dataclasses
+    import numpy as np
     from repro_torch.models import lm
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(cfg, gen, device=device)
@@ -391,13 +546,12 @@ def phase_serve(torch, cfg, ecfg, prompt_lens=PROMPT_LENS, max_new=32,
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in prompt_lens]
-    fa.flash_attention.launches = 0
-    pa.paged_decode_attention.launches = 0
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
     eng, done, wall, prefill_s = _serve_once(torch, cfg, params, ecfg,
                                              prompts, max_new, device)
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "paged_decode_attention":
-                    pa.paged_decode_attention.launches}
+    launches = {n: w.launches for n, w in wrappers.items()}
     st = eng.stats
     streams = {r.req_id: list(r.tokens_out) for r in done}
     require(len(done) == len(prompts)
@@ -408,18 +562,35 @@ def phase_serve(torch, cfg, ecfg, prompt_lens=PROMPT_LENS, max_new=32,
             f"serve: host_syncs {st['host_syncs']} != prefills "
             f"{st['prefills']} + decode_spans {st['decode_spans']}")
     n_layers = cfg.n_layers
-    require(launches["flash_attention"] == n_layers * st["prefills"],
-            f"serve: flash launches {launches} != {n_layers} x prefills")
-    require(launches["paged_decode_attention"]
-            == n_layers * st["decode_steps"],
-            f"serve: paged launches {launches} != {n_layers} x decode steps")
-    require(all(v > 0 for v in launches.values()),
-            f"serve: a kernel of the path never launched: {launches}")
+    for name, per in path.items():
+        require(launches[name] == n_layers * st[per] > 0,
+                f"serve: {name} launches {launches[name]} != {n_layers} x "
+                f"{per} ({st[per]})")
+    require(all(v == 0 for n, v in launches.items() if n not in path),
+            f"serve: a kernel off the {cfg.name} path launched: "
+            f"{launches}")
     eng2, done2, wall2, _ = _serve_once(torch, cfg, params, ecfg, prompts,
                                         max_new, device)
     streams2 = {r.req_id: list(r.tokens_out) for r in done2}
     require(streams2 == streams, "serve: a second run gave other streams")
     del eng2
+    parking = None
+    if park_pages is not None:
+        eng3, done3, _, _ = _serve_once(
+            torch, cfg, params, dataclasses.replace(ecfg,
+                                                    n_pages=park_pages),
+            prompts, max_new, device)
+        st3 = eng3.stats
+        streams3 = {r.req_id: list(r.tokens_out) for r in done3}
+        require(st3["parked"] > 0 and st3["unparked"] == st3["parked"],
+                f"serve: n_pages={park_pages} did not park and unpark: "
+                f"{st3}")
+        require(streams3 == streams,
+                "serve: the run that parks gave other streams")
+        parking = {"n_pages": park_pages, "parked": st3["parked"],
+                   "unparked": st3["unparked"],
+                   "streams_identical": True}
+        del eng3
     traced = profile_decode_span(torch, cfg, params, ecfg, prompts, device)
     decode_s = wall - prefill_s
     rec = {"phase": "serve", "arch": cfg.name, "n_layers": n_layers,
@@ -436,7 +607,7 @@ def phase_serve(torch, cfg, ecfg, prompt_lens=PROMPT_LENS, max_new=32,
            "launches": launches, "stats": st,
            "completion_order": [r.req_id for r in done],
            "streams_identical_across_runs": True,
-           "traced_decode_span": traced}
+           "parking_run": parking, "traced_decode_span": traced}
     if torch.device(device).type == "cuda":
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(rec)
@@ -446,24 +617,35 @@ def phase_serve(torch, cfg, ecfg, prompt_lens=PROMPT_LENS, max_new=32,
 
 # --------------------------------------------------------------------------
 
-def kernel_line(main, serve):
-    f, p = main[("flash", 1531)], main[("paged", 128)]
+def kernel_line(main, serves):
+    """One row per kernel: its times at the main serving shape, its
+    launches in the serve run of the path that runs it."""
     rows = []
-    for name, rec, src, replaces in (
-            ("flash_attention", f,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+    for name, key, src, replaces in (
+            ("flash_attention", ("flash", 1531), "flash_attention.cu",
              FLASH_REPLACES),
-            ("paged_decode_attention", p,
-             "src/repro_torch/kernels/csrc/paged_attention.cu",
-             PAGED_REPLACES)):
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
-                     "launches": serve["launches"][name],
-                     "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
-                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                     "bound_by": rec["bound_by"],
-                     "library_ms": rec["library_ms"],
-                     "shape": rec["shape"], "checked": True})
+            ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
+             PAGED_REPLACES),
+            ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
+             WKV_CHUNKED_REPLACES),
+            ("wkv6_decode", ("wkv6_decode", 4), "wkv6.cu",
+             WKV_DECODE_REPLACES)):
+        rec = main[key]
+        launches = [s["launches"][name] for s in serves
+                    if s["launches"][name]]
+        require(len(launches) == 1,
+                f"{name} ran on {len(launches)} serving paths, not one")
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{src}",
+               "replaces": replaces, "launches": launches[0],
+               "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"],
+               "library_ms": rec["library_ms"],
+               "shape": rec["shape"], "checked": True}
+        if "library" in rec:
+            row["library"] = rec["library"]
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -502,16 +684,27 @@ def main() -> int:
                         for n, log in logs.items()}})
         main_shapes = phase_kernels(torch)
         cfg = get_config("qwen3-8b")
-        phase_model(torch, cfg.scaled(n_layers=2, dtype="float32"))
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ecfg = EngineConfig(slots=4, cache_len=2048, page_size=16,
-                            n_pages=640, decode_span=8, eos_token=-1,
-                            kv_layout="paged", prefill_chunk=0,
-                            prefix_cache_entries=0)
-        serve = phase_serve(torch, cfg, ecfg)
-        emit(kernel_line(main_shapes, serve))
+        rcfg = get_config("rwkv6-1.6b")
+        for c in (cfg, rcfg):
+            phase_model(torch, c.scaled(n_layers=2, dtype="float32"))
+        serves = []
+        for c, layout, n_pages, path, park in (
+                (cfg, "paged", 640,
+                 {"flash_attention": "prefills",
+                  "paged_decode_attention": "decode_steps"}, None),
+                (rcfg, "recurrent", 4,
+                 {"wkv6_chunked": "prefills",
+                  "wkv6_decode": "decode_steps"}, 3)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ecfg = EngineConfig(slots=4, cache_len=2048, page_size=16,
+                                n_pages=n_pages, decode_span=8, eos_token=-1,
+                                kv_layout=layout, prefill_chunk=0,
+                                prefix_cache_entries=0)
+            serves.append(phase_serve(torch, c, ecfg, path,
+                                      park_pages=park))
+        emit(kernel_line(main_shapes, serves))
     except Check as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,10 +7,10 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from repro_torch.configs import qwen3_8b
+from repro_torch.configs import qwen3_8b, rwkv6_1_6b
 from repro_torch.configs.base import ModelConfig
 
-_MODULES = (qwen3_8b,)
+_MODULES = (qwen3_8b, rwkv6_1_6b)
 
 CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKE_CONFIGS: Dict[str, ModelConfig] = {m.CONFIG.name: m.SMOKE for m in _MODULES}

@@ -1,15 +1,17 @@
 """Serving launcher of the port, batch mode: submit every request up front
-and serve them to completion through the paged engine.
+and serve them to completion through the serving engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \
       --requests 8 --cache-len 2048 --max-new 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --kv-layout recurrent
 
 runs on the first CUDA card with random weights; ``--smoke`` takes the
 reduced config and ``--device cpu`` the plain PyTorch path. The flags
-match ``repro.launch.serve`` for what the port serves: the paged layout,
-greedy sampling, monolithic prefill. Live-traffic mode, chunked prefill,
-the other layouts and samplers and crash snapshots wait for their slices
-(ROADMAP queue A).
+match ``repro.launch.serve`` for what the port serves: the paged layout
+(attention) and the recurrent layout (RWKV), greedy sampling, monolithic
+prefill. Live-traffic mode, chunked prefill, the other layouts and
+samplers and crash snapshots wait for their slices (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -34,8 +36,10 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=160)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--kv-layout", choices=("paged",), default="paged",
-                    help="StateBackend name (the port serves paged only)")
+    ap.add_argument("--kv-layout", choices=("paged", "recurrent"),
+                    default="paged",
+                    help="StateBackend name: paged (attention archs) or "
+                         "recurrent (rwkv6-1.6b)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
                     help="device page budget; 0 derives it from "

@@ -4,7 +4,9 @@ params dict.
 The JAX stack stores its repeating unit of blocks with a leading group
 axis (``stack.groups.b{j}``, after any ``stack.prefix`` blocks); the port
 holds one block per layer. This module unstacks the groups into layer
-order and keeps every matrix in its ``[in, out]`` layout. The caller
+order and keeps every matrix in its ``[in, out]`` layout. Leaves the
+tree holds in float32 stay float32 (in a bf16 model, RWKV's mixing,
+decay, bonus and norm vectors); the others take ``dtype``. The caller
 converts the JAX arrays to numpy (``jax.tree.map(np.asarray, params)``),
 so the port itself never imports JAX.
 """
@@ -34,9 +36,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
     def tensor(a):
         # through float32: exact for float32 and bfloat16 sources (numpy
         # has no bfloat16 of its own)
+        a = np.asarray(a)
+        out = torch.float32 if a.dtype == np.float32 else dtype
         return torch.from_numpy(
-            np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(
-                device=device, dtype=dtype)
+            np.ascontiguousarray(a.astype(np.float32))).to(
+                device=device, dtype=out)
 
     prefix, unit, n_groups = tf.plan_layers(cfg)
     stack = tree["stack"]

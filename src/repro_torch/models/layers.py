@@ -42,11 +42,18 @@ def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return out.to(dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), written as ``jax.nn.sigmoid`` computes it: each
+    op rounds in the input dtype, so bf16 results match the JAX model bit
+    for bit (``torch.sigmoid`` rounds once and differs by an ulp)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x), written as ``jax.nn.silu`` is: each op rounds in
     the input dtype, so bf16 results match the JAX model bit for bit
     (the fused ``F.silu`` rounds once and differs by an ulp)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
 
 
 def dense_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:

@@ -2,9 +2,11 @@
 
 Params are a plain dict of tensors, ``{"embed": [V,D], "blocks": [...],
 "final_norm": [D], "head": [D,V]}``, with the JAX package's ``[in, out]``
-matrix layout. Decoding state is ``{"caches": [per-layer pools],
-"lengths": [B] int32, "positions": [B] int32, "page_table": [B,MP] int32}``
-on the device; decode updates it in place.
+matrix layout. Decoding state is ``{"caches": [one entry per layer],
+"lengths": [B] int32, "positions": [B] int32}`` on the device, plus
+``"page_table": [B,MP] int32`` when the caches are shared page pools
+(attention) rather than per-slot state (RWKV's carry); decode updates it
+in place.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import rms_norm
 
@@ -38,10 +41,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     d, V, hd, ff = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.d_ff
     H, KV = cfg.n_heads, cfg.n_kv_heads
 
-    def normal(shape, scale):
+    def normal(shape, scale, dt=dtype):
         x = torch.randn(shape, generator=generator, device=generator.device,
-                        dtype=dtype)
+                        dtype=dt)
         return (x * scale).to(device)
+
+    def uniform(shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device).to(device)
 
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
@@ -50,21 +57,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         return torch.zeros(n, dtype=dtype, device=device)
 
     params = {"embed": normal((V, d), 0.02), "blocks": []}
-    for _ in range(cfg.n_layers):
-        attn = {"wq": normal((d, H * hd), 1.0 / math.sqrt(d)),
+    for kind in cfg.layer_kinds():
+        block = {"norm1": ones(d), "norm2": ones(d)}
+        if kind == "rwkv":
+            block["rwkv"] = rwkv.init_rwkv(cfg, normal, uniform, dtype,
+                                           device)
+        else:
+            block["attn"] = {
+                "wq": normal((d, H * hd), 1.0 / math.sqrt(d)),
                 "wk": normal((d, KV * hd), 1.0 / math.sqrt(d)),
                 "wv": normal((d, KV * hd), 1.0 / math.sqrt(d)),
                 "wo": normal((H * hd, d), 1.0 / math.sqrt(H * hd))}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(H * hd), bk=zeros(KV * hd),
-                        bv=zeros(KV * hd))
-        if cfg.qk_norm:
-            attn.update(q_norm=ones(hd), k_norm=ones(hd))
-        mlp = {"w_up": normal((d, ff), 1.0 / math.sqrt(d)),
-               "w_down": normal((ff, d), 1.0 / math.sqrt(ff)),
-               "w_gate": normal((d, ff), 1.0 / math.sqrt(d))}
-        params["blocks"].append({"norm1": ones(d), "norm2": ones(d),
-                                 "attn": attn, "mlp": mlp})
+            if cfg.qkv_bias:
+                block["attn"].update(bq=zeros(H * hd), bk=zeros(KV * hd),
+                                     bv=zeros(KV * hd))
+            if cfg.qk_norm:
+                block["attn"].update(q_norm=ones(hd), k_norm=ones(hd))
+            block["mlp"] = {
+                "w_up": normal((d, ff), 1.0 / math.sqrt(d)),
+                "w_down": normal((ff, d), 1.0 / math.sqrt(ff)),
+                "w_gate": normal((d, ff), 1.0 / math.sqrt(d))}
+        params["blocks"].append(block)
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
         params["head"] = normal((d, V), 1.0 / math.sqrt(d))
@@ -87,8 +100,9 @@ def _head_weight(params, cfg: ModelConfig):
 
 def prefill(params, tokens, cfg: ModelConfig,
             cache_len: Optional[int] = None):
-    """Run `tokens` [B,S]; returns (last_logits [B,V], state) with dense
-    caches zero-padded to ``cache_len`` ([B, cache_len, KV, hd] per layer)."""
+    """Run `tokens` [B,S]; returns (last_logits [B,V], state). Attention
+    layers' caches are K/V zero-padded to ``cache_len`` ([B, cache_len,
+    KV, hd]); RWKV layers' are the final carry {wkv, shift_tm, shift_cm}."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
     ctx = {"mode": "prefill", "cache_len": cache_len or S}
@@ -103,21 +117,23 @@ def prefill(params, tokens, cfg: ModelConfig,
 
 
 def decode_step(params, tokens, state, cfg: ModelConfig, active=None):
-    """One paged decode step. tokens: [B] int32. Returns (logits [B,V],
-    state). The pools in ``state`` are written in place; ``lengths`` and
+    """One decode step. tokens: [B] int32. Returns (logits [B,V], state).
+    The caches in ``state`` (page pools, or per-slot RWKV carries) are
+    written in place, inactive slots left as they were; ``lengths`` and
     ``positions`` advance only where ``active`` (all slots if None)."""
     x = embed(params["embed"], tokens)
     ctx = {"mode": "decode", "positions": state["positions"],
            "lengths": state["lengths"], "active": active,
-           "page_table": state["page_table"]}
+           "page_table": state.get("page_table")}
     x, caches = tf.apply_stack(params, x, cfg, ctx, caches=state["caches"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(x, _head_weight(params, cfg))
     adv = 1 if active is None else active.to(torch.int32)
     new_state = {"caches": caches,
                  "lengths": state["lengths"] + adv,
-                 "positions": state["positions"] + adv,
-                 "page_table": state["page_table"]}
+                 "positions": state["positions"] + adv}
+    if "page_table" in state:
+        new_state["page_table"] = state["page_table"]
     return logits, new_state
 
 
@@ -158,12 +174,33 @@ def select_token(logits, sample_fn=None):
     return sample_fn(logits, None, ()).to(torch.int32)
 
 
+def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
+                     dtype=None, device=None) -> dict:
+    """Fresh per-slot decoding state (the reference's ``filled=False``):
+    every layer's state zeroed, lengths and positions 0."""
+    tf.check_supported(cfg)
+    device = resolve_device(device)
+    dtype = param_dtype(cfg, dtype)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {"caches": tf.init_stack_caches(cfg, batch, cache_len, dtype,
+                                           device),
+            "lengths": torch.zeros(batch, **i32),
+            "positions": torch.zeros(batch, **i32)}
+
+
 def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
                            page_size: int, max_pages: int, dtype=None,
                            device=None) -> dict:
     """Paged decoding state: shared per-layer page pools + per-slot table
     (rows rewritten by the engine as the PagePool allocates)."""
     tf.check_supported(cfg)
+    if not tf.paged_stack_supported(cfg):
+        kinds = sorted(set(cfg.layer_kinds()))
+        raise ValueError(
+            f"paged serving needs per-token cache blocks (plain attention "
+            f"KV); {cfg.name} (layer kinds {kinds}) has none: use the "
+            f"'recurrent' layout (constant-size state for pure RWKV "
+            f"configs)")
     device = resolve_device(device)
     dtype = param_dtype(cfg, dtype)
     i32 = dict(dtype=torch.int32, device=device)

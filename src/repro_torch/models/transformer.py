@@ -1,17 +1,19 @@
-"""Block assembly for the dense-attention stack.
+"""Block assembly: the dense-attention stack and the RWKV-6 stack.
 
 The JAX model stacks its repeating unit of blocks with a grouped
 ``lax.scan`` (params and caches carry a leading group axis). PyTorch runs
 eagerly, so the port holds one block per layer, in layer order: a params
 dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
 layer. ``plan_layers`` is kept to read the reference's grouped layout
-(models/convert.py). This slice ports plain attention layers with dense
-(SwiGLU) MLPs: MLA, sliding-window caches, Mamba, RWKV and MoE layers
-raise until their slices (ROADMAP queue A).
+(models/convert.py). The port serves two families so far: plain
+attention layers with dense (SwiGLU) MLPs, and pure RWKV-6 stacks (time-
+and channel-mix, no MLP). MLA, sliding-window caches, Mamba and MoE
+layers raise until their slices (ROADMAP queue A).
 
-Pool tensors are updated IN PLACE (decode appends, prefill inserts,
-unpark restores): JAX returns new pools that XLA updates in place under
-jit, while eager torch would copy every pool on every step.
+Cache tensors are updated IN PLACE (paged decode appends, prefill
+inserts, unpark restores, RWKV decode commits its new carry): JAX
+returns new caches that XLA updates in place under jit, while eager
+torch would copy every cache on every step.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
+from repro_torch.models import rwkv
 from repro_torch.models.attention import (chunked_causal_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
@@ -45,15 +48,39 @@ def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is plain attention + a dense MLP."""
-    kinds = set(zip(cfg.layer_kinds(), cfg.mlp_kinds()))
-    if kinds != {("attn", "dense")} or cfg.mla is not None \
-            or cfg.swa_window or cfg.act != "swiglu":
-        raise ValueError(
-            f"{cfg.name}: the port serves plain-attention + SwiGLU stacks "
-            f"so far (layers {sorted(kinds)}, mla={cfg.mla is not None}, "
-            f"swa_window={cfg.swa_window}, act={cfg.act}); the other "
-            f"families wait for their slices (ROADMAP queue A6-A10)")
+    """Raise unless every layer is plain attention + a dense SwiGLU MLP,
+    or every layer is RWKV-6; name the ROADMAP item of any other."""
+    kinds = set(cfg.layer_kinds())
+    mlps = set(cfg.mlp_kinds())
+    if kinds == {"rwkv"}:
+        return
+    if (kinds == {"attn"} and mlps == {"dense"} and cfg.mla is None
+            and not cfg.swa_window and cfg.act == "swiglu"):
+        return
+    item = ("A10 (Mamba)" if "mamba" in kinds
+            else "A8 (MLA)" if cfg.mla is not None
+            else "A7 (MoE)" if "moe" in mlps
+            else "A6 (the rest of the dense family)")
+    raise ValueError(
+        f"{cfg.name}: the port serves plain-attention + SwiGLU stacks and "
+        f"pure RWKV-6 stacks so far (layers {sorted(kinds)}, mlps "
+        f"{sorted(mlps)}, mla={cfg.mla is not None}, "
+        f"swa_window={cfg.swa_window}, act={cfg.act}); this family waits "
+        f"for ROADMAP item {item}")
+
+
+def paged_stack_supported(cfg: ModelConfig) -> bool:
+    """Paged KV needs every layer to be plain (non-MLA, non-SWA)
+    attention."""
+    return (all(k == "attn" for k in cfg.layer_kinds())
+            and cfg.mla is None and cfg.swa_window == 0)
+
+
+def recurrent_state_supported(cfg: ModelConfig) -> bool:
+    """Constant-size slot state needs every mixer to carry a recurrence
+    (RWKV/Mamba): any attention layer grows per token."""
+    kinds = set(cfg.layer_kinds())
+    return bool(kinds) and kinds <= {"mamba", "rwkv"}
 
 
 # --------------------------------------------------------------------------
@@ -117,10 +144,50 @@ def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
     return out.reshape(x.shape[0], -1) @ p["wo"], cache
 
 
-def apply_block(p, x, cfg: ModelConfig, ctx, cache=None,
+def commit_slots(cache, new, active=None):
+    """Write a decode step's new per-slot state into ``cache`` IN PLACE.
+    Slots where ``active`` is False (parked, finished or free) keep their
+    carry bit for bit. All on the device, a ``where`` and a ``copy_``:
+    selecting the active rows on the host would read the device."""
+    for key, old in cache.items():
+        val = new[key].to(old.dtype)
+        if active is not None:
+            a = active.reshape((-1,) + (1,) * (old.dim() - 1))
+            val = torch.where(a, val, old)
+        old.copy_(val)
+    return cache
+
+
+def _rwkv_block(p, x, cfg: ModelConfig, ctx, cache, want_cache: bool):
+    """norm1 -> time-mix -> residual -> norm2 -> channel-mix -> residual
+    (no MLP). Decode commits the new carry into ``cache`` in place."""
+    decode = ctx["mode"] == "decode"
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if decode:
+        a, tm = rwkv.rwkv_time_mix_decode(h, p["rwkv"], cfg, cache)
+    else:
+        a, tm = rwkv.rwkv_time_mix(h, p["rwkv"], cfg, state=cache,
+                                   want_state=want_cache)
+    x = x + a
+    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if decode:
+        m, cm = rwkv.rwkv_channel_mix_decode(h2, p["rwkv"], cfg, cache)
+    else:
+        m, cm = rwkv.rwkv_channel_mix(h2, p["rwkv"], cfg, state=cache,
+                                      want_state=want_cache)
+    new_cache = {**tm, **cm} if tm is not None else None
+    if decode:
+        new_cache = commit_slots(cache, new_cache, ctx.get("active"))
+    return x + m, new_cache
+
+
+def apply_block(p, x, kind: str, cfg: ModelConfig, ctx, cache=None,
                 want_cache: bool = False):
-    """norm -> attention -> residual -> norm -> MLP -> residual.
-    Returns (x, new_cache)."""
+    """One layer of kind ``kind`` ("attn" or "rwkv"). Attention: norm ->
+    attention -> residual -> norm -> MLP -> residual. Returns
+    (x, new_cache)."""
+    if kind == "rwkv":
+        return _rwkv_block(p, x, cfg, ctx, cache, want_cache)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if ctx["mode"] == "decode":
         a, new_cache = attn_decode_paged(h, p["attn"], cfg, ctx, cache)
@@ -136,9 +203,11 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                 want_caches: bool = False):
     """Run every block in layer order. Returns (x, new_caches)."""
     new_caches = []
-    for i, bp in enumerate(params["blocks"]):
+    for i, (bp, kind) in enumerate(zip(params["blocks"],
+                                       cfg.layer_kinds())):
         c = caches[i] if caches is not None else None
-        x, nc = apply_block(bp, x, cfg, ctx, cache=c, want_cache=want_caches)
+        x, nc = apply_block(bp, x, kind, cfg, ctx, cache=c,
+                            want_cache=want_caches)
         new_caches.append(nc)
     return x, new_caches
 
@@ -146,6 +215,29 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
 # --------------------------------------------------------------------------
 # caches and page-granular movement
 # --------------------------------------------------------------------------
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                     cache_len: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Per-slot state of one layer: RWKV's [B,H,hd,hd] fp32 carry and its
+    two token-shift rows [B,D] in the model dtype. Per-slot attention
+    slabs ([B, cache_len, KV, hd], the dense layout) are ROADMAP A4c."""
+    if kind != "rwkv":
+        raise ValueError(f"per-slot {kind!r} caches are not ported yet: "
+                         f"the dense layout's attention slabs are ROADMAP "
+                         f"item A4c")
+    d, hd = cfg.d_model, cfg.rwkv.head_dim
+    return {"wkv": torch.zeros(batch, d // hd, hd, hd, dtype=torch.float32,
+                               device=device),
+            "shift_tm": torch.zeros(batch, d, dtype=dtype, device=device),
+            "shift_cm": torch.zeros(batch, d, dtype=dtype, device=device)}
+
+
+def init_stack_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype,
+                      device) -> List[Dict[str, torch.Tensor]]:
+    """Per-slot state of every layer, in layer order."""
+    return [init_block_cache(cfg, kind, batch, cache_len, dtype, device)
+            for kind in cfg.layer_kinds()]
+
 
 def init_paged_stack_caches(cfg: ModelConfig, n_pages: int, page_size: int,
                             dtype, device) -> List[Dict[str, torch.Tensor]]:

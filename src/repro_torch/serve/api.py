@@ -6,7 +6,8 @@ drives subsystems behind protocols, selected by name from
 
   Scheduler        <- Queue Subsystem: admission order over QoS classes
   StateBackend     <- Resource Subsystem: page accounting + the decode
-                      state layout (the paged KV pool behind page tables)
+                      state layout (the paged KV pool behind page tables,
+                      or per-slot recurrent carries)
   ParkingTransport <- Transport Subsystem: host-tier park/restore moves
   Sampler          <- per-token selection on the device
 
@@ -76,11 +77,12 @@ class EngineConfig:
                                        compare=False)
 
     def __post_init__(self):
-        if self.kv_layout != "paged":
+        if self.kv_layout not in ("paged", "recurrent"):
             raise ValueError(
                 f"kv_layout {self.kv_layout!r} is not ported yet: the port "
-                f"serves 'paged' only; the 'dense' backend waits for a "
-                f"later slice (ROADMAP queue A4)")
+                f"serves 'paged' (attention) and 'recurrent' (RWKV); the "
+                f"'dense' backend waits for ROADMAP item A4c and 'latent' "
+                f"for A8")
         if self.sampler != "greedy":
             raise ValueError(
                 f"sampler {self.sampler!r} is not ported yet: the port "
@@ -131,8 +133,14 @@ class StateBackend(Protocol):
     """A slot's decode-state layout + page accounting. `append` is
     alloc-on-append growth, `reserve_span` claims a decode span's pages
     up front, `sync` re-exports the page tables into the decode state
-    when they changed."""
-    needs_growth: bool
+    when they changed. Capability flags route the engine instead of
+    config sniffing: `needs_growth` gates span reservation, pool growth
+    and prefix-cache eviction; `supports_chunked_prefill` and
+    `supports_prefix_share` gate streaming prefill and the block prefix
+    cache (both off in the port until ROADMAP A4b)."""
+    needs_growth: bool            # True if capacity can run out mid-decode
+    supports_chunked_prefill: bool  # slot state extends a chunk at a time
+    supports_prefix_share: bool   # per-token blocks can back a PrefixCache
     pool: Any
 
     def init_state(self) -> dict: ...

@@ -8,7 +8,10 @@ decode up to ``decode_span`` tokens on the device with the active mask
 freezing finished and parked slots. Stop conditions (EOS, max_new_tokens,
 cache_len, span budget) are evaluated on the device, and the host reads
 the emitted tokens once per span. Prefill is monolithic. Parked slots'
-KV really moves to host tensors and back.
+state (KV pages, or a recurrent carry) really moves to host tensors and
+back. The loop never branches on the layout: the backend's
+`needs_growth` decides admission charges, growth, span reservation and
+prefix-cache eviction.
 
 Every read the serving loop makes off the device goes through
 ``_host_sync``, so ``host_syncs == prefills + decode_spans``.
@@ -135,7 +138,10 @@ class ServingEngine:
             req: Optional[Request] = self.sched.next()
             if req is None:
                 break
-            n_tok = len(req.prompt) + 1          # prompt + first decode token
+            if self.kv.needs_growth:
+                n_tok = len(req.prompt) + 1      # prompt + first decode token
+            else:
+                n_tok = self.kv.footprint(req)   # reserved up front
             if not self._append_or_free(req.req_id, n_tok,
                                         self.sched.class_of(req)):
                 self.kv.release(req.req_id)
@@ -181,12 +187,14 @@ class ServingEngine:
 
     def _claim_reclaim(self, claim) -> bool:
         """Run a page-claiming thunk, dropping LRU prefix-cache blocks
-        under page pressure (inert while the cache is empty)."""
+        under page pressure when the backend grows (inert while the cache
+        is empty)."""
         if claim():
             return True
-        while self.prefix.evict_one():
-            if claim():
-                return True
+        if self.kv.needs_growth:
+            while self.prefix.evict_one():
+                if claim():
+                    return True
         return False
 
     def _append_reclaim(self, req_id: int, n_tok: int) -> bool:
@@ -255,7 +263,8 @@ class ServingEngine:
                 continue
             ok, self.state = self.kv.unpark(
                 self.state, meta.slot, req, caches, meta)
-            while not ok and self.prefix.evict_one():
+            while (not ok and self.kv.needs_growth
+                   and self.prefix.evict_one()):
                 ok, self.state = self.kv.unpark(
                     self.state, meta.slot, req, caches, meta)
             if not ok:

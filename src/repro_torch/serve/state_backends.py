@@ -1,13 +1,19 @@
-"""Built-in StateBackend of the port (Resource Subsystem): ``paged``.
+"""Built-in StateBackends of the port (Resource Subsystem): ``paged`` and
+``recurrent``.
 
-`PagedKV` keeps a shared `[n_pages, page_size, KV, hd]` pool per layer
-behind per-slot page tables, the MTT made into the memory layout, with
-the `PagePool` doing the accounting. Admission charges the prompt
-footprint only, growth happens at page boundaries, park moves exactly a
-sequence's pages to host tensors, and `sync` re-exports the tables into
-the decode state only when park/admit/growth dirtied them. Pool tensors
-are written in place. The ``dense``, ``latent`` and ``recurrent``
-backends of the JAX package wait for their slices (ROADMAP queue A).
+- `PagedKV` ("paged") keeps a shared `[n_pages, page_size, KV, hd]` pool
+  per layer behind per-slot page tables, the MTT made into the memory
+  layout, with the `PagePool` doing the accounting. Admission charges the
+  prompt footprint only, growth happens at page boundaries, park moves
+  exactly a sequence's pages to host tensors, and `sync` re-exports the
+  tables into the decode state only when park/admit/growth dirtied them.
+- `RecurrentState` ("recurrent") holds pure RWKV stacks' constant-size
+  carries (`[H, hd, hd]` wkv state + two token-shift rows per layer) in
+  per-slot slabs: footprint 1, no growth, park/unpark moves the carry.
+
+State tensors are written in place. The ``dense`` and ``latent``
+backends of the JAX package wait for their slices (ROADMAP queue A);
+`DenseKV` here holds only the slab methods `RecurrentState` inherits.
 """
 from __future__ import annotations
 
@@ -31,6 +37,11 @@ class _PooledKV:
         self.ecfg = ecfg
         self.device = device
         self.pool = PagePool(ecfg.n_pages, ecfg.page_size)
+
+    # capability flags (StateBackend protocol): chunked prefill and the
+    # block prefix cache are not ported yet (ROADMAP A4b)
+    supports_chunked_prefill = False
+    supports_prefix_share = False
 
     def admission_error(self, req: Request) -> Optional[str]:
         """A single request needing more pages than the whole pool can
@@ -124,3 +135,132 @@ class PagedKV(_PooledKV):
                 device=self.device)
             self._dirty = False
         return state
+
+
+# -- per-slot slabs: insert / extract / restore ------------------------
+#
+# Per-slot state is a list with one dict of [slots, ...] tensors per
+# layer (the port holds one block per layer, so there is no group axis to
+# pick around). These write the slot's rows in place.
+
+def _slot_restore(dst, src, slot: int):
+    """Insert a batch-free cache list (from _slot_extract) into slot
+    ``slot`` of ``dst``."""
+    for d_layer, s_layer in zip(dst, src):
+        for k, d in d_layer.items():
+            d[slot].copy_(s_layer[k])
+    return dst
+
+
+def _slot_insert(dst, src, slot: int):
+    """Insert a batch-1 cache list ``src`` (a prefill's) into slot
+    ``slot`` of ``dst``."""
+    return _slot_restore(dst, [{k: t[0] for k, t in layer.items()}
+                               for layer in src], slot)
+
+
+def _slot_extract(tree, slot: int):
+    """Pull slot ``slot`` out of every layer (host copies)."""
+    return [{k: t[slot].cpu() for k, t in layer.items()} for layer in tree]
+
+
+class DenseKV(_PooledKV):
+    """Per-slot slabs, no indirection tables: `sync` is a no-op and
+    capacity never runs out mid-decode (`needs_growth = False`). The
+    registered ``dense`` layout (its attention slabs, footprint and
+    unpark) is ROADMAP A4c; this holds what `RecurrentState` inherits."""
+
+    needs_growth = False
+
+    def init_state(self) -> dict:
+        return lm.init_serve_state(self.cfg, self.ecfg.slots,
+                                   self.ecfg.cache_len, device=self.device)
+
+    def prefill_into_slot(self, state: dict, slot: int, req_id: int,
+                          caches, length: int) -> dict:
+        _slot_insert(state["caches"], caches, slot)
+        return state
+
+    def park(self, state: dict, slot: int,
+             req_id: int) -> Tuple[Any, ParkMeta]:
+        caches = _slot_extract(state["caches"], slot)
+        meta = ParkMeta(int(state["lengths"][slot]),
+                        int(state["positions"][slot]), slot, 0)
+        self.pool.release(req_id)
+        return caches, meta
+
+    def mark_dirty(self) -> None:
+        pass
+
+    def sync(self, state: dict,
+             slot_req_ids: List[Optional[int]]) -> dict:
+        return state
+
+
+@register_state_backend("recurrent")
+class RecurrentState(DenseKV):
+    """Constant-size recurrent carries for pure RWKV stacks.
+
+    The state a slot decodes from is the scan carry itself (RWKV's
+    `[H, hd, hd]` wkv matrix + token-shift rows), which never grows with
+    sequence length. So: `footprint()` is 1 (one accounting page pins the
+    slot), `needs_growth = False` (the engine never reserves spans or
+    grows), park/unpark moves the carry with no page movement
+    (`ParkMeta.n_pages = 0`), and prefill runs the chunked scan (kernel
+    B4) and hands the final carry to the slot through `_slot_insert`.
+
+    Prefix sharing and chunked prefill are declined: a recurrent carry
+    folds the whole prefix into one tensor, so there are no per-token
+    blocks to share or to extend chunk-wise.
+    """
+
+    supports_chunked_prefill = False     # never, whatever A4b brings
+    supports_prefix_share = False
+
+    def __init__(self, cfg, ecfg: EngineConfig, device):
+        if not tf.recurrent_state_supported(cfg):
+            kinds = sorted(set(cfg.layer_kinds()))
+            raise ValueError(
+                f"recurrent state serving needs every mixer to carry a "
+                f"constant-size recurrence (mamba/rwkv); {cfg.name} has "
+                f"layer kinds {kinds}: attention layers grow per token, "
+                f"use the 'paged' layout")
+        super().__init__(cfg, ecfg, device)
+
+    def footprint(self, req: Request) -> int:
+        # one accounting page marks the slot resident in the MTT; the
+        # carry's bytes are fixed at init and never grow
+        return 1
+
+    def admission_error(self, req: Request) -> Optional[str]:
+        return None               # constant-size state always fits a slot
+
+    def slot_caches(self, state: dict, slot: int, req_id: int):
+        raise NotImplementedError(
+            "recurrent state has no per-token rows to stage: chunked "
+            "prefill is unsupported (supports_chunked_prefill = False)")
+
+    def store_chunk(self, state: dict, slot: int, req_id: int, caches,
+                    start: int, n_tokens: int) -> dict:
+        raise NotImplementedError(
+            "recurrent state has no per-token rows to extend: chunked "
+            "prefill is unsupported (supports_chunked_prefill = False)")
+
+    def share_prefix(self, state: dict, slot: int, req_id: int,
+                     payloads, n_tokens: int) -> dict:
+        raise NotImplementedError(
+            "a recurrent carry folds the whole prefix into one tensor: "
+            "no per-token blocks to share (supports_prefix_share = False)")
+
+    def block_payload(self, state: dict, slot: int, req_id: int,
+                      block: int) -> Any:
+        raise NotImplementedError(
+            "a recurrent carry folds the whole prefix into one tensor: "
+            "no per-token blocks to export (supports_prefix_share = False)")
+
+    def unpark(self, state: dict, slot: int, req: Request, caches,
+               meta: ParkMeta) -> Tuple[bool, dict]:
+        if not self.pool.ensure_capacity(req.req_id, 1):
+            return False, state
+        _slot_restore(state["caches"], caches, slot)
+        return True, state

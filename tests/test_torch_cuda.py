@@ -1,5 +1,6 @@
 """The port on a CUDA card: each kernel against its plain version, and
-the serving engine on the card against the same engine on the CPU.
+the serving engine on the card against the same engine on the CPU, on
+the paged (qwen3-8b) and recurrent (rwkv6-1.6b) backends.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.registry import SMOKE_CONFIGS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import wkv6  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
@@ -119,3 +121,104 @@ def test_decode_span_never_syncs_on_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert emit.sum(0).tolist() == [8, 3, 0]
     assert state["positions"].tolist() == [13, 12, 0]
+
+
+def _wkv_inputs(rng, B, S, H, hd, dtype, cuda):
+    """r, k, v in `dtype`; logw in the model's clamp range; u, S0 fp32."""
+    r, k, v = [_randn(rng, B, S, H, hd).to(cuda, dtype) for _ in range(3)]
+    logw = -torch.exp(torch.clamp(_randn(rng, B, S, H, hd), -8, 0.5))
+    u = _randn(rng, H, hd) * 0.1
+    s0 = _randn(rng, B, H, hd, hd) * 0.1
+    return r, k, v, logw.to(cuda), u.to(cuda), s0.to(cuda)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_chunked_kernel_matches_plain(cuda, dtype, S):
+    """Both run fp32 math on the same (upcast) inputs: the tolerances of
+    tests/test_kernels.py, y 2e-4 and state 2e-5, for either r/k/v
+    dtype. S = 37 leaves a ragged tail, S = 1 a chunk of one."""
+    rng = np.random.default_rng(7 + S)
+    xs = _wkv_inputs(rng, 2, S, 4, 64, dtype, cuda)
+    n = wkv6.wkv6_chunked.launches
+    y, s = wkv6.wkv6_chunked(*xs)
+    assert wkv6.wkv6_chunked.launches == n + 1
+    ey, es = wkv6.wkv6_chunked_plain(*xs)
+    torch.testing.assert_close(y, ey, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(s, es, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_decode_kernel_matches_plain(cuda, dtype):
+    """One token per (slot, head) at 1e-5, and the t = 1 column of the
+    chunked kernel gives the same token."""
+    rng = np.random.default_rng(8)
+    r, k, v, logw, u, s0 = _wkv_inputs(rng, 4, 1, 8, 64, dtype, cuda)
+    w = torch.exp(logw)
+    n = wkv6.wkv6_decode.launches
+    y, s = wkv6.wkv6_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+    assert wkv6.wkv6_decode.launches == n + 1
+    ey, es = wkv6.wkv6_decode_plain(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
+                                    s0)
+    torch.testing.assert_close(y, ey, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s, es, atol=1e-5, rtol=1e-5)
+    cy, cs = wkv6.wkv6_chunked(r, k, v, torch.log(w), u, s0, chunk=1)
+    torch.testing.assert_close(cy[:, 0], y, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(cs, s, atol=2e-5, rtol=2e-5)
+
+
+def test_rwkv_engine_on_card_matches_cpu(cuda):
+    """fp32 SMOKE rwkv6 on the recurrent backend with fewer pages than
+    slots, so it parks: the card's streams (kernels B3/B4) equal the
+    CPU's (plain versions), through both kernels."""
+    cfg = SMOKE_CONFIGS["rwkv6-1.6b"].scaled(dtype="float32")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (31, 26, 40, 13)]
+    streams, stats = {}, {}
+    chunked, decode = wkv6.wkv6_chunked.launches, wkv6.wkv6_decode.launches
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        eng = ServingEngine(cfg, p, api.EngineConfig(
+            slots=3, cache_len=64, page_size=8, n_pages=2, eos_token=-1,
+            decode_span=8, kv_layout="recurrent"), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(api.Request(i, pr, max_new_tokens=12))
+        streams[dev] = {r.req_id: r.tokens_out
+                        for r in eng.run_until_done()}
+        stats[dev] = eng.stats
+    st = stats["cuda"]
+    assert st["parked"] > 0 and st["unparked"] == st["parked"]
+    assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+    assert (wkv6.wkv6_chunked.launches - chunked
+            == cfg.n_layers * st["prefills"])
+    assert (wkv6.wkv6_decode.launches - decode
+            == cfg.n_layers * st["decode_steps"])
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_rwkv_decode_span_never_syncs_on_card(cuda):
+    """No host synchronisation inside an RWKV decode span on the card,
+    the freeze of inactive slots included."""
+    cfg = SMOKE_CONFIGS["rwkv6-1.6b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    state = lm.init_serve_state(cfg, 3, 64, device=cuda)
+    state["lengths"][:] = torch.tensor([5, 9, 0], dtype=torch.int32)
+    state["positions"].copy_(state["lengths"])
+    frozen = state["caches"][0]["wkv"][2].clone()
+    args = (torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda),)
+    active = torch.tensor([True, True, False], device=cuda)
+    budgets = torch.tensor([8, 3, 8], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emit, state = lm.decode_span(
+            params, *args, state, cfg, active, budgets, span=8,
+            eos_token=-1, cache_len=32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert emit.sum(0).tolist() == [8, 3, 0]
+    assert state["positions"].tolist() == [13, 12, 0]
+    assert torch.equal(state["caches"][0]["wkv"][2], frozen)

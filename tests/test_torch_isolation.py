@@ -58,3 +58,21 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                             device="cpu")
     assert params["embed"].device.type == "cpu"
     assert len(params["blocks"]) == cfg.n_layers
+
+
+def test_rwkv_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    from repro_torch.models import lm
+    from repro_torch.serve.api import EngineConfig
+    from repro_torch.serve.engine import ServingEngine
+    cfg = SMOKE_CONFIGS["rwkv6-1.6b"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_serve_state(cfg, 2, 64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, EngineConfig(kv_layout="recurrent"))
+    state = lm.init_serve_state(cfg, 2, 64, device="cpu")
+    assert state["caches"][0]["wkv"].device.type == "cpu"
