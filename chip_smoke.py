@@ -8,21 +8,25 @@ Phases, each printing one JSON object per line:
 1. device  — card name, power limit (nvidia-smi), torch and CUDA versions;
 2. build   — nvcc build of every kernel source in the checkout;
 3. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 WKV-6
-             decode, B4 WKV-6 chunked prefill) against its plain PyTorch
-             version on the card, on the shape sweeps of
-             tests/test_kernels.py and at the serving paths' shapes, with
-             CUDA-event times of the kernel, the plain version and a
+             decode, B4 WKV-6 chunked prefill, B7 MoE dispatch) against
+             its plain PyTorch version on the card, on the shape sweeps
+             of tests/test_kernels.py and at the serving paths' shapes,
+             with CUDA-event times of the kernel, the plain version and a
              library call where one exists, and the bound;
-4. model   — qwen3-8b and rwkv6-1.6b at full width, 2 layers, fp32 (TF32
-             off): prefill and decode on the card (kernels) against the
-             CPU (plain path) on the same weights;
-5. serve   — qwen3-8b through the paged engine and rwkv6-1.6b through the
-             recurrent engine, each at full width and depth in bf16: 8
-             requests, launch counts of the path's kernels, a second run
-             that must give identical streams (for rwkv6 a third with
-             fewer pages than slots, which parks and must agree too), and
-             one decode span traced with torch.profiler;
-6. the kernels line, the nvidia-smi line, and the final ok line.
+4. model   — qwen3-8b, rwkv6-1.6b and moonshot-v1-16b-a3b at full width,
+             2 layers, fp32 (TF32 off): prefill and decode on the card
+             (kernels) against the CPU (plain path) on the same weights;
+             for the MoE model, any token whose top-k expert set differs
+             between the two is reported with its router gap;
+5. serve   — qwen3-8b and moonshot-v1-16b-a3b through the paged engine and
+             rwkv6-1.6b through the recurrent engine, each at full width
+             and depth in bf16: 8 requests, launch counts of the path's
+             kernels, a second run that must give identical streams (for
+             rwkv6 and moonshot a third with fewer pages, which parks and
+             must agree too), and one decode span traced with
+             torch.profiler;
+6. the kernels line, the total wall time, the nvidia-smi line, and the
+   final ok line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository, and on any failed check.
@@ -50,11 +54,19 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention.py:119"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:117"
 WKV_DECODE_REPLACES = "src/repro/kernels/wkv6.py:101"
 WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
+MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
+# the __global__ functions of src/repro_torch/kernels/csrc/
+PORT_KERNELS = ("paged_decode_kernel", "flash_fwd_kernel",
+                "wkv6_chunked_kernel", "wkv6_decode_kernel",
+                "moe_dispatch_kernel")
 # WKV-6 outputs are fp32 whatever r/k/v's dtype, and kernel and plain
 # version do fp32 math on the same upcast inputs: the tolerances of
 # tests/test_kernels.py for the chunked y and state, and for decode
 WKV_TOL = {"y": 2e-4, "state": 2e-5, "decode": 1e-5}
 NO_WKV_LIBRARY = "none: no single PyTorch call computes WKV-6"
+# the router's gap between its k-th and (k+1)-th expert below which a
+# card-vs-CPU difference in the top-k set counts as a tie, not a fault
+ROUTE_TIE = 1e-5
 
 
 def emit(obj) -> None:
@@ -293,8 +305,54 @@ def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
     return rec
 
 
+def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True):
+    """Exact equality with the plain version. Ids are uniform over the
+    experts, positions their cumsum, as the MoE layer computes them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randn(T, D, generator=g, device="cuda").to(dtype)
+    eids = torch.randint(0, E, (T,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    onehot = (eids[:, None] == torch.arange(E, device="cuda")).to(
+        torch.int32)
+    pos = torch.cumsum(onehot, 0, dtype=torch.int32).gather(
+        1, eids[:, None].long())[:, 0] - 1
+    out = md.moe_dispatch(toks, eids, pos, E, C)
+    torch.cuda.synchronize()
+    ref = md.moe_dispatch_plain(toks, eids, pos, E, C)
+    ok = bool(torch.equal(out, ref))
+    keep = pos < C
+    kept = int(keep.sum())
+    # kept rows read once, ids and positions read once, the whole buffer
+    # written once; no arithmetic
+    b_ms, b_by = bound(toks.element_size() * D * (kept + E * C) + 8 * T,
+                       0.0, str(dtype).split(".")[-1])
+    rec = {"phase": "kernels", "kernel": "moe_dispatch",
+           "shape": {"T": T, "D": D, "E": E, "C": C}, "kept": kept,
+           "dtype": str(dtype).split(".")[-1],
+           "max_err": _max_err(torch, ((out, ref),)), "tol": 0.0,
+           "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(
+            lambda: md.moe_dispatch(toks, eids, pos, E, C), torch)
+        rec["plain_ms"] = time_ms(
+            lambda: md.moe_dispatch_plain(toks, eids, pos, E, C), torch)
+        k_t, k_e, k_p = toks[keep], eids[keep].long(), pos[keep].long()
+
+        def library():
+            return torch.zeros(E, C, D, dtype=dtype,
+                               device="cuda").index_put_((k_e, k_p), k_t)
+        rec["library_ms"] = time_ms(library, torch)
+        rec["library"] = "torch.zeros + index_put_ of the kept rows"
+        ok = ok and bool(torch.equal(library(), out))
+        rec["ok"] = ok
+    emit(rec)
+    require(ok, f"moe_dispatch is not equal to its plain version: {rec}")
+    return rec
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
     f32, bf16 = torch.float32, torch.bfloat16
@@ -317,6 +375,10 @@ def phase_kernels(torch):
                               timed=False)
         for B, H, hd in ((2, 2, 8), (1, 3, 16), (4, 1, 8)):
             check_wkv_decode(torch, wk, B, H, hd, dtype, timed=False)
+        # the sweep of tests/test_kernels.py, and rows of an odd width
+        for T, D, E, C in ((64, 32, 8, 12), (100, 16, 4, 40), (32, 8, 2, 4),
+                           (128, 64, 16, 8), (48, 7, 3, 5)):
+            check_moe_dispatch(torch, md, T, D, E, C, dtype, timed=False)
     # the serving path's shapes (qwen3-8b: H 32, KV 8, hd 128)
     main = {}
     for S in (200, 1000, 1531):
@@ -329,6 +391,20 @@ def phase_kernels(torch):
         main[("wkv6_chunked", S)] = check_wkv_chunked(torch, wk, 1, S, 32,
                                                       64, bf16)
     main[("wkv6_decode", 4)] = check_wkv_decode(torch, wk, 4, 32, 64, f32)
+    # moonshot-v1-16b-a3b's: attention at H = KV = 16, hd 128; dispatch of
+    # a 1900-token prompt's 6 picks per token (C 223) and of a decode
+    # step's 4 slots (C 4), exact in fp32 and bf16, timed in bf16
+    for S in (1000, 1900):
+        main[("flash_moonshot", S)] = check_flash(torch, fa, 1, 16, 16, S,
+                                                  128, bf16)
+    main[("paged_moonshot", 128)] = check_paged(torch, pa, 4, 16, 16, 128,
+                                                640, 16, 128, bf16)
+    for dtype in (f32, bf16):
+        for key, T, C in (("prefill", 1900 * 6, 223), ("decode", 4 * 6, 4)):
+            rec = check_moe_dispatch(torch, md, T, 2048, 64, C, dtype,
+                                     timed=dtype == bf16)
+            if dtype == bf16:
+                main[("moe_dispatch", key)] = rec
     return main
 
 
@@ -373,8 +449,16 @@ def _paged_state(torch, lm, tf, cfg, caches, n_seq, length, page,
 
 def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
                 tol=2e-3, device="cuda"):
+    """Prefill and ``steps`` decode steps on the card and on the CPU, on
+    the same fp32 weights: hidden state, logits (and RWKV's carry) within
+    ``tol``, equal greedy tokens. Routing is a discontinuity: a token that
+    the card's MoE router sends to another top-k set than the CPU's must
+    be a tie (a gap under ROUTE_TIE between the k-th and (k+1)-th
+    probability); it is reported, left out of the ``tol`` comparison and
+    its logits are checked on their own (finite on both)."""
     import numpy as np
     from repro_torch.models import lm
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tf
     from repro_torch.models.layers import rms_norm
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -387,13 +471,82 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
     errs = {}
     page = 16
     max_pages = -(-(n_prompt + steps) // page)
+    # a flip in the last layer's MoE changes only its own token's row
+    moe_layers = [i for i, k in enumerate(cfg.mlp_kinds()) if k == "moe"]
+    require(moe_layers in ([], [cfg.n_layers - 1]),
+            f"model phase: the routing check needs at most one MoE layer, "
+            f"the last; {cfg.name} has {moe_layers}")
+    routes = {"cpu": [], "card": []}            # per run, in call order
+    run = ["cpu"]
+    flips = []
+    inner_moe = moe_mod.moe_mlp
 
-    def close(name, a, b):
+    def recording_moe_mlp(x, p, c, capacity_factor=None):  # measurement
+        probs, _, top_e = moe_mod.route(x, p["router"], c.moe.top_k)
+        cap = moe_mod.capacity(x.shape[1], c, capacity_factor)
+        routes[run[0]].append((probs.cpu(), top_e.cpu(), cap))
+        return inner_moe(x, p, c, capacity_factor)
+
+    def kept_experts(top_e, cap):
+        """Each token's experts that kept it (sorted, -1 where its queue
+        was full): a flip can shift later tokens' queue positions."""
+        G, S, K = top_e.shape
+        flat = top_e.reshape(G, S * K)
+        onehot = (flat[..., None] == torch.arange(cfg.moe.n_experts)).int()
+        pos = onehot.cumsum(1).gather(-1, flat[..., None])[..., 0] - 1
+        return torch.where(pos < cap, flat, -1).reshape(G, S, K).sort(
+            -1).values
+
+    def flipped(call):
+        """Rows (g, s) of MoE call ``call`` that the card and the CPU
+        route differently: a top-k set that differs must be a tie (router
+        gap under ROUTE_TIE); a set that agrees but was kept by other
+        experts was pushed out of a queue by such a tie."""
+        if not moe_layers:
+            return []
+        K = cfg.moe.top_k
+        (pc, ec, cap), (_, eg, _) = routes["cpu"][call], routes["card"][call]
+        differs = (ec.sort(-1).values != eg.sort(-1).values).any(-1)
+        shifted = (kept_experts(ec, cap) != kept_experts(eg, cap)).any(-1)
+        rows = []
+        for g, s in (differs | shifted).nonzero().tolist():
+            rows.append((g, s))
+            if not differs[g, s]:
+                require(bool(differs[g].any()),
+                        f"model phase: MoE call {call} keeps token {(g, s)} "
+                        f"in other queues on the card with no flip before")
+                flips.append({"call": call, "row": [g, s],
+                              "cause": "queue position moved by a flip"})
+                continue
+            p = pc[g, s].sort(descending=True).values
+            gap = float(p[K - 1] - p[K])
+            flips.append({"call": call, "row": [g, s], "gap": gap})
+            require(gap < ROUTE_TIE,
+                    f"model phase: MoE call {call} routes token {(g, s)} to "
+                    f"another top-{K} set on the card, router gap {gap} >= "
+                    f"{ROUTE_TIE}")
+        return rows
+
+    def close(name, a, b, skip=()):
         a, b = a.float().cpu(), b.float()
+        if skip:                               # flipped rows, checked apart
+            keep = torch.ones(a.shape[:len(skip[0])], dtype=torch.bool)
+            for idx in skip:
+                keep[idx] = False
+            a, b = a[keep], b[keep]
         errs[name] = max(errs.get(name, 0.0), float((a - b).abs().max()))
         require(bool(torch.allclose(a, b, atol=tol, rtol=tol)),
                 f"model phase: {name} differs beyond {tol} "
                 f"(max abs {errs[name]})")
+
+    def check_flipped(call, row, a, b):
+        """A flipped token's logits: finite on both, the error reported."""
+        a, b = a.float().cpu(), b.float()
+        require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                "model phase: a flipped token's logits are not finite")
+        for f in flips:
+            if (f["call"], tuple(f["row"])) == (call, row):
+                f["logits_max_abs_err"] = float((a - b).abs().max())
 
     # attention stacks decode through a page table; RWKV stacks carry
     # per-slot state, compared layer by layer after prefill and each step
@@ -407,43 +560,72 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
             for key in a_layer:
                 close(f"{name}_{key}", a_layer[key], b_layer[key])
 
-    runs = {}
-    for dev, params in (("cpu", p_cpu), (device, p_gpu)):
-        t = torch.as_tensor(tokens, device=dev)
-        x, _ = tf.apply_stack(params, lm.embed(params["embed"], t), cfg,
-                              {"mode": "prefill"})
-        hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        logits, st = lm.prefill(params, t, cfg,
-                                cache_len=max_pages * page)
-        if paged:
-            st = _paged_state(torch, lm, tf, cfg, st["caches"], n_seq,
-                              n_prompt, page, max_pages, dev)
-        runs[dev] = {"params": params, "hidden": hidden, "logits": [logits],
-                     "state": st}
-    cpu, card = runs["cpu"], runs[device]
-    close("prefill_hidden", card["hidden"], cpu["hidden"])
-    close("prefill_logits", card["logits"][0], cpu["logits"][0])
-    close_state("prefill_state")
-    toks = []
-    for _ in range(steps):
-        want = lm.select_token(cpu["logits"][-1])
-        got = lm.select_token(card["logits"][-1]).cpu()
-        require(torch.equal(want, got),
-                f"model phase: greedy tokens differ: {want} vs {got}")
-        toks.append(got.tolist())
-        for r in (cpu, card):
-            dev = r["state"]["lengths"].device
-            lg, r["state"] = lm.decode_step(r["params"], want.to(dev),
-                                            r["state"], cfg)
-            r["logits"].append(lg)
-        close("decode_logits", card["logits"][-1], cpu["logits"][-1])
-        close_state("decode_state")
+    moe_mod.moe_mlp = recording_moe_mlp
+    try:
+        runs = {}
+        for name, dev, params in (("cpu", "cpu", p_cpu),
+                                  ("card", device, p_gpu)):
+            run[0] = name
+            t = torch.as_tensor(tokens, device=dev)
+            x, _ = tf.apply_stack(params, lm.embed(params["embed"], t), cfg,
+                                  {"mode": "prefill"})
+            hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            logits, st = lm.prefill(params, t, cfg,
+                                    cache_len=max_pages * page)
+            if paged:
+                st = _paged_state(torch, lm, tf, cfg, st["caches"], n_seq,
+                                  n_prompt, page, max_pages, dev)
+            runs[name] = {"params": params, "hidden": hidden,
+                          "logits": [logits], "state": st}
+        cpu, card = runs["cpu"], runs["card"]
+        rows = flipped(0)
+        close("prefill_hidden", card["hidden"], cpu["hidden"], rows)
+        for g, s in rows:
+            check_flipped(0, (g, s), *(lm.head_logits(r["hidden"][g, s],
+                                           lm._head_weight(r["params"], cfg))
+                            for r in (card, cpu)))
+        # the last token's logits: row g flips if its last token did
+        last = [(g,) for g, s in flipped(1) if s == n_prompt - 1]
+        close("prefill_logits", card["logits"][0], cpu["logits"][0], last)
+        for (g,) in last:
+            check_flipped(1, (g, n_prompt - 1), card["logits"][0][g],
+                          cpu["logits"][0][g])
+        close_state("prefill_state")
+        toks = []
+        for i in range(steps):
+            want = lm.select_token(cpu["logits"][-1])
+            got = lm.select_token(card["logits"][-1]).cpu()
+            same = [want[b] == got[b] for b in range(n_seq)
+                    if (b,) not in last]
+            require(all(same),
+                    f"model phase: greedy tokens differ: {want} vs {got}")
+            toks.append(got.tolist())
+            for name, r in runs.items():
+                run[0] = name
+                dev = r["state"]["lengths"].device
+                lg, r["state"] = lm.decode_step(r["params"], want.to(dev),
+                                                r["state"], cfg)
+                r["logits"].append(lg)
+            # decode tokens are one MoE group: row (0, b) is slot b
+            last = [(s,) for _, s in flipped(2 + i)]
+            close("decode_logits", card["logits"][-1], cpu["logits"][-1],
+                  last)
+            for (b,) in last:
+                check_flipped(2 + i, (0, b), card["logits"][-1][b],
+                              cpu["logits"][-1][b])
+            close_state("decode_state")
+    finally:
+        moe_mod.moe_mlp = inner_moe
     rec = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
            "state": "page pools" if paged else "per-slot carry, compared",
            "prompts": [n_prompt] * n_seq, "decode_steps": steps,
            "tol": tol, "max_abs_err": errs, "greedy_tokens": toks,
            "tokens_equal": True}
+    if moe_layers:
+        rec["moe_route_calls"] = len(routes["cpu"])
+        rec["routing_flips"] = flips
+        rec["route_tie"] = ROUTE_TIE
     emit(rec)
     return rec
 
@@ -512,31 +694,62 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e[1])
     busy = sum(ms for _, ms, _ in events) / 1e3
+    # the port's own kernels and the memsets (B7 zeroes its buffer with
+    # one), whatever their rank: their device time per launch in the span
+    ours = [[k[:80], ms, n] for k, ms, n in events
+            if any(f"::{name}<" in k for name in PORT_KERNELS)
+            or k.startswith("Memset")]
     return {"decode_steps": eng.stats["decode_steps"] - steps,
             "wall_s": wall, "device_kernel_s": busy,
             "device_busy_share": busy / wall,
-            "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in events[:10]]}
+            "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in events[:10]],
+            "port_kernels_ms": ours}
 
 
 def _wrappers():
-    """Every kernel wrapper of the port, by kernel name."""
+    """Every kernel wrapper of the port (B1-B4 and B7), by kernel name;
+    each counts its launches in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import wkv6 as wk
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": pa.paged_decode_attention,
             "wkv6_chunked": wk.wkv6_chunked,
-            "wkv6_decode": wk.wkv6_decode}
+            "wkv6_decode": wk.wkv6_decode,
+            "moe_dispatch": md.moe_dispatch}
+
+
+def serve_path(cfg):
+    """The kernels a config's serving path must launch, each mapped to
+    the engine counters its launches follow and the number of layers that
+    launch it once per count: attention layers run B2 once per prefill
+    and B1 once per decode step, RWKV layers B4 and B3, MoE layers B7
+    once per prefill and once per decode step."""
+    kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
+    path = {}
+    for name, n, counters in (
+            ("flash_attention", kinds.count("attn"), ("prefills",)),
+            ("paged_decode_attention", kinds.count("attn"),
+             ("decode_steps",)),
+            ("wkv6_chunked", kinds.count("rwkv"), ("prefills",)),
+            ("wkv6_decode", kinds.count("rwkv"), ("decode_steps",)),
+            ("moe_dispatch", mlps.count("moe") if cfg.moe else 0,
+             ("prefills", "decode_steps"))):
+        if n:
+            path[name] = {c: n for c in counters}
+    return path
 
 
 def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
                 seed=0, device="cuda", park_pages=None):
-    """Serve 8 requests at full width and depth. ``path`` maps each kernel
-    the serving path must run to the counter its launches follow per
-    layer ("prefills" or "decode_steps"); every kernel's count is set to
-    0 just before the run and read just after. With ``park_pages`` a
-    third run with that many pages (fewer than slots) must park, unpark
-    and give the same streams."""
+    """Serve 8 requests at full width and depth. ``path`` (``serve_path``)
+    maps each kernel the serving path must run to the engine counters its
+    launches follow and the layers that launch it per count; every
+    kernel's count is set to 0 just before the run and read just after,
+    and must equal the sum over its counters of layers x count. With
+    ``park_pages`` a third run with that many pages must park, unpark and
+    give the same streams."""
     import dataclasses
     import numpy as np
     from repro_torch.models import lm
@@ -563,9 +776,10 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
             f"{st['prefills']} + decode_spans {st['decode_spans']}")
     n_layers = cfg.n_layers
     for name, per in path.items():
-        require(launches[name] == n_layers * st[per] > 0,
-                f"serve: {name} launches {launches[name]} != {n_layers} x "
-                f"{per} ({st[per]})")
+        want = sum(n * st[c] for c, n in per.items())
+        require(launches[name] == want > 0,
+                f"serve: {name} launches {launches[name]} != "
+                f"{' + '.join(f'{n} x {c} ({st[c]})' for c, n in per.items())}")
     require(all(v == 0 for n, v in launches.items() if n not in path),
             f"serve: a kernel off the {cfg.name} path launched: "
             f"{launches}")
@@ -604,7 +818,7 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
            "prefill_s": prefill_s, "decode_s": decode_s,
            "prefill_tok_per_s": st["prefill_tokens"] / prefill_s,
            "decode_tok_per_s": st["decode_tokens"] / decode_s,
-           "launches": launches, "stats": st,
+           "launches": launches, "launch_path": path, "stats": st,
            "completion_order": [r.req_id for r in done],
            "streams_identical_across_runs": True,
            "parking_run": parking, "traced_decode_span": traced}
@@ -619,25 +833,32 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
 
 def kernel_line(main, serves):
     """One row per kernel: its times at the main serving shape, its
-    launches in the serve run of the path that runs it."""
+    launches summed over the serve runs of the paths that run it (each
+    path's own count in ``launches_by_path``). Every kernel must have run
+    on exactly the paths that declare it, and on at least one."""
     rows = []
-    for name, key, src, replaces in (
+    for name, key, src, replaces, more in (
             ("flash_attention", ("flash", 1531), "flash_attention.cu",
-             FLASH_REPLACES),
+             FLASH_REPLACES, ("flash_moonshot", 1900)),
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
-             PAGED_REPLACES),
+             PAGED_REPLACES, ("paged_moonshot", 128)),
             ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
-             WKV_CHUNKED_REPLACES),
+             WKV_CHUNKED_REPLACES, None),
             ("wkv6_decode", ("wkv6_decode", 4), "wkv6.cu",
-             WKV_DECODE_REPLACES)):
+             WKV_DECODE_REPLACES, None),
+            ("moe_dispatch", ("moe_dispatch", "prefill"), "moe_dispatch.cu",
+             MOE_REPLACES, ("moe_dispatch", "decode"))):
         rec = main[key]
-        launches = [s["launches"][name] for s in serves
-                    if s["launches"][name]]
-        require(len(launches) == 1,
-                f"{name} ran on {len(launches)} serving paths, not one")
+        by_path = {s["arch"]: s["launches"][name] for s in serves
+                   if s["launches"][name]}
+        declared = {s["arch"] for s in serves if name in s["launch_path"]}
+        require(by_path and set(by_path) == declared,
+                f"{name} ran on the paths {sorted(by_path)}, not on "
+                f"{sorted(declared)}")
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{src}",
-               "replaces": replaces, "launches": launches[0],
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
                "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"],
@@ -645,6 +866,11 @@ def kernel_line(main, serves):
                "shape": rec["shape"], "checked": True}
         if "library" in rec:
             row["library"] = rec["library"]
+        if more is not None:
+            m = main[more]
+            row["also_at"] = {k: m[k] for k in (
+                "shape", "max_err", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")}
         rows.append(row)
     return {"kernels": rows}
 
@@ -668,6 +894,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not here ({e}); run from the root "
               f"of a checkout", file=sys.stderr)
         return 2
+    total = Timer()
     try:
         smi = subprocess.run(SMI_QUERY, capture_output=True, text=True,
                              timeout=60).stdout.strip()
@@ -685,16 +912,17 @@ def main() -> int:
         main_shapes = phase_kernels(torch)
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
-        for c in (cfg, rcfg):
+        mcfg = get_config("moonshot-v1-16b-a3b")
+        for c in (cfg, rcfg, mcfg):
             phase_model(torch, c.scaled(n_layers=2, dtype="float32"))
+            gc.collect()
         serves = []
-        for c, layout, n_pages, path, park in (
-                (cfg, "paged", 640,
-                 {"flash_attention": "prefills",
-                  "paged_decode_attention": "decode_steps"}, None),
-                (rcfg, "recurrent", 4,
-                 {"wkv6_chunked": "prefills",
-                  "wkv6_decode": "decode_steps"}, 3)):
+        # moonshot last, after the others' weights are freed: its 56.7 GB
+        # of bf16 weights and 640-page pool (4.0 GB) fit only alone; 200
+        # pages make it park (the largest request needs 121)
+        for c, layout, n_pages, park in ((cfg, "paged", 640, None),
+                                         (rcfg, "recurrent", 4, 3),
+                                         (mcfg, "paged", 640, 200)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -702,9 +930,10 @@ def main() -> int:
                                 n_pages=n_pages, decode_span=8, eos_token=-1,
                                 kv_layout=layout, prefill_chunk=0,
                                 prefix_cache_entries=0)
-            serves.append(phase_serve(torch, c, ecfg, path,
+            serves.append(phase_serve(torch, c, ecfg, serve_path(c),
                                       park_pages=park))
         emit(kernel_line(main_shapes, serves))
+        emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

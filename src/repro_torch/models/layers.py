@@ -56,6 +56,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
+def init_dense_mlp(normal, d_model: int, d_ff: int, dtype) -> dict:
+    """SwiGLU weights with the JAX ``init_dense_mlp`` shapes and scales;
+    ``normal(shape, scale, dtype)`` draws each one."""
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {"w_up": normal((d_model, d_ff), s_in, dtype),
+            "w_down": normal((d_ff, d_model), s_out, dtype),
+            "w_gate": normal((d_model, d_ff), s_in, dtype)}
+
+
 def dense_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU FFN: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
     if cfg.act != "swiglu":

@@ -7,6 +7,10 @@ matrix layout. Decoding state is ``{"caches": [one entry per layer],
 ``"page_table": [B,MP] int32`` when the caches are shared page pools
 (attention) rather than per-slot state (RWKV's carry); decode updates it
 in place.
+
+Three families are served: plain attention with dense SwiGLU MLPs
+(qwen3-8b), the same attention with MoE MLPs after ``first_dense`` dense
+layers (moonshot-v1-16b-a3b), and pure RWKV-6 stacks (rwkv6-1.6b).
 """
 from __future__ import annotations
 
@@ -17,9 +21,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import rwkv
+from repro_torch.models import moe, rwkv
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import init_dense_mlp, rms_norm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -33,6 +37,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     """Random weights with the shapes and scales of the JAX
     ``lm.init_params``: normal draws from ``generator``, made on the
     generator's device and moved to ``device`` (``cuda`` unless given).
+    Layers whose MLP kind is "moe" hold ``{"moe": ...}`` (an fp32 router,
+    experts and shared experts), the others ``{"mlp": ...}``.
     The two frameworks' generators differ, so the numbers do too; the
     weight bridge (models/convert.py) carries JAX weights across."""
     tf.check_supported(cfg)
@@ -42,9 +48,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     H, KV = cfg.n_heads, cfg.n_kv_heads
 
     def normal(shape, scale, dt=dtype):
+        # scaled in place: at full width a MoE layer's expert tensor is
+        # 369 MB, and no second copy of it is ever alive
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=dt)
-        return (x * scale).to(device)
+        return x.mul_(scale).to(device)
 
     def uniform(shape):
         return torch.rand(shape, generator=generator,
@@ -57,7 +65,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         return torch.zeros(n, dtype=dtype, device=device)
 
     params = {"embed": normal((V, d), 0.02), "blocks": []}
-    for kind in cfg.layer_kinds():
+    for kind, mlp_kind in zip(cfg.layer_kinds(), cfg.mlp_kinds()):
         block = {"norm1": ones(d), "norm2": ones(d)}
         if kind == "rwkv":
             block["rwkv"] = rwkv.init_rwkv(cfg, normal, uniform, dtype,
@@ -73,10 +81,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                                      bv=zeros(KV * hd))
             if cfg.qk_norm:
                 block["attn"].update(q_norm=ones(hd), k_norm=ones(hd))
-            block["mlp"] = {
-                "w_up": normal((d, ff), 1.0 / math.sqrt(d)),
-                "w_down": normal((ff, d), 1.0 / math.sqrt(ff)),
-                "w_gate": normal((d, ff), 1.0 / math.sqrt(d))}
+            if mlp_kind == "moe":
+                block["moe"] = moe.init_moe(cfg, normal, dtype)
+            else:
+                block["mlp"] = init_dense_mlp(normal, d, ff, dtype)
         params["blocks"].append(block)
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:

@@ -5,10 +5,15 @@ The JAX model stacks its repeating unit of blocks with a grouped
 eagerly, so the port holds one block per layer, in layer order: a params
 dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
 layer. ``plan_layers`` is kept to read the reference's grouped layout
-(models/convert.py). The port serves two families so far: plain
-attention layers with dense (SwiGLU) MLPs, and pure RWKV-6 stacks (time-
-and channel-mix, no MLP). MLA, sliding-window caches, Mamba and MoE
-layers raise until their slices (ROADMAP queue A).
+(models/convert.py). The port serves three families so far: plain
+attention layers with dense (SwiGLU) MLPs, the same layers with MoE MLPs
+(``models/moe.py``; layers before ``first_dense`` keep a dense MLP), and
+pure RWKV-6 stacks (time- and channel-mix, no MLP). MLA, sliding-window
+caches and Mamba layers raise until their slices (ROADMAP queue A).
+
+MoE layers return the router's stats (``moe_aux``, ``moe_dropped``);
+serving has no loss to add them to and drops them unread, so no value
+crosses to the host.
 
 Cache tensors are updated IN PLACE (paged decode appends, prefill
 inserts, unpark restores, RWKV decode commits its new carry): JAX
@@ -23,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
-from repro_torch.models import rwkv
+from repro_torch.models import moe, rwkv
 from repro_torch.models.attention import (chunked_causal_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
@@ -48,23 +53,23 @@ def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is plain attention + a dense SwiGLU MLP,
-    or every layer is RWKV-6; name the ROADMAP item of any other."""
+    """Raise unless every layer is plain attention with a SwiGLU MLP,
+    dense or MoE, or every layer is RWKV-6; name the ROADMAP item of any
+    other."""
     kinds = set(cfg.layer_kinds())
     mlps = set(cfg.mlp_kinds())
     if kinds == {"rwkv"}:
         return
-    if (kinds == {"attn"} and mlps == {"dense"} and cfg.mla is None
+    if (kinds == {"attn"} and mlps <= {"dense", "moe"} and cfg.mla is None
             and not cfg.swa_window and cfg.act == "swiglu"):
         return
     item = ("A10 (Mamba)" if "mamba" in kinds
             else "A8 (MLA)" if cfg.mla is not None
-            else "A7 (MoE)" if "moe" in mlps
             else "A6 (the rest of the dense family)")
     raise ValueError(
-        f"{cfg.name}: the port serves plain-attention + SwiGLU stacks and "
-        f"pure RWKV-6 stacks so far (layers {sorted(kinds)}, mlps "
-        f"{sorted(mlps)}, mla={cfg.mla is not None}, "
+        f"{cfg.name}: the port serves plain-attention stacks with SwiGLU "
+        f"dense or MoE MLPs and pure RWKV-6 stacks so far (layers "
+        f"{sorted(kinds)}, mlps {sorted(mlps)}, mla={cfg.mla is not None}, "
         f"swa_window={cfg.swa_window}, act={cfg.act}); this family waits "
         f"for ROADMAP item {item}")
 
@@ -181,21 +186,37 @@ def _rwkv_block(p, x, cfg: ModelConfig, ctx, cache, want_cache: bool):
     return x + m, new_cache
 
 
-def apply_block(p, x, kind: str, cfg: ModelConfig, ctx, cache=None,
-                want_cache: bool = False):
-    """One layer of kind ``kind`` ("attn" or "rwkv"). Attention: norm ->
+def _moe_block_mlp(h2, p, cfg: ModelConfig, decode: bool):
+    """The MoE MLP as the reference's ``apply_block`` calls it: decode
+    tokens [B,D] form one group with capacity factor 2.0, prefill runs
+    one group per sequence at the config's factor. The stats are
+    dropped."""
+    if decode:
+        out, _ = moe.moe_mlp(h2[None], p, cfg, capacity_factor=2.0)
+        return out[0]
+    out, _ = moe.moe_mlp(h2, p, cfg)
+    return out
+
+
+def apply_block(p, x, kind: str, mlp_kind: str, cfg: ModelConfig, ctx,
+                cache=None, want_cache: bool = False):
+    """One layer of kind ``kind`` ("attn" or "rwkv") with an MLP of kind
+    ``mlp_kind`` ("dense" or "moe"; RWKV has none). Attention: norm ->
     attention -> residual -> norm -> MLP -> residual. Returns
     (x, new_cache)."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, ctx, cache, want_cache)
+    decode = ctx["mode"] == "decode"
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if ctx["mode"] == "decode":
+    if decode:
         a, new_cache = attn_decode_paged(h, p["attn"], cfg, ctx, cache)
     else:
         a, new_cache = attn_forward(h, p["attn"], cfg, ctx,
                                     want_cache=want_cache)
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        return x + _moe_block_mlp(h2, p["moe"], cfg, decode), new_cache
     return x + dense_mlp(h2, p["mlp"], cfg), new_cache
 
 
@@ -203,10 +224,10 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                 want_caches: bool = False):
     """Run every block in layer order. Returns (x, new_caches)."""
     new_caches = []
-    for i, (bp, kind) in enumerate(zip(params["blocks"],
-                                       cfg.layer_kinds())):
+    for i, (bp, kind, mlp_kind) in enumerate(zip(
+            params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
         c = caches[i] if caches is not None else None
-        x, nc = apply_block(bp, x, kind, cfg, ctx, cache=c,
+        x, nc = apply_block(bp, x, kind, mlp_kind, cfg, ctx, cache=c,
                             want_cache=want_caches)
         new_caches.append(nc)
     return x, new_caches

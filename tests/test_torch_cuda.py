@@ -1,6 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version, and
 the serving engine on the card against the same engine on the CPU, on
-the paged (qwen3-8b) and recurrent (rwkv6-1.6b) backends.
+the paged (qwen3-8b, moonshot-v1-16b-a3b) and recurrent (rwkv6-1.6b)
+backends.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import SMOKE_CONFIGS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import wkv6  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -222,3 +224,109 @@ def test_rwkv_decode_span_never_syncs_on_card(cuda):
     assert emit.sum(0).tolist() == [8, 3, 0]
     assert state["positions"].tolist() == [13, 12, 0]
     assert torch.equal(state["caches"][0]["wkv"][2], frozen)
+
+
+def _dispatch_inputs(rng, T, D, E, dtype, cuda):
+    """Token rows and each row's queue position among the rows of its
+    expert (a cumsum of one-hots, as the MoE layer computes them)."""
+    toks = _randn(rng, T, D).to(cuda, dtype)
+    eids = torch.from_numpy(rng.integers(0, E, size=T).astype(np.int32))
+    onehot = (eids[:, None] == torch.arange(E)).to(torch.int32)
+    pos = torch.cumsum(onehot, 0, dtype=torch.int32).gather(
+        1, eids[:, None].long())[:, 0] - 1
+    return toks, eids.to(cuda), pos.to(cuda)
+
+
+@pytest.mark.parametrize("T,D,E,C", [(64, 32, 8, 12), (100, 16, 4, 40),
+                                     (32, 8, 2, 4), (128, 64, 16, 8),
+                                     (48, 7, 3, 5), (24, 2048, 64, 4),
+                                     (3000, 2048, 64, 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_kernel_equals_plain(cuda, dtype, T, D, E, C):
+    """Exactly equal, on the sweep of tests/test_kernels.py, an odd row
+    width (the element-by-element path), moonshot's decode shape and a
+    prefill-sized case where rows drop."""
+    rng = np.random.default_rng(T + D + E)
+    toks, eids, pos = _dispatch_inputs(rng, T, D, E, dtype, cuda)
+    n = md.moe_dispatch.launches
+    out = md.moe_dispatch(toks, eids, pos, E, C)
+    assert md.moe_dispatch.launches == n + 1
+    assert torch.equal(out, md.moe_dispatch_plain(toks, eids, pos, E, C))
+
+
+def test_moe_dispatch_kernel_on_unaligned_rows(cuda):
+    """Token rows that start off a 16-byte boundary (a view at an odd
+    offset) take the element-by-element path and still equal the plain
+    version; a non-contiguous view is refused."""
+    rng = np.random.default_rng(9)
+    toks, eids, pos = _dispatch_inputs(rng, 65, 64, 8, torch.bfloat16, cuda)
+    flat = toks.reshape(-1)[1:].reshape(-1)[:64 * 64].reshape(64, 64)
+    out = md.moe_dispatch(flat, eids[:64], pos[:64], 8, 10)
+    assert torch.equal(out, md.moe_dispatch_plain(flat, eids[:64], pos[:64],
+                                                  8, 10))
+    with pytest.raises(ValueError):
+        md.moe_dispatch(toks.t(), eids[:64], pos[:64], 8, 10)
+
+
+def test_moe_engine_on_card_matches_cpu(cuda):
+    """fp32 SMOKE moonshot on the paged backend with page pressure that
+    parks: the card's streams (kernels B1, B2, B7) equal the CPU's (plain
+    versions), and every kernel ran once per layer of its kind."""
+    cfg = SMOKE_CONFIGS["moonshot-v1-16b-a3b"].scaled(dtype="float32")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (31, 26, 23, 13)]
+    streams, stats = {}, {}
+    n_moe = cfg.mlp_kinds().count("moe")
+    before = (md.moe_dispatch.launches, fa.flash_attention.launches,
+              pa.paged_decode_attention.launches)
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        eng = ServingEngine(cfg, p, api.EngineConfig(
+            slots=3, cache_len=64, page_size=8, n_pages=9, eos_token=-1,
+            decode_span=8), device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(api.Request(i, pr, max_new_tokens=12))
+        streams[dev] = {r.req_id: r.tokens_out
+                        for r in eng.run_until_done()}
+        stats[dev] = eng.stats
+    st = stats["cuda"]
+    assert st["parked"] > 0 and st["unparked"] == st["parked"]
+    assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+    assert (md.moe_dispatch.launches - before[0]
+            == n_moe * (st["prefills"] + st["decode_steps"]))
+    assert (fa.flash_attention.launches - before[1]
+            == cfg.n_layers * st["prefills"])
+    assert (pa.paged_decode_attention.launches - before[2]
+            == cfg.n_layers * st["decode_steps"])
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_moe_decode_span_never_syncs_on_card(cuda):
+    """No host synchronisation inside a decode span through MoE layers
+    (routing, queue positions, the B7 dispatch and the combine) on the
+    card."""
+    cfg = SMOKE_CONFIGS["moonshot-v1-16b-a3b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    state = lm.init_paged_serve_state(cfg, 3, 16, 8, 4, device=cuda)
+    state["page_table"] = torch.arange(12, dtype=torch.int32,
+                                       device=cuda).reshape(3, 4)
+    state["lengths"][:] = torch.tensor([5, 9, 0], dtype=torch.int32)
+    state["positions"].copy_(state["lengths"])
+    args = (torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda),)
+    active = torch.tensor([True, True, False], device=cuda)
+    budgets = torch.tensor([8, 3, 8], dtype=torch.int32, device=cuda)
+    n = md.moe_dispatch.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emit, state = lm.decode_span(
+            params, *args, state, cfg, active, budgets, span=8,
+            eos_token=-1, cache_len=32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert md.moe_dispatch.launches - n == 8
+    assert emit.sum(0).tolist() == [8, 3, 0]
+    assert state["positions"].tolist() == [13, 12, 0]
