@@ -8,23 +8,28 @@ Phases, each printing one JSON object per line:
 1. device  — card name, power limit (nvidia-smi), torch and CUDA versions;
 2. build   — nvcc build of every kernel source in the checkout;
 3. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 WKV-6
-             decode, B4 WKV-6 chunked prefill, B7 MoE dispatch) against
-             its plain PyTorch version on the card, on the shape sweeps
-             of tests/test_kernels.py and at the serving paths' shapes,
-             with CUDA-event times of the kernel, the plain version and a
+             decode, B4 WKV-6 chunked prefill, B5 SSM decode step, B6
+             linear scan, B7 MoE dispatch) against its plain PyTorch
+             version on the card, on the shape sweeps of
+             tests/test_kernels.py and at the serving paths' shapes, with
+             CUDA-event times of the kernel, the plain version and a
              library call where one exists, and the bound;
-4. model   — qwen3-8b, rwkv6-1.6b and moonshot-v1-16b-a3b at full width,
-             2 layers, fp32 (TF32 off): prefill and decode on the card
-             (kernels) against the CPU (plain path) on the same weights;
-             for the MoE model, any token whose top-k expert set differs
-             between the two is reported with its router gap;
-5. serve   — qwen3-8b and moonshot-v1-16b-a3b through the paged engine and
+4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b and jamba-v0.1-52b
+             at full width, 2 layers (jamba's an attention layer with a
+             dense MLP and a Mamba layer with an MoE one), fp32 (TF32
+             off): prefill and decode on the card (kernels) against the
+             CPU (plain path) on the same weights; for the MoE models, any
+             token whose top-k expert set differs between the two is
+             reported with its router gap;
+5. serve   — qwen3-8b and moonshot-v1-16b-a3b through the paged engine,
              rwkv6-1.6b through the recurrent engine, each at full width
-             and depth in bf16: 8 requests, launch counts of the path's
-             kernels, a second run that must give identical streams (for
-             rwkv6 and moonshot a third with fewer pages, which parks and
-             must agree too), and one decode span traced with
-             torch.profiler;
+             and depth, and jamba-v0.1-52b through the dense engine at
+             full width and 16 of its 32 layers (its 103 GB of bf16
+             weights do not fit one card), all in bf16: 8 requests,
+             launch counts of the path's kernels, a second run that must
+             give identical streams (for rwkv6, moonshot and jamba a
+             third with fewer pages, which parks and must agree too), and
+             one decode span traced with torch.profiler;
 6. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
@@ -55,15 +60,21 @@ PAGED_REPLACES = "src/repro/kernels/paged_attention.py:117"
 WKV_DECODE_REPLACES = "src/repro/kernels/wkv6.py:101"
 WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
 MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
+SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
+SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
 # the __global__ functions of src/repro_torch/kernels/csrc/
 PORT_KERNELS = ("paged_decode_kernel", "flash_fwd_kernel",
                 "wkv6_chunked_kernel", "wkv6_decode_kernel",
-                "moe_dispatch_kernel")
+                "moe_dispatch_kernel", "linear_scan_kernel",
+                "ssm_decode_kernel")
 # WKV-6 outputs are fp32 whatever r/k/v's dtype, and kernel and plain
 # version do fp32 math on the same upcast inputs: the tolerances of
 # tests/test_kernels.py for the chunked y and state, and for decode
 WKV_TOL = {"y": 2e-4, "state": 2e-5, "decode": 1e-5}
 NO_WKV_LIBRARY = "none: no single PyTorch call computes WKV-6"
+# B5 and B6 in fp32, as tests/test_kernels.py holds them
+SSM_TOL = 1e-5
+NO_SSM_LIBRARY = "none: no single PyTorch call computes this"
 # the router's gap between its k-th and (k+1)-th expert below which a
 # card-vs-CPU difference in the top-k set counts as a tie, not a fault
 ROUTE_TIE = 1e-5
@@ -350,12 +361,96 @@ def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True):
     return rec
 
 
+def check_linear_scan(torch, ls, B, T, D, N, seed=0, timed=True):
+    """B6 against its plain version at SSM_TOL. a lies in (0.5, 1), as
+    exp(dt * A) does for Mamba's small dt."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(B, T, D, N, generator=g, device="cuda") * 0.5 + 0.5
+    b = torch.randn(B, T, D, N, generator=g, device="cuda")
+    h0 = torch.randn(B, D, N, generator=g, device="cuda")
+    hs, hl = ls.linear_scan(a, b, h0)
+    torch.cuda.synchronize()
+    ehs, ehl = ls.linear_scan_plain(a, b, h0)
+    ok = bool(torch.allclose(hs, ehs, atol=SSM_TOL, rtol=SSM_TOL)
+              and torch.allclose(hl, ehl, atol=SSM_TOL, rtol=SSM_TOL))
+    # a and b read once, every h_t written once, h0 read and h_last
+    # written once; a multiply and an add per element and step
+    b_ms, b_by = bound(4 * (3 * a.numel() + 2 * h0.numel()),
+                       2.0 * a.numel(), "float32")
+    rec = {"phase": "kernels", "kernel": "linear_scan",
+           "shape": {"B": B, "T": T, "D": D, "N": N}, "dtype": "float32",
+           "max_err": _max_err(torch, ((hs, ehs), (hl, ehl))),
+           "bit_equal": bool(torch.equal(hs, ehs)), "tol": SSM_TOL,
+           "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: ls.linear_scan(a, b, h0), torch)
+        rec["plain_ms"] = time_ms(lambda: ls.linear_scan_plain(a, b, h0),
+                                  torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_SSM_LIBRARY
+    emit(rec)
+    require(ok, f"linear_scan disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True):
+    """B5 against its plain version at SSM_TOL, and its h' against the
+    T = 1 slice of B6."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(B, Di, N, generator=g, device="cuda")
+    dA = torch.rand(B, Di, N, generator=g, device="cuda") * 0.5 + 0.5
+    dtx = torch.randn(B, Di, generator=g, device="cuda")
+    Bs = torch.randn(B, N, generator=g, device="cuda")
+    Cs = torch.randn(B, N, generator=g, device="cuda")
+    args = (h, dA, dtx, Bs, Cs)
+    y, hn = sd.ssm_decode_step(*args)
+    _, sl = ls.linear_scan(dA[:, None].contiguous(),
+                           (dtx[..., None] * Bs[:, None, :])[:, None]
+                           .contiguous(), h)
+    torch.cuda.synchronize()
+    ey, ehn = sd.ssm_decode_step_plain(*args)
+    ok = bool(torch.allclose(y, ey, atol=SSM_TOL, rtol=SSM_TOL)
+              and torch.allclose(hn, ehn, atol=SSM_TOL, rtol=SSM_TOL)
+              and torch.allclose(sl, hn, atol=SSM_TOL, rtol=SSM_TOL))
+    # h and dA read once, h' written once, dtx, B and C read once, y
+    # written once; per state element two multiplies and an add for h',
+    # a multiply and an add for y
+    b_ms, b_by = bound(4 * (3 * h.numel() + 2 * dtx.numel()
+                            + Bs.numel() + Cs.numel()),
+                       5.0 * h.numel(), "float32")
+    rec = {"phase": "kernels", "kernel": "ssm_decode_step",
+           "shape": {"B": B, "Di": Di, "N": N}, "dtype": "float32",
+           "max_err": _max_err(torch, ((y, ey), (hn, ehn))),
+           "max_err_vs_scan_t1": _max_err(torch, ((sl, hn),)),
+           "state_bit_equal": bool(torch.equal(hn, ehn)),
+           "state_bit_equal_scan_t1": bool(torch.equal(sl, hn)),
+           "tol": SSM_TOL, "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: sd.ssm_decode_step(*args), torch)
+        rec["plain_ms"] = time_ms(lambda: sd.ssm_decode_step_plain(*args),
+                                  torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_SSM_LIBRARY
+    emit(rec)
+    require(ok, f"ssm_decode_step disagrees with its plain version: {rec}")
+    return rec
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssm_decode as sd
     from repro_torch.kernels import wkv6 as wk
     f32, bf16 = torch.float32, torch.bfloat16
+    # the sweeps of tests/test_kernels.py (B6, B5), a T that leaves a
+    # remainder of the kernel's unrolled loop, a partial warp (B5)
+    for B, T, D, N in ((2, 16, 8, 4), (1, 32, 16, 4), (3, 8, 32, 8),
+                       (2, 9, 24, 16)):
+        check_linear_scan(torch, ls, B, T, D, N, timed=False)
+    for B, Di, N in ((2, 8, 4), (1, 32, 8), (3, 16, 4), (3, 5, 8)):
+        check_ssm_decode(torch, ls, sd, B, Di, N, timed=False)
     for dtype in (f32, bf16):
         for B, H, KV, S, hd in ((2, 4, 2, 256, 64), (1, 4, 4, 200, 32),
                                 (2, 8, 2, 192, 64), (1, 2, 1, 128, 16)):
@@ -405,6 +500,20 @@ def phase_kernels(torch):
                                      timed=dtype == bf16)
             if dtype == bf16:
                 main[("moe_dispatch", key)] = rec
+    # jamba-v0.1-52b's: attention at H 32, KV 8, hd 128 on a 1900-token
+    # prompt; the scan of a 256-token prefill chunk and of the 108-token
+    # tail of a 1900-token prompt (D = d_inner 8192, N 16); one decode
+    # step of 4 slots; the dispatch of a prompt's 2 picks per token (E 16,
+    # C 297, D 4096) and of a decode step's (C 4)
+    main[("flash_jamba", 1900)] = check_flash(torch, fa, 1, 32, 8, 1900,
+                                              128, bf16)
+    for T in (256, 108):
+        main[("linear_scan", T)] = check_linear_scan(torch, ls, 1, T, 8192,
+                                                     16)
+    main[("ssm_decode", 4)] = check_ssm_decode(torch, ls, sd, 4, 8192, 16)
+    for key, T, C in (("prefill", 1900 * 2, 297), ("decode", 4 * 2, 4)):
+        main[("moe_dispatch_jamba", key)] = check_moe_dispatch(
+            torch, md, T, 4096, 16, C, bf16)
     return main
 
 
@@ -548,8 +657,9 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
             if (f["call"], tuple(f["row"])) == (call, row):
                 f["logits_max_abs_err"] = float((a - b).abs().max())
 
-    # attention stacks decode through a page table; RWKV stacks carry
-    # per-slot state, compared layer by layer after prefill and each step
+    # plain attention stacks decode through a page table; the others
+    # (RWKV, and jamba's attention + Mamba) from per-slot slabs and
+    # carries, compared layer by layer after prefill and each step
     paged = tf.paged_stack_supported(cfg)
 
     def close_state(name):
@@ -618,7 +728,10 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
         moe_mod.moe_mlp = inner_moe
     rec = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
-           "state": "page pools" if paged else "per-slot carry, compared",
+           "layers": [list(k) for k in zip(cfg.layer_kinds(),
+                                           cfg.mlp_kinds())],
+           "state": ("page pools" if paged
+                     else "per-slot slabs and carries, compared"),
            "prompts": [n_prompt] * n_seq, "decode_steps": steps,
            "tol": tol, "max_abs_err": errs, "greedy_tokens": toks,
            "tokens_equal": True}
@@ -631,7 +744,7 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
 
 
 # --------------------------------------------------------------------------
-# phase 5: serve the slice at full width and depth
+# phase 5: serve each slice at full width
 # --------------------------------------------------------------------------
 
 PROMPT_LENS = (37, 200, 333, 517, 1000, 1024, 1531, 1900)
@@ -697,7 +810,8 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
     # the port's own kernels and the memsets (B7 zeroes its buffer with
     # one), whatever their rank: their device time per launch in the span
     ours = [[k[:80], ms, n] for k, ms, n in events
-            if any(f"::{name}<" in k for name in PORT_KERNELS)
+            if any(f"::{name}{c}" in k for name in PORT_KERNELS
+                   for c in "<(")
             or k.startswith("Memset")]
     return {"decode_steps": eng.stats["decode_steps"] - steps,
             "wall_s": wall, "device_kernel_s": busy,
@@ -707,33 +821,45 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
 
 
 def _wrappers():
-    """Every kernel wrapper of the port (B1-B4 and B7), by kernel name;
-    each counts its launches in ``.launches``."""
+    """Every kernel wrapper of the port (B1-B7), by kernel name; each
+    counts its launches in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import moe_dispatch as md
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssm_decode as sd
     from repro_torch.kernels import wkv6 as wk
     return {"flash_attention": fa.flash_attention,
             "paged_decode_attention": pa.paged_decode_attention,
             "wkv6_chunked": wk.wkv6_chunked,
             "wkv6_decode": wk.wkv6_decode,
+            "ssm_decode_step": sd.ssm_decode_step,
+            "linear_scan": ls.linear_scan,
             "moe_dispatch": md.moe_dispatch}
 
 
-def serve_path(cfg):
-    """The kernels a config's serving path must launch, each mapped to
-    the engine counters its launches follow and the number of layers that
-    launch it once per count: attention layers run B2 once per prefill
-    and B1 once per decode step, RWKV layers B4 and B3, MoE layers B7
-    once per prefill and once per decode step."""
+def serve_path(cfg, layout):
+    """The kernels a config's serving path on ``layout`` must launch,
+    each mapped to the counters its launches follow and the number of
+    layers that launch it once per count: attention layers run B2 once
+    per prefill and, on the paged layout only, B1 once per decode step
+    (the dense layout decodes attention in plain PyTorch, as the
+    reference does in jnp); RWKV layers B4 once per prefill and B3 once
+    per decode step; Mamba layers B6 once per 256-token prefill chunk
+    (``prefill_chunks``, counted by ``phase_serve`` from the prompts) and
+    B5 once per decode step; MoE layers B7 once per prefill and once per
+    decode step."""
     kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
     path = {}
     for name, n, counters in (
             ("flash_attention", kinds.count("attn"), ("prefills",)),
-            ("paged_decode_attention", kinds.count("attn"),
+            ("paged_decode_attention",
+             kinds.count("attn") if layout == "paged" else 0,
              ("decode_steps",)),
             ("wkv6_chunked", kinds.count("rwkv"), ("prefills",)),
             ("wkv6_decode", kinds.count("rwkv"), ("decode_steps",)),
+            ("linear_scan", kinds.count("mamba"), ("prefill_chunks",)),
+            ("ssm_decode_step", kinds.count("mamba"), ("decode_steps",)),
             ("moe_dispatch", mlps.count("moe") if cfg.moe else 0,
              ("prefills", "decode_steps"))):
         if n:
@@ -743,16 +869,21 @@ def serve_path(cfg):
 
 def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
                 seed=0, device="cuda", park_pages=None):
-    """Serve 8 requests at full width and depth. ``path`` (``serve_path``)
-    maps each kernel the serving path must run to the engine counters its
-    launches follow and the layers that launch it per count; every
-    kernel's count is set to 0 just before the run and read just after,
-    and must equal the sum over its counters of layers x count. With
+    """Serve 8 requests with ``cfg`` (full width; the depth it gives).
+    ``path`` (``serve_path``) maps each kernel the serving path must run
+    to the counters its launches follow and the layers that launch it
+    per count; every kernel's count is set to 0 just before the run and
+    read just after, and must equal the sum over its counters of layers
+    x count. The
+    engine's counters stand beside ``prefill_chunks``, the 256-token
+    chunks of Mamba prefill, which the prompts give once every prompt is
+    prefilled exactly once (no preemption), as the run must. With
     ``park_pages`` a third run with that many pages must park, unpark and
     give the same streams."""
     import dataclasses
     import numpy as np
     from repro_torch.models import lm
+    from repro_torch.models.mamba import CHUNK
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(cfg, gen, device=device)
     sync(torch, device)
@@ -775,11 +906,16 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
             f"serve: host_syncs {st['host_syncs']} != prefills "
             f"{st['prefills']} + decode_spans {st['decode_spans']}")
     n_layers = cfg.n_layers
+    require(st["prefills"] == len(prompts) and st["preempt_restarts"] == 0,
+            f"serve: {st['prefills']} prefills for {len(prompts)} prompts")
+    counts = dict(st, prefill_chunks=sum(-(-n // CHUNK)
+                                         for n in prompt_lens))
     for name, per in path.items():
-        want = sum(n * st[c] for c, n in per.items())
+        want = sum(n * counts[c] for c, n in per.items())
+        terms = [f"{n} x {c} ({counts[c]})" for c, n in per.items()]
         require(launches[name] == want > 0,
                 f"serve: {name} launches {launches[name]} != "
-                f"{' + '.join(f'{n} x {c} ({st[c]})' for c, n in per.items())}")
+                f"{' + '.join(terms)}")
     require(all(v == 0 for n, v in launches.items() if n not in path),
             f"serve: a kernel off the {cfg.name} path launched: "
             f"{launches}")
@@ -818,7 +954,8 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
            "prefill_s": prefill_s, "decode_s": decode_s,
            "prefill_tok_per_s": st["prefill_tokens"] / prefill_s,
            "decode_tok_per_s": st["decode_tokens"] / decode_s,
-           "launches": launches, "launch_path": path, "stats": st,
+           "launches": launches, "launch_path": path,
+           "prefill_chunks": counts["prefill_chunks"], "stats": st,
            "completion_order": [r.req_id for r in done],
            "streams_identical_across_runs": True,
            "parking_run": parking, "traced_decode_span": traced}
@@ -839,15 +976,22 @@ def kernel_line(main, serves):
     rows = []
     for name, key, src, replaces, more in (
             ("flash_attention", ("flash", 1531), "flash_attention.cu",
-             FLASH_REPLACES, ("flash_moonshot", 1900)),
+             FLASH_REPLACES, (("flash_moonshot", 1900),
+                              ("flash_jamba", 1900))),
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
-             PAGED_REPLACES, ("paged_moonshot", 128)),
+             PAGED_REPLACES, (("paged_moonshot", 128),)),
             ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
-             WKV_CHUNKED_REPLACES, None),
+             WKV_CHUNKED_REPLACES, ()),
             ("wkv6_decode", ("wkv6_decode", 4), "wkv6.cu",
-             WKV_DECODE_REPLACES, None),
+             WKV_DECODE_REPLACES, ()),
+            ("ssm_decode_step", ("ssm_decode", 4), "ssm_decode.cu",
+             SSM_DECODE_REPLACES, ()),
+            ("linear_scan", ("linear_scan", 256), "linear_scan.cu",
+             SCAN_REPLACES, (("linear_scan", 108),)),
             ("moe_dispatch", ("moe_dispatch", "prefill"), "moe_dispatch.cu",
-             MOE_REPLACES, ("moe_dispatch", "decode"))):
+             MOE_REPLACES, (("moe_dispatch", "decode"),
+                            ("moe_dispatch_jamba", "prefill"),
+                            ("moe_dispatch_jamba", "decode")))):
         rec = main[key]
         by_path = {s["arch"]: s["launches"][name] for s in serves
                    if s["launches"][name]}
@@ -866,11 +1010,10 @@ def kernel_line(main, serves):
                "shape": rec["shape"], "checked": True}
         if "library" in rec:
             row["library"] = rec["library"]
-        if more is not None:
-            m = main[more]
-            row["also_at"] = {k: m[k] for k in (
+        if more:
+            row["also_at"] = [{k: main[m][k] for k in (
                 "shape", "max_err", "kernel_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")}
+                "bound_by", "library_ms")} for m in more]
         rows.append(row)
     return {"kernels": rows}
 
@@ -913,16 +1056,30 @@ def main() -> int:
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
         mcfg = get_config("moonshot-v1-16b-a3b")
+        # jamba at full width and half depth: 16 of 32 layers, two whole
+        # periods of its 8-layer pattern (14 Mamba, 2 attention, 8 MoE
+        # MLPs), 52.1 GB of bf16 weights; the whole model's 103 GB does
+        # not fit one 80 GB card
+        jcfg = get_config("jamba-v0.1-52b").scaled(n_layers=16)
         for c in (cfg, rcfg, mcfg):
             phase_model(torch, c.scaled(n_layers=2, dtype="float32"))
             gc.collect()
+        # jamba's first two layers are both Mamba: the 2-layer model takes
+        # an attention layer (dense MLP, first_dense) and a Mamba layer
+        # (MoE MLP), ~14.5 GB of fp32 weights on each side
+        phase_model(torch, jcfg.scaled(n_layers=2, dtype="float32",
+                                       layer_pattern=("attn", "mamba")))
+        gc.collect()
         serves = []
-        # moonshot last, after the others' weights are freed: its 56.7 GB
-        # of bf16 weights and 640-page pool (4.0 GB) fit only alone; 200
-        # pages make it park (the largest request needs 121)
+        # moonshot and jamba last, each alone on the card after the
+        # others' weights are freed: moonshot's 56.7 GB of bf16 weights and
+        # 640-page pool (4.0 GB), jamba's 52.1 GB; 200 pages make either
+        # park (moonshot's largest request needs 121 pages, jamba's two
+        # largest worst-case footprints 121 + 98 on the dense layout)
         for c, layout, n_pages, park in ((cfg, "paged", 640, None),
                                          (rcfg, "recurrent", 4, 3),
-                                         (mcfg, "paged", 640, 200)):
+                                         (mcfg, "paged", 640, 200),
+                                         (jcfg, "dense", 640, 200)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -930,7 +1087,8 @@ def main() -> int:
                                 n_pages=n_pages, decode_span=8, eos_token=-1,
                                 kv_layout=layout, prefill_chunk=0,
                                 prefix_cache_entries=0)
-            serves.append(phase_serve(torch, c, ecfg, serve_path(c),
+            serves.append(phase_serve(torch, c, ecfg,
+                                      serve_path(c, layout),
                                       park_pages=park))
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})

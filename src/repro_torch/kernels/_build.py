@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("paged_attention", "flash_attention", "wkv6", "moe_dispatch")
+SOURCES = ("paged_attention", "flash_attention", "wkv6", "moe_dispatch",
+           "linear_scan", "ssm_decode")
 
 
 def nvcc_path() -> str:

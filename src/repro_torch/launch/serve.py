@@ -5,13 +5,18 @@ and serve them to completion through the serving engine.
       --requests 8 --cache-len 2048 --max-new 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --kv-layout recurrent
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --kv-layout dense --smoke --device cpu
 
 runs on the first CUDA card with random weights; ``--smoke`` takes the
 reduced config and ``--device cpu`` the plain PyTorch path. The flags
-match ``repro.launch.serve`` for what the port serves: the paged layout
-(attention) and the recurrent layout (RWKV), greedy sampling, monolithic
-prefill. Live-traffic mode, chunked prefill, the other layouts and
-samplers and crash snapshots wait for their slices (ROADMAP queue A).
+match ``repro.launch.serve`` for what the port serves: the dense layout
+(every ported config, the default, as in the reference), the paged
+layout (plain attention) and the recurrent layout (RWKV), greedy
+sampling, monolithic prefill. Live-traffic mode, chunked prefill, the
+latent layout, the other samplers and crash snapshots wait for their
+slices (ROADMAP queue A). The full jamba-v0.1-52b needs 103 GB of bf16
+weights, more than one 80 GB card holds.
 """
 from __future__ import annotations
 
@@ -36,10 +41,11 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=160)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--kv-layout", choices=("paged", "recurrent"),
-                    default="paged",
-                    help="StateBackend name: paged (attention archs) or "
-                         "recurrent (rwkv6-1.6b)")
+    ap.add_argument("--kv-layout", choices=("dense", "paged", "recurrent"),
+                    default="dense",
+                    help="StateBackend name: dense serves every config; "
+                         "paged needs plain attention; recurrent needs "
+                         "pure RWKV (rwkv6-1.6b)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
                     help="device page budget; 0 derives it from "

@@ -1,17 +1,25 @@
-"""Attention for the model: causal prefill and paged decode.
+"""Attention for the model: causal prefill, paged decode, dense decode.
 
-Both run through the port's kernels. ``chunked_causal_attention`` keeps
-the JAX model's name and layout ([B,S,H,hd]) and computes the same
-function as its jnp pair-list scan (forward only) with kernel B2, causal
-flash attention. ``paged_decode_attention`` runs kernel B1 through the
-page table. GQA is native in both: KV is never expanded to H heads.
+``chunked_causal_attention`` keeps the JAX model's name and layout
+([B,S,H,hd]) and computes the same function as its jnp pair-list scan
+(forward only) with kernel B2, causal flash attention.
+``paged_decode_attention`` runs kernel B1 through the page table.
+``decode_attention`` attends over per-slot slabs (the ``dense`` layout)
+in plain PyTorch, as the JAX model does in jnp: the reference has no
+Pallas kernel for it. GQA is native in all three: KV is never expanded
+to H heads.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
+
+import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+
+NEG_INF = -1e30
 
 
 def chunked_causal_attention(q, k, v, *, window: int = 0,
@@ -30,3 +38,26 @@ def paged_decode_attention(q, page_table, k_pages, v_pages, lengths, *,
     lengths: [B] int32 valid positions per slot -> [B,H,hd]."""
     return pa.paged_decode_attention(q, k_pages, v_pages, page_table,
                                      lengths, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     scale: Optional[float] = None):
+    """One token per slot against its slab. q: [B,H,hd]; k_cache/v_cache:
+    [B,Smax,KV,hd]; lengths: [B] valid entries -> [B,H,hd].
+
+    Step for step the JAX model's ``decode_attention``: scores of the
+    cache dtype accumulated in fp32, a masked fp32 softmax over Smax,
+    the probabilities cast to the value dtype, the weighted sum
+    accumulated in fp32 and cast to q's dtype."""
+    B, H, hd = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    valid = (torch.arange(Smax, device=q.device)[None, :]
+             < lengths[:, None])                        # [B,Smax]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)

@@ -4,9 +4,11 @@ params dict.
 The JAX stack stores its repeating unit of blocks with a leading group
 axis (``stack.groups.b{j}``, after any ``stack.prefix`` blocks); the port
 holds one block per layer. This module unstacks the groups into layer
-order and keeps every matrix in its ``[in, out]`` layout. Leaves the
-tree holds in float32 stay float32 (in a bf16 model, RWKV's mixing,
-decay, bonus and norm vectors); the others take ``dtype``. The caller
+order and keeps every matrix in its ``[in, out]`` layout; jamba's unit
+of eight mixed Mamba and attention blocks unstacks like any other.
+Leaves the tree holds in float32 stay float32 (in a bf16 model, RWKV's
+mixing, decay, bonus and norm vectors, Mamba's ``dt_bias``, ``A_log``
+and ``D_skip``, the MoE routers); the others take ``dtype``. The caller
 converts the JAX arrays to numpy (``jax.tree.map(np.asarray, params)``),
 so the port itself never imports JAX.
 """

@@ -5,12 +5,14 @@ Params are a plain dict of tensors, ``{"embed": [V,D], "blocks": [...],
 matrix layout. Decoding state is ``{"caches": [one entry per layer],
 "lengths": [B] int32, "positions": [B] int32}`` on the device, plus
 ``"page_table": [B,MP] int32`` when the caches are shared page pools
-(attention) rather than per-slot state (RWKV's carry); decode updates it
-in place.
+(attention, the ``paged`` layout) rather than per-slot state (attention
+slabs of the ``dense`` layout, Mamba's and RWKV's carries); decode
+updates it in place.
 
-Three families are served: plain attention with dense SwiGLU MLPs
+Four families are served: plain attention with dense SwiGLU MLPs
 (qwen3-8b), the same attention with MoE MLPs after ``first_dense`` dense
-layers (moonshot-v1-16b-a3b), and pure RWKV-6 stacks (rwkv6-1.6b).
+layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
+(jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import moe, rwkv
+from repro_torch.models import mamba, moe, rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_dense_mlp, rms_norm
 
@@ -37,8 +39,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     """Random weights with the shapes and scales of the JAX
     ``lm.init_params``: normal draws from ``generator``, made on the
     generator's device and moved to ``device`` (``cuda`` unless given).
-    Layers whose MLP kind is "moe" hold ``{"moe": ...}`` (an fp32 router,
-    experts and shared experts), the others ``{"mlp": ...}``.
+    Attention layers hold ``{"attn": ...}``, Mamba layers ``{"mamba":
+    ...}`` (``dt_bias``, ``A_log`` and ``D_skip`` in fp32), RWKV layers
+    ``{"rwkv": ...}``; attention and Mamba layers whose MLP kind is "moe"
+    hold ``{"moe": ...}`` (an fp32 router, experts and shared experts),
+    the others ``{"mlp": ...}``.
     The two frameworks' generators differ, so the numbers do too; the
     weight bridge (models/convert.py) carries JAX weights across."""
     tf.check_supported(cfg)
@@ -49,14 +54,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
 
     def normal(shape, scale, dt=dtype):
         # scaled in place: at full width a MoE layer's expert tensor is
-        # 369 MB, and no second copy of it is ever alive
+        # 369 MB (moonshot) or 1.88 GB (jamba), and no second copy of it
+        # is ever alive
         x = torch.randn(shape, generator=generator, device=generator.device,
                         dtype=dt)
         return x.mul_(scale).to(device)
 
-    def uniform(shape):
-        return torch.rand(shape, generator=generator,
-                          device=generator.device).to(device)
+    def uniform(shape, lo=0.0, hi=1.0):
+        x = torch.rand(shape, generator=generator, device=generator.device)
+        return x.mul_(hi - lo).add_(lo).to(device)
 
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
@@ -70,6 +76,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         if kind == "rwkv":
             block["rwkv"] = rwkv.init_rwkv(cfg, normal, uniform, dtype,
                                            device)
+            params["blocks"].append(block)
+            continue
+        if kind == "mamba":
+            block["mamba"] = mamba.init_mamba(cfg, normal, uniform, dtype,
+                                              device)
         else:
             block["attn"] = {
                 "wq": normal((d, H * hd), 1.0 / math.sqrt(d)),
@@ -81,10 +92,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
                                      bv=zeros(KV * hd))
             if cfg.qk_norm:
                 block["attn"].update(q_norm=ones(hd), k_norm=ones(hd))
-            if mlp_kind == "moe":
-                block["moe"] = moe.init_moe(cfg, normal, dtype)
-            else:
-                block["mlp"] = init_dense_mlp(normal, d, ff, dtype)
+        if mlp_kind == "moe":
+            block["moe"] = moe.init_moe(cfg, normal, dtype)
+        else:
+            block["mlp"] = init_dense_mlp(normal, d, ff, dtype)
         params["blocks"].append(block)
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
@@ -110,7 +121,8 @@ def prefill(params, tokens, cfg: ModelConfig,
             cache_len: Optional[int] = None):
     """Run `tokens` [B,S]; returns (last_logits [B,V], state). Attention
     layers' caches are K/V zero-padded to ``cache_len`` ([B, cache_len,
-    KV, hd]); RWKV layers' are the final carry {wkv, shift_tm, shift_cm}."""
+    KV, hd]); Mamba layers' the final carry {conv, ssm}; RWKV layers' the
+    final carry {wkv, shift_tm, shift_cm}."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
     ctx = {"mode": "prefill", "cache_len": cache_len or S}
@@ -126,8 +138,8 @@ def prefill(params, tokens, cfg: ModelConfig,
 
 def decode_step(params, tokens, state, cfg: ModelConfig, active=None):
     """One decode step. tokens: [B] int32. Returns (logits [B,V], state).
-    The caches in ``state`` (page pools, or per-slot RWKV carries) are
-    written in place, inactive slots left as they were; ``lengths`` and
+    The caches in ``state`` (page pools, or per-slot slabs and carries)
+    are written in place, inactive slots left as they were; ``lengths`` and
     ``positions`` advance only where ``active`` (all slots if None)."""
     x = embed(params["embed"], tokens)
     ctx = {"mode": "decode", "positions": state["positions"],
@@ -207,6 +219,7 @@ def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
         raise ValueError(
             f"paged serving needs per-token cache blocks (plain attention "
             f"KV); {cfg.name} (layer kinds {kinds}) has none: use the "
+            f"'dense' layout (per-slot slabs, every ported config) or the "
             f"'recurrent' layout (constant-size state for pure RWKV "
             f"configs)")
     device = resolve_device(device)

@@ -1,24 +1,31 @@
-"""Block assembly: the dense-attention stack and the RWKV-6 stack.
+"""Block assembly: attention, Mamba and RWKV-6 stacks.
 
 The JAX model stacks its repeating unit of blocks with a grouped
 ``lax.scan`` (params and caches carry a leading group axis). PyTorch runs
 eagerly, so the port holds one block per layer, in layer order: a params
 dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
 layer. ``plan_layers`` is kept to read the reference's grouped layout
-(models/convert.py). The port serves three families so far: plain
+(models/convert.py). The port serves four families so far: plain
 attention layers with dense (SwiGLU) MLPs, the same layers with MoE MLPs
-(``models/moe.py``; layers before ``first_dense`` keep a dense MLP), and
-pure RWKV-6 stacks (time- and channel-mix, no MLP). MLA, sliding-window
-caches and Mamba layers raise until their slices (ROADMAP queue A).
+(``models/moe.py``; layers before ``first_dense`` keep a dense MLP),
+hybrids that interleave such attention layers with Mamba layers
+(``models/mamba.py``, jamba), and pure RWKV-6 stacks (time- and
+channel-mix, no MLP). MLA and sliding-window caches raise until their
+slices (ROADMAP queue A).
+
+Attention decodes through a shared page pool (``paged`` layout) when the
+decode state carries a page table, else against per-slot slabs
+``[B, cache_len, KV, hd]`` (``dense`` layout). Mamba and RWKV layers
+carry constant-size per-slot state.
 
 MoE layers return the router's stats (``moe_aux``, ``moe_dropped``);
 serving has no loss to add them to and drops them unread, so no value
 crosses to the host.
 
-Cache tensors are updated IN PLACE (paged decode appends, prefill
-inserts, unpark restores, RWKV decode commits its new carry): JAX
-returns new caches that XLA updates in place under jit, while eager
-torch would copy every cache on every step.
+Cache tensors are updated IN PLACE (paged and dense decode appends,
+prefill inserts, unpark restores, Mamba and RWKV decode commit their new
+carry): JAX returns new caches that XLA updates in place under jit, while
+eager torch would copy every cache on every step.
 """
 from __future__ import annotations
 
@@ -28,8 +35,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
-from repro_torch.models import moe, rwkv
+from repro_torch.models import mamba, moe, rwkv
 from repro_torch.models.attention import (chunked_causal_attention,
+                                          decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
                                        rope_angles)
@@ -53,25 +61,25 @@ def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is plain attention with a SwiGLU MLP,
-    dense or MoE, or every layer is RWKV-6; name the ROADMAP item of any
-    other."""
+    """Raise unless every layer is plain attention or Mamba with a SwiGLU
+    MLP, dense or MoE, or every layer is RWKV-6; name the ROADMAP item of
+    any other."""
     kinds = set(cfg.layer_kinds())
     mlps = set(cfg.mlp_kinds())
     if kinds == {"rwkv"}:
         return
-    if (kinds == {"attn"} and mlps <= {"dense", "moe"} and cfg.mla is None
-            and not cfg.swa_window and cfg.act == "swiglu"):
+    if (kinds <= {"attn", "mamba"} and mlps <= {"dense", "moe"}
+            and cfg.mla is None and not cfg.swa_window
+            and cfg.act == "swiglu"):
         return
-    item = ("A10 (Mamba)" if "mamba" in kinds
-            else "A8 (MLA)" if cfg.mla is not None
+    item = ("A8 (MLA)" if cfg.mla is not None
             else "A6 (the rest of the dense family)")
     raise ValueError(
-        f"{cfg.name}: the port serves plain-attention stacks with SwiGLU "
-        f"dense or MoE MLPs and pure RWKV-6 stacks so far (layers "
-        f"{sorted(kinds)}, mlps {sorted(mlps)}, mla={cfg.mla is not None}, "
-        f"swa_window={cfg.swa_window}, act={cfg.act}); this family waits "
-        f"for ROADMAP item {item}")
+        f"{cfg.name}: the port serves stacks of plain attention and Mamba "
+        f"layers with SwiGLU dense or MoE MLPs, and pure RWKV-6 stacks, so "
+        f"far (layers {sorted(kinds)}, mlps {sorted(mlps)}, "
+        f"mla={cfg.mla is not None}, swa_window={cfg.swa_window}, "
+        f"act={cfg.act}); this family waits for ROADMAP item {item}")
 
 
 def paged_stack_supported(cfg: ModelConfig) -> bool:
@@ -149,6 +157,41 @@ def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
     return out.reshape(x.shape[0], -1) @ p["wo"], cache
 
 
+def attn_decode(x, p, cfg: ModelConfig, ctx, cache):
+    """Dense decode. x: [B,D]; cache {k,v: [B,Smax,KV,hd]} holds one slab
+    per slot; ctx carries positions/lengths [B] and the optional
+    ``active`` mask. The new token's K/V goes into the slab at
+    ``min(positions, Smax - 1)`` IN PLACE and attention reads
+    ``min(lengths + 1, Smax)`` entries, as the reference's
+    ``attn_decode``. Every slot attends with its new row in place, as
+    there; then the rows of inactive slots get their old values back, so
+    a frozen slot's slab is left as it was (the reference's freeze). The
+    row indices are 1-d device tensors: nothing is read back."""
+    B = x.shape[0]
+    positions, lengths = ctx["positions"], ctx["lengths"]
+    q, k_new, v_new = _qkv(x, p, cfg)                  # [B,H,hd],[B,KV,hd]
+    ang = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q[:, None], ang[:, None])[:, 0]
+    k_new = apply_rope(k_new[:, None], ang[:, None])[:, 0]
+    Smax = cache["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    slot = torch.clamp(positions, max=Smax - 1).long()
+    active = ctx.get("active")
+    new = {"k": k_new, "v": v_new}
+    old = ({n: cache[n][rows, slot] for n in new} if active is not None
+           else None)
+    for n, val in new.items():
+        cache[n].index_put_((rows, slot), val.to(cache[n].dtype))
+    out = decode_attention(q, cache["k"], cache["v"],
+                           torch.clamp(lengths + 1, max=Smax))
+    if active is not None:
+        keep = active[:, None, None]
+        for n, val in new.items():
+            cache[n].index_put_((rows, slot), torch.where(
+                keep, val.to(cache[n].dtype), old[n]))
+    return out.reshape(B, -1) @ p["wo"], cache
+
+
 def commit_slots(cache, new, active=None):
     """Write a decode step's new per-slot state into ``cache`` IN PLACE.
     Slots where ``active`` is False (parked, finished or free) keep their
@@ -198,21 +241,36 @@ def _moe_block_mlp(h2, p, cfg: ModelConfig, decode: bool):
     return out
 
 
+def _mixer(h, kind: str, p, cfg: ModelConfig, ctx, cache,
+           want_cache: bool):
+    """The attention or Mamba mixer of one layer. Decode writes its new
+    state into ``cache`` in place: attention into the page pool (a page
+    table in ``ctx``) or the slot's slab, Mamba through
+    ``commit_slots`` under the active mask."""
+    if ctx["mode"] != "decode":
+        if kind == "mamba":
+            return mamba.mamba_forward(h, p["mamba"], cfg, state=cache,
+                                       want_state=want_cache)
+        return attn_forward(h, p["attn"], cfg, ctx, want_cache=want_cache)
+    if kind == "mamba":
+        a, new = mamba.mamba_decode(h, p["mamba"], cfg, cache)
+        return a, commit_slots(cache, new, ctx.get("active"))
+    if ctx.get("page_table") is not None:
+        return attn_decode_paged(h, p["attn"], cfg, ctx, cache)
+    return attn_decode(h, p["attn"], cfg, ctx, cache)
+
+
 def apply_block(p, x, kind: str, mlp_kind: str, cfg: ModelConfig, ctx,
                 cache=None, want_cache: bool = False):
-    """One layer of kind ``kind`` ("attn" or "rwkv") with an MLP of kind
-    ``mlp_kind`` ("dense" or "moe"; RWKV has none). Attention: norm ->
-    attention -> residual -> norm -> MLP -> residual. Returns
+    """One layer of kind ``kind`` ("attn", "mamba" or "rwkv") with an MLP
+    of kind ``mlp_kind`` ("dense" or "moe"; RWKV has none). Attention and
+    Mamba: norm -> mixer -> residual -> norm -> MLP -> residual. Returns
     (x, new_cache)."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, ctx, cache, want_cache)
     decode = ctx["mode"] == "decode"
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if decode:
-        a, new_cache = attn_decode_paged(h, p["attn"], cfg, ctx, cache)
-    else:
-        a, new_cache = attn_forward(h, p["attn"], cfg, ctx,
-                                    want_cache=want_cache)
+    a, new_cache = _mixer(h, kind, p, cfg, ctx, cache, want_cache)
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if mlp_kind == "moe":
@@ -239,14 +297,27 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype, device) -> Dict[str, torch.Tensor]:
-    """Per-slot state of one layer: RWKV's [B,H,hd,hd] fp32 carry and its
-    two token-shift rows [B,D] in the model dtype. Per-slot attention
-    slabs ([B, cache_len, KV, hd], the dense layout) are ROADMAP A4c."""
+    """Per-slot state of one layer, as the reference's
+    ``init_block_cache``: attention slabs {k, v: [B, cache_len, KV, hd]}
+    in the model dtype (the dense layout); Mamba's conv window [B, K-1,
+    Di] in the model dtype and its SSM state [B, Di, N] fp32; RWKV's
+    [B,H,hd,hd] fp32 carry and its two token-shift rows [B,D] in the
+    model dtype."""
+    d = cfg.d_model
+    if kind == "attn":
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "mamba":
+        m = cfg.mamba
+        di = m.expand * d
+        return {"conv": torch.zeros(batch, m.d_conv - 1, di, dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros(batch, di, m.d_state,
+                                   dtype=torch.float32, device=device)}
     if kind != "rwkv":
-        raise ValueError(f"per-slot {kind!r} caches are not ported yet: "
-                         f"the dense layout's attention slabs are ROADMAP "
-                         f"item A4c")
-    d, hd = cfg.d_model, cfg.rwkv.head_dim
+        raise ValueError(f"unknown layer kind {kind!r}")
+    hd = cfg.rwkv.head_dim
     return {"wkv": torch.zeros(batch, d // hd, hd, hd, dtype=torch.float32,
                                device=device),
             "shift_tm": torch.zeros(batch, d, dtype=dtype, device=device),

@@ -6,8 +6,9 @@ drives subsystems behind protocols, selected by name from
 
   Scheduler        <- Queue Subsystem: admission order over QoS classes
   StateBackend     <- Resource Subsystem: page accounting + the decode
-                      state layout (the paged KV pool behind page tables,
-                      or per-slot recurrent carries)
+                      state layout (per-slot dense slabs, the paged KV
+                      pool behind page tables, or per-slot recurrent
+                      carries)
   ParkingTransport <- Transport Subsystem: host-tier park/restore moves
   Sampler          <- per-token selection on the device
 
@@ -65,7 +66,7 @@ class EngineConfig:
     decode_span: int = 8          # decode steps between host syncs
     eos_token: int = 0
     host_offload: bool = True     # VoQ overflow tier
-    kv_layout: str = "paged"      # StateBackend name
+    kv_layout: str = "dense"      # StateBackend name
     scheduler: str = "fcfs"       # Scheduler name
     sampler: str = "greedy"       # Sampler name
     qos_classes: int = 4
@@ -77,12 +78,12 @@ class EngineConfig:
                                        compare=False)
 
     def __post_init__(self):
-        if self.kv_layout not in ("paged", "recurrent"):
+        if self.kv_layout not in ("dense", "paged", "recurrent"):
             raise ValueError(
                 f"kv_layout {self.kv_layout!r} is not ported yet: the port "
-                f"serves 'paged' (attention) and 'recurrent' (RWKV); the "
-                f"'dense' backend waits for ROADMAP item A4c and 'latent' "
-                f"for A8")
+                f"serves 'dense' (every ported config), 'paged' (plain "
+                f"attention) and 'recurrent' (RWKV); the 'latent' backend "
+                f"waits for ROADMAP item A8")
         if self.sampler != "greedy":
             raise ValueError(
                 f"sampler {self.sampler!r} is not ported yet: the port "

@@ -1,6 +1,12 @@
-"""Built-in StateBackends of the port (Resource Subsystem): ``paged`` and
-``recurrent``.
+"""Built-in StateBackends of the port (Resource Subsystem): ``dense``,
+``paged`` and ``recurrent``.
 
+- `DenseKV` ("dense") keeps per-slot `[slots, cache_len, KV, hd]`
+  attention slabs and per-slot Mamba/RWKV carries, with no indirection
+  tables: admission reserves a request's worst case, `min(len(prompt) +
+  max_new_tokens, cache_len)` tokens, so capacity never runs out
+  mid-decode, and park/unpark moves the slot's rows. It serves every
+  ported config, and is the only layout for hybrids such as jamba.
 - `PagedKV` ("paged") keeps a shared `[n_pages, page_size, KV, hd]` pool
   per layer behind per-slot page tables, the MTT made into the memory
   layout, with the `PagePool` doing the accounting. Admission charges the
@@ -11,9 +17,9 @@
   carries (`[H, hd, hd]` wkv state + two token-shift rows per layer) in
   per-slot slabs: footprint 1, no growth, park/unpark moves the carry.
 
-State tensors are written in place. The ``dense`` and ``latent``
-backends of the JAX package wait for their slices (ROADMAP queue A);
-`DenseKV` here holds only the slab methods `RecurrentState` inherits.
+State tensors are written in place. The ``latent`` backend of the JAX
+package waits for its slice (ROADMAP A8), and sliding-window ring slabs
+for A6.
 """
 from __future__ import annotations
 
@@ -164,17 +170,26 @@ def _slot_extract(tree, slot: int):
     return [{k: t[slot].cpu() for k, t in layer.items()} for layer in tree]
 
 
+@register_state_backend("dense")
 class DenseKV(_PooledKV):
-    """Per-slot slabs, no indirection tables: `sync` is a no-op and
-    capacity never runs out mid-decode (`needs_growth = False`). The
-    registered ``dense`` layout (its attention slabs, footprint and
-    unpark) is ROADMAP A4c; this holds what `RecurrentState` inherits."""
+    """Per-slot contiguous slabs; worst-case reservation at admission.
+
+    No indirection tables, so `sync` is a no-op and capacity never runs
+    out mid-decode (`needs_growth = False`): the footprint reserved up
+    front covers every token the request may write. The slabs are
+    kind-generic (`transformer.init_block_cache` allocates what each
+    layer kind declares), so dense serves every ported config, at
+    worst-case bytes per slot."""
 
     needs_growth = False
 
     def init_state(self) -> dict:
         return lm.init_serve_state(self.cfg, self.ecfg.slots,
                                    self.ecfg.cache_len, device=self.device)
+
+    def footprint(self, req: Request) -> int:
+        return min(len(req.prompt) + req.max_new_tokens,
+                   self.ecfg.cache_len)
 
     def prefill_into_slot(self, state: dict, slot: int, req_id: int,
                           caches, length: int) -> dict:
@@ -188,6 +203,18 @@ class DenseKV(_PooledKV):
                         int(state["positions"][slot]), slot, 0)
         self.pool.release(req_id)
         return caches, meta
+
+    def unpark(self, state: dict, slot: int, req: Request, caches,
+               meta: ParkMeta) -> Tuple[bool, dict]:
+        # clamped to cache_len as `footprint` is: a request admitted with
+        # a clamped footprint must not need more at unpark than submit
+        # validated, or it re-parks forever
+        need = min(meta.length + req.max_new_tokens - len(req.tokens_out),
+                   self.ecfg.cache_len)
+        if not self.pool.ensure_capacity(req.req_id, need):
+            return False, state
+        _slot_restore(state["caches"], caches, slot)
+        return True, state
 
     def mark_dirty(self) -> None:
         pass
@@ -224,7 +251,7 @@ class RecurrentState(DenseKV):
                 f"recurrent state serving needs every mixer to carry a "
                 f"constant-size recurrence (mamba/rwkv); {cfg.name} has "
                 f"layer kinds {kinds}: attention layers grow per token, "
-                f"use the 'paged' layout")
+                f"use the 'dense' or 'paged' layout")
         super().__init__(cfg, ecfg, device)
 
     def footprint(self, req: Request) -> int:

@@ -1,7 +1,7 @@
 """The port on a CUDA card: each kernel against its plain version, and
 the serving engine on the card against the same engine on the CPU, on
-the paged (qwen3-8b, moonshot-v1-16b-a3b) and recurrent (rwkv6-1.6b)
-backends.
+the paged (qwen3-8b, moonshot-v1-16b-a3b), recurrent (rwkv6-1.6b) and
+dense (jamba-v0.1-52b) backends.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -16,8 +16,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import SMOKE_CONFIGS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssm_decode as sd  # noqa: E402
 from repro_torch.kernels import wkv6  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
@@ -87,7 +89,7 @@ def test_engine_on_card_matches_cpu(cuda):
                            device=dev)
         eng = ServingEngine(cfg, p, api.EngineConfig(
             slots=3, cache_len=64, page_size=8, n_pages=9, eos_token=-1,
-            decode_span=8), device=dev)
+            decode_span=8, kv_layout="paged"), device=dev)
         for i, pr in enumerate(prompts):
             eng.submit(api.Request(i, pr, max_new_tokens=12))
         streams[dev] = {r.req_id: r.tokens_out
@@ -285,7 +287,7 @@ def test_moe_engine_on_card_matches_cpu(cuda):
                            device=dev)
         eng = ServingEngine(cfg, p, api.EngineConfig(
             slots=3, cache_len=64, page_size=8, n_pages=9, eos_token=-1,
-            decode_span=8), device=dev)
+            decode_span=8, kv_layout="paged"), device=dev)
         for i, pr in enumerate(prompts):
             eng.submit(api.Request(i, pr, max_new_tokens=12))
         streams[dev] = {r.req_id: r.tokens_out
@@ -330,3 +332,125 @@ def test_moe_decode_span_never_syncs_on_card(cuda):
     assert md.moe_dispatch.launches - n == 8
     assert emit.sum(0).tolist() == [8, 3, 0]
     assert state["positions"].tolist() == [13, 12, 0]
+
+
+@pytest.mark.parametrize("B,T,D,N", [(2, 16, 8, 4), (1, 32, 16, 4),
+                                     (3, 8, 32, 8), (1, 256, 8192, 16),
+                                     (1, 108, 8192, 16), (2, 9, 24, 16)])
+def test_linear_scan_kernel_matches_plain(cuda, B, T, D, N):
+    """The sweep of tests/test_kernels.py, jamba's prefill chunk and its
+    ragged tail, and a T that leaves a remainder of the unrolled loop:
+    within 1e-5 (the kernel rounds as the plain version does)."""
+    rng = np.random.default_rng(B * T + D)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, D, N)).astype(
+        np.float32)).to(cuda)
+    b, h0 = _randn(rng, B, T, D, N).to(cuda), _randn(rng, B, D, N).to(cuda)
+    n = ls.linear_scan.launches
+    hs, hl = ls.linear_scan(a, b, h0)
+    assert ls.linear_scan.launches == n + 1
+    ehs, ehl = ls.linear_scan_plain(a, b, h0)
+    torch.testing.assert_close(hs, ehs, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl, ehl, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,Di,N", [(2, 8, 4), (1, 32, 8), (3, 16, 4),
+                                    (4, 8192, 16), (3, 5, 8)])
+def test_ssm_decode_kernel_matches_plain_and_scan(cuda, B, Di, N):
+    """One token at 1e-5 against the plain version, on the sweep of
+    tests/test_kernels.py, jamba's decode shape and a size that leaves a
+    partial warp; h' is also the T = 1 slice of the B6 kernel."""
+    rng = np.random.default_rng(B * Di * N)
+    h = _randn(rng, B, Di, N).to(cuda)
+    dA = torch.from_numpy(rng.uniform(0.5, 1.0, (B, Di, N)).astype(
+        np.float32)).to(cuda)
+    dtx = _randn(rng, B, Di).to(cuda)
+    Bs, Cs = _randn(rng, B, N).to(cuda), _randn(rng, B, N).to(cuda)
+    n = sd.ssm_decode_step.launches
+    y, hn = sd.ssm_decode_step(h, dA, dtx, Bs, Cs)
+    assert sd.ssm_decode_step.launches == n + 1
+    ey, ehn = sd.ssm_decode_step_plain(h, dA, dtx, Bs, Cs)
+    torch.testing.assert_close(y, ey, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hn, ehn, atol=1e-5, rtol=1e-5)
+    _, sl = ls.linear_scan(dA[:, None].contiguous(),
+                           (dtx[..., None] * Bs[:, None, :])[:, None]
+                           .contiguous(), h)
+    torch.testing.assert_close(sl, hn, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError):
+        sd.ssm_decode_step(h[..., :3].contiguous(), dA[..., :3].contiguous(),
+                           dtx, Bs[:, :3].contiguous(),
+                           Cs[:, :3].contiguous())
+
+
+def test_jamba_engine_on_card_matches_cpu(cuda):
+    """fp32 SMOKE jamba on the dense backend with a page budget that
+    parks: the card's streams (kernels B2, B5, B6, B7) equal the CPU's
+    (plain versions), and each kernel ran as often as its layers and the
+    engine's counters say (B6 once per Mamba layer per 256-token chunk;
+    these prompts are one chunk each)."""
+    cfg = SMOKE_CONFIGS["jamba-v0.1-52b"].scaled(dtype="float32")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (31, 26, 23, 13)]
+    kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
+    wrappers = (fa.flash_attention, ls.linear_scan, sd.ssm_decode_step,
+                md.moe_dispatch, pa.paged_decode_attention)
+    streams, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        eng = ServingEngine(cfg, p, api.EngineConfig(
+            slots=3, cache_len=64, page_size=8, n_pages=10, eos_token=-1,
+            decode_span=8, kv_layout="dense"), device=dev)
+        before = [w.launches for w in wrappers]
+        for i, pr in enumerate(prompts):
+            eng.submit(api.Request(i, pr, max_new_tokens=12))
+        streams[dev] = {r.req_id: r.tokens_out
+                        for r in eng.run_until_done()}
+        stats[dev] = eng.stats
+    st = stats["cuda"]
+    assert st["parked"] > 0 and st["unparked"] == st["parked"]
+    assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+    got = [w.launches - n for w, n in zip(wrappers, before)]
+    assert got == [kinds.count("attn") * st["prefills"],
+                   kinds.count("mamba") * st["prefills"],
+                   kinds.count("mamba") * st["decode_steps"],
+                   mlps.count("moe") * (st["prefills"] + st["decode_steps"]),
+                   0]
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_jamba_decode_span_never_syncs_on_card(cuda):
+    """No host synchronisation inside a decode span on the dense backend
+    through Mamba (B5 and the commit of its carry), dense attention (the
+    slab write and its restore for inactive slots) and MoE layers; the
+    inactive slot's slabs and carries stay as they were."""
+    cfg = SMOKE_CONFIGS["jamba-v0.1-52b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    state = lm.init_serve_state(cfg, 3, 64, device=cuda)
+    for layer in state["caches"]:
+        for t in layer.values():
+            t.normal_()
+    state["lengths"][:] = torch.tensor([5, 9, 0], dtype=torch.int32)
+    state["positions"].copy_(state["lengths"])
+    frozen = [{k: t[2].clone() for k, t in layer.items()}
+              for layer in state["caches"]]
+    args = (torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda),)
+    active = torch.tensor([True, True, False], device=cuda)
+    budgets = torch.tensor([8, 3, 8], dtype=torch.int32, device=cuda)
+    n = sd.ssm_decode_step.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emit, state = lm.decode_span(
+            params, *args, state, cfg, active, budgets, span=8,
+            eos_token=-1, cache_len=32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert sd.ssm_decode_step.launches - n == 8 * cfg.layer_kinds().count(
+        "mamba")
+    assert emit.sum(0).tolist() == [8, 3, 0]
+    assert state["positions"].tolist() == [13, 12, 0]
+    for layer, old in zip(state["caches"], frozen):
+        for k, t in layer.items():
+            assert torch.equal(t[2], old[k]), k

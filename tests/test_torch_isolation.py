@@ -97,11 +97,45 @@ def test_moe_entry_points_need_cuda_unless_asked_for_cpu():
     assert params["blocks"][1]["moe"]["w_up"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, params, EngineConfig(cache_len=64, page_size=8,
-                                                n_pages=16))
+                                                n_pages=16, kv_layout="paged"))
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "moonshot-v1-16b-a3b", "--smoke"])
-    eng = ServingEngine(cfg, params, EngineConfig(cache_len=64, page_size=8,
-                                                  n_pages=16), device="cpu")
+    eng = ServingEngine(cfg, params, EngineConfig(
+        cache_len=64, page_size=8, n_pages=16, kv_layout="paged"),
+        device="cpu")
+    eng.submit(Request(0, np.arange(1, 9, dtype=np.int32), max_new_tokens=3))
+    done = eng.run_until_done()
+    assert len(done) == 1 and len(done[0].tokens_out) == 3
+
+
+def test_jamba_entry_points_need_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    import numpy as np
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.api import EngineConfig, Request
+    from repro_torch.serve.engine import ServingEngine
+    cfg = SMOKE_CONFIGS["jamba-v0.1-52b"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_serve_state(cfg, 2, 64)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    assert params["blocks"][0]["mamba"]["A_log"].device.type == "cpu"
+    ecfg = EngineConfig(cache_len=64, page_size=8, n_pages=32)
+    assert ecfg.kv_layout == "dense"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, ecfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "jamba-v0.1-52b", "--kv-layout", "dense",
+                    "--smoke"])
+    serve.main(["--arch", "jamba-v0.1-52b", "--kv-layout", "dense",
+                "--smoke", "--device", "cpu", "--requests", "2",
+                "--max-new", "3"])
+    eng = ServingEngine(cfg, params, ecfg, device="cpu")
     eng.submit(Request(0, np.arange(1, 9, dtype=np.int32), max_new_tokens=3))
     done = eng.run_until_done()
     assert len(done) == 1 and len(done[0].tokens_out) == 3

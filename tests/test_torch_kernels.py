@@ -217,3 +217,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             torch.from_numpy(x) for x in _paged_inputs(2, 2, 1, 16, 8, 4, 3, 0)]
         with pytest.raises(TypeError):
             pa.paged_decode_attention(q, kp, vp, table.long(), lengths)
+
+
+def test_every_pallas_kernel_has_a_hopper_counterpart():
+    """Each function of the JAX package that reaches ``pl.pallas_call``
+    (by file and line) is named as replaced by one kernel source of the
+    port and by ``chip_smoke.py``'s kernel line; every source in
+    ``kernels/csrc`` is built (``_build.SOURCES``) and exports the error
+    string its wrapper reads."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    repo = Path(__file__).resolve().parents[1]
+    calls = {f"src/repro/kernels/{p.name}:{i}"
+             for p in sorted((repo / "src/repro/kernels").glob("*.py"))
+             for i, line in enumerate(p.read_text().splitlines(), 1)
+             if "pl.pallas_call(" in line}
+    assert len(calls) == 7, calls
+    smoke = (repo / "chip_smoke.py").read_text()
+    named = set(re.findall(r'"(src/repro/kernels/\w+\.py:\d+)"', smoke))
+    assert named == calls
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    for name in sources:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces:" in text and "src/repro/kernels/" in text, name
+        assert "cuda_error_string" in text, name

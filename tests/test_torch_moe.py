@@ -441,8 +441,8 @@ def test_moe_decode_span_reads_nothing_back(fp32):
     from torch.profiler import ProfilerActivity, profile
     _, _, tcfg, tp = fp32
     eng = ServingEngine(tcfg, tp, api.EngineConfig(
-        slots=3, cache_len=L, page_size=PS, n_pages=24, eos_token=-1),
-        device="cpu")
+        slots=3, cache_len=L, page_size=PS, n_pages=24, eos_token=-1,
+        kv_layout="paged"), device="cpu")
     for i, s in enumerate([0, 3, 5]):
         eng.submit(api.Request(i, _req_prompt(s), max_new_tokens=40))
     eng.step()                                   # admit + prefill + span

@@ -492,10 +492,25 @@ def test_paged_refuses_rwkv_config(tiny):
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", ARCH])
 def test_dense_layout_refused(arch):
-    """The dense backend is not registered in the port (ROADMAP A4c):
-    the config refuses it, and so does the registry."""
-    with pytest.raises(ValueError, match="A4c"):
-        api.EngineConfig(kv_layout="dense")
+    """What the dense layout refuses, now that it is registered (before,
+    the port refused the layout itself): a request whose worst case,
+    ``min(len(prompt) + max_new_tokens, cache_len)``, exceeds the whole
+    page budget is refused at submit, for attention and RWKV configs
+    alike, while one that fits completes; the config still refuses the
+    'latent' layout (ROADMAP A8), and the registry any unknown name."""
+    cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
+    p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServingEngine(cfg, p, api.EngineConfig(
+        kv_layout="dense", slots=2, cache_len=64, page_size=8, n_pages=4,
+        decode_span=4, eos_token=-1), device="cpu")
+    assert eng.kv.name == "dense" and not eng.kv.needs_growth
+    big = np.arange(1, 30, dtype=np.int32)
+    with pytest.raises(ValueError, match="pool holds only"):
+        eng.try_submit(api.Request(0, big, max_new_tokens=30))
+    assert eng.try_submit(api.Request(1, big[:20], max_new_tokens=12))
+    done = eng.run_until_done()
+    assert [len(r.tokens_out) for r in done] == [12]
+    with pytest.raises(ValueError, match="A8"):
+        api.EngineConfig(kv_layout="latent")
     with pytest.raises(ValueError, match="unknown kv layout"):
-        api.make_state_backend("dense", SMOKE_CONFIGS[arch],
-                               api.EngineConfig(), "cpu")
+        api.make_state_backend("ring", cfg, api.EngineConfig(), "cpu")

@@ -154,7 +154,7 @@ def test_parking_under_page_pressure_matches_reference(model,
 
 
 @pytest.mark.parametrize("setting", [
-    {"kv_layout": "dense"}, {"sampler": "stochastic"},
+    {"kv_layout": "latent"}, {"sampler": "stochastic"},
     {"prefill_chunk": 16}, {"prefix_cache_entries": 4}])
 def test_unsupported_settings_raise(setting):
     with pytest.raises(ValueError):
@@ -222,8 +222,8 @@ def test_decode_step_reads_nothing_back_inside_the_span(model):
     from torch.profiler import ProfilerActivity, profile
     _, _, tcfg, tp = model
     eng = ServingEngine(tcfg, tp, api.EngineConfig(
-        slots=3, cache_len=L, page_size=PS, n_pages=24, eos_token=-1),
-        device="cpu")
+        slots=3, cache_len=L, page_size=PS, n_pages=24, eos_token=-1,
+        kv_layout="paged"), device="cpu")
     for i, s in enumerate([0, 3, 8]):
         eng.submit(api.Request(i, _prompt(s), max_new_tokens=40))
     eng.step()                                   # admit + prefill + span
