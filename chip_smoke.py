@@ -62,8 +62,10 @@ WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
 MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
 SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
 SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
-# the __global__ functions of src/repro_torch/kernels/csrc/
-PORT_KERNELS = ("paged_decode_kernel", "flash_fwd_kernel",
+# the __global__ functions of src/repro_torch/kernels/csrc/: B1's split and
+# reduce passes, B2's tensor-core (bf16) and FMA (fp32) kernels, B3-B7
+PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
+                "flash_fwd_bf16_kernel", "flash_fwd_kernel",
                 "wkv6_chunked_kernel", "wkv6_decode_kernel",
                 "moe_dispatch_kernel", "linear_scan_kernel",
                 "ssm_decode_kernel")
@@ -138,13 +140,16 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
 
     q, k, v = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
     out = fa.flash_attention(q, k, v, window=window)
+    again = fa.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
                                    window=window)
     name = str(dtype).split(".")[-1]
     err = float((out.float() - ref).abs().max())
     tol = TOL[name]
-    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol))
+    repeats = bool(torch.equal(out, again))
+    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
+        and repeats
     pairs = sum(min(i + 1, window) if window > 0 else i + 1
                 for i in range(S))
     esize = q.element_size()
@@ -153,8 +158,8 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
     rec = {"phase": "kernels", "kernel": "flash_attention",
            "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
                      "window": window}, "dtype": name,
-           "max_err": err, "tol": tol, "ok": ok,
-           "bound_ms": b_ms, "bound_by": b_by}
+           "max_err": err, "tol": tol, "bit_equal_repeat": repeats,
+           "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         rec["kernel_ms"] = time_ms(
             lambda: fa.flash_attention(q, k, v, window=window), torch)
@@ -164,13 +169,17 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
             lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), torch)
             if window == 0 else None)
+        if rec["library_ms"]:
+            rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
     emit(rec)
     require(ok, f"flash_attention disagrees with its plain version: {rec}")
     return rec
 
 
 def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
-                timed=True):
+                timed=True, lengths=None):
+    """B1 against its plain version on random lengths in [1, MP * page],
+    or on ``lengths``; two calls must agree bit for bit."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -181,15 +190,22 @@ def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
     kp, vp = rnd(NP, page, KV, hd), rnd(NP, page, KV, hd)
     i32 = dict(generator=g, device="cuda", dtype=torch.int32)
     table = torch.randint(0, NP, (B, MP), **i32)
-    lengths = torch.randint(1, MP * page + 1, (B,), **i32)
+    lengths = (torch.randint(1, MP * page + 1, (B,), **i32)
+               if lengths is None else
+               torch.tensor(lengths, dtype=torch.int32, device="cuda"))
     out = pa.paged_decode_attention(q, kp, vp, table, lengths)
+    again = pa.paged_decode_attention(q, kp, vp, table, lengths)
     torch.cuda.synchronize()
     ref = pa.paged_decode_plain(q.float(), kp.float(), vp.float(), table,
                                 lengths)
     name = str(dtype).split(".")[-1]
     err = float((out.float() - ref).abs().max())
     tol = TOL[name]
-    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol))
+    repeats = bool(torch.equal(out, again))
+    # a slot of length 0 has no keys: exactly 0
+    empty_zero = not bool(out[lengths == 0].any())
+    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
+        and repeats and empty_zero
     live = int(torch.clamp(lengths, max=MP * page).sum())
     esize = q.element_size()
     b_ms, b_by = bound(esize * (2 * live * KV * hd + 2 * q.numel())
@@ -198,8 +214,10 @@ def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
     rec = {"phase": "kernels", "kernel": "paged_decode_attention",
            "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "NP": NP,
                      "page": page, "MP": MP}, "dtype": name,
+           "partition_pages": pa.partition_pages(MP, page),
            "lengths": lengths.tolist(), "max_err": err, "tol": tol,
-           "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+           "bit_equal_repeat": repeats, "ok": ok, "bound_ms": b_ms,
+           "bound_by": b_by}
     if timed:
         rec["kernel_ms"] = time_ms(
             lambda: pa.paged_decode_attention(q, kp, vp, table, lengths),
@@ -216,6 +234,7 @@ def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
             return F.scaled_dot_product_attention(
                 q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
         rec["library_ms"] = time_ms(library, torch)
+        rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
     emit(rec)
     require(ok, f"paged_decode_attention disagrees with its plain version: "
                 f"{rec}")
@@ -460,9 +479,30 @@ def phase_kernels(torch):
                                            (1, 2, 1, 16, 8, 4, 3)):
             check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype,
                         timed=False)
-    for window in (32, 96):
-        check_flash(torch, fa, 2, 4, 2, 256, 32, f32, window=window,
-                    timed=False)
+    for dtype in (f32, bf16):
+        for window in (32, 96):
+            check_flash(torch, fa, 2, 4, 2, 256, 32, dtype, window=window,
+                        timed=False)
+    # B2's tensor-core kernel at every head dim it is built for, on ragged
+    # and tile-edge lengths, one and four query heads per KV head
+    for hd in (16, 32, 64, 128):
+        for S in (1, 63, 64, 65, 200, 1531):
+            for B, H, KV in ((2, 4, 4), (1, 8, 2)):
+                check_flash(torch, fa, B, H, KV, S, hd, bf16, timed=False)
+    check_flash(torch, fa, 1, 8, 2, 1531, 128, bf16, window=96,
+                timed=False)
+    # B1's split edges: MP 32 at page 16 cuts a slot into partitions of 4
+    # pages (64 tokens); lengths 0, 1, a page, a partition, a partition + 1,
+    # MP * page and past it (clamped); MP 1 is one partition of one page;
+    # G = 1 and 4 (one block per KV head), 3 and 8 (several)
+    for dtype in (f32, bf16):
+        for H, KV in ((4, 4), (8, 2), (6, 2), (16, 2)):
+            for hd in (64, 128):
+                check_paged(torch, pa, 7, H, KV, hd, 80, 16, 32, dtype,
+                            timed=False,
+                            lengths=[0, 1, 16, 64, 65, 512, 600])
+            check_paged(torch, pa, 4, H, KV, 128, 8, 16, 1, dtype,
+                        timed=False, lengths=[0, 1, 16, 40])
     for dtype in (f32, bf16):
         for B, S, H, hd, chunk in ((2, 64, 2, 8, 16), (1, 50, 3, 16, 32),
                                    (2, 33, 1, 8, 8), (2, 1, 2, 8, 32)):
@@ -968,6 +1008,22 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
 
 # --------------------------------------------------------------------------
 
+def ptxas_summary(log: str):
+    """nvcc's ``-Xptxas -v`` output per compiled kernel: [entry (mangled,
+    cut to 90 characters), spill line, registers and shared memory]."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            cur = [ln.split("'")[1][:90] if "'" in ln else ln, "", ""]
+            rows.append(cur)
+        elif cur is not None and "spill" in ln:
+            cur[1] = ln
+        elif cur is not None and "registers" in ln:
+            cur[2] = ln.split(":", 1)[-1].strip()
+    return rows
+
+
 def kernel_line(main, serves):
     """One row per kernel: its times at the main serving shape, its
     launches summed over the serve runs of the paths that run it (each
@@ -976,10 +1032,12 @@ def kernel_line(main, serves):
     rows = []
     for name, key, src, replaces, more in (
             ("flash_attention", ("flash", 1531), "flash_attention.cu",
-             FLASH_REPLACES, (("flash_moonshot", 1900),
+             FLASH_REPLACES, (("flash", 200), ("flash", 1000),
+                              ("flash_moonshot", 1000),
+                              ("flash_moonshot", 1900),
                               ("flash_jamba", 1900))),
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
-             PAGED_REPLACES, (("paged_moonshot", 128),)),
+             PAGED_REPLACES, (("paged", 16), ("paged_moonshot", 128))),
             ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
              WKV_CHUNKED_REPLACES, ()),
             ("wkv6_decode", ("wkv6_decode", 4), "wkv6.cu",
@@ -1010,10 +1068,12 @@ def kernel_line(main, serves):
                "shape": rec["shape"], "checked": True}
         if "library" in rec:
             row["library"] = rec["library"]
+        if "x_library" in rec:
+            row["x_library"] = rec["x_library"]
         if more:
-            row["also_at"] = [{k: main[m][k] for k in (
+            row["also_at"] = [{k: main[m].get(k) for k in (
                 "shape", "max_err", "kernel_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")} for m in more]
+                "bound_by", "library_ms", "x_library")} for m in more]
         rows.append(row)
     return {"kernels": rows}
 
@@ -1049,9 +1109,7 @@ def main() -> int:
         logs = _build.build_all()
         emit({"phase": "build", "seconds": t.elapsed(),
               "dir": str(_build.build_dir().relative_to(ROOT)),
-              "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                            if "registers" in ln or "spill" in ln]
-                        for n, log in logs.items()}})
+              "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
         main_shapes = phase_kernels(torch)
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")

@@ -22,6 +22,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0,
@@ -60,16 +61,17 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16, one "
                         f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd % 16 or hd > 128:
-        raise ValueError(f"head dim {hd} must be a multiple of 16, <= 128")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} must be one of {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
 
 
 def flash_attention(q, k, v, *, window: int = 0,
                     scale: Optional[float] = None):
-    """Causal (+SWA) attention. CUDA tensors launch the B2 kernel; CPU
-    tensors take ``flash_attention_plain``. Anything else raises."""
+    """Causal (+SWA) attention. CUDA tensors launch the B2 kernel (bf16 on
+    the tensor cores, fp32 on the CUDA cores); CPU tensors take
+    ``flash_attention_plain``. Anything else raises."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, window=window, scale=scale)
@@ -78,6 +80,9 @@ def flash_attention(q, k, v, *, window: int = 0,
                          f"{q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous q, k, v")
+    # the bf16 kernel copies 16-byte chunks: a view at an odd offset (a
+    # one-token prompt's slice of a projection) is copied first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     B, H, S, hd = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty_like(q)

@@ -8,6 +8,10 @@ in ``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
 ``ref.paged_decode_attention_ref`` oracle with the kernel's l == 0 guard,
 so a row of length 0 returns 0): the wrapper takes it only for CPU
 tensors, and the tests and ``chip_smoke.py`` hold the kernel against it.
+The kernel splits each slot's table into partitions of
+``partition_pages(MP, page)`` pages (a split pass and a reduce pass);
+``paged_decode_split_plain`` is that algorithm in plain PyTorch, for the
+tests only.
 
 Layouts follow the JAX package: q [B,H,hd]; pools [NP,page,KV,hd];
 page_table [B,MP] int32; lengths [B] int32 -> [B,H,hd].
@@ -27,6 +31,20 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+# a partition holds at most this many tokens, and a slot is cut into at
+# least this many partitions where its table has the pages
+PARTITION_TOKENS = 256
+MIN_SPLITS = 8
+
+
+def partition_pages(max_pages: int, page: int) -> int:
+    """Pages per partition of the kernel's split pass, from the shapes
+    alone (never from ``lengths``): at most PARTITION_TOKENS tokens, and
+    at least MIN_SPLITS partitions per slot while a partition keeps one
+    page or more. MP 128, page 16 gives 16 pages (8 partitions); MP 16
+    gives 2 (8 partitions of 32 tokens)."""
+    return max(1, min(PARTITION_TOKENS // page, max_pages // MIN_SPLITS))
 
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
@@ -53,6 +71,54 @@ def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, *,
     return o.reshape(B, H, hd).to(q.dtype)
 
 
+def paged_decode_split_plain(q, k_pages, v_pages, page_table, lengths, *,
+                             partition_pages: int,
+                             scale: Optional[float] = None):
+    """The kernel's split-K algorithm in plain PyTorch, for the tests:
+    per partition of ``partition_pages`` table entries a partial (m, l,
+    acc) over its live positions (min(length, MP * page) capped; an empty
+    partition has m = -1e30, l = 0), then the reduce: each partial
+    rescaled by exp(m_i - m_max), empty ones skipped, added in partition
+    order and divided by the summed l; all empty gives 0. fp32 math, the
+    probabilities unrounded, as in the kernel."""
+    B, H, hd = q.shape
+    NP, page, KV, _ = k_pages.shape
+    MP = page_table.shape[1]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    live = torch.clamp(lengths.long(), max=MP * page)
+    qg = q.float().reshape(B, KV, G, hd) * scale
+    ms, ls, accs = [], [], []
+    for lo in range(0, MP, partition_pages):
+        cols = page_table[:, lo:lo + partition_pages].long()
+        n = cols.shape[1] * page
+        k = k_pages[cols].reshape(B, n, KV, hd).float()
+        v = v_pages[cols].reshape(B, n, KV, hd).float()
+        pos = lo * page + torch.arange(n, device=q.device)
+        valid = (pos[None] < live[:, None])[:, None, None]  # [B,1,1,n]
+        s = torch.einsum("bkgd,bskd->bkgs", qg, k)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.where(valid, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p, v))
+    m, l = torch.stack(ms, -1), torch.stack(ls, -1)     # [B,KV,G,splits]
+    acc = torch.stack(accs, -2)                         # [...,splits,hd]
+    live_part = l > 0
+    m_max = torch.where(live_part, m, torch.full_like(m, NEG_INF)).amax(-1)
+    w = torch.where(live_part, torch.exp(m - m_max[..., None]),
+                    torch.zeros_like(m))
+    l_sum = (l * w).sum(-1)
+    a_sum = (acc * w[..., None]).sum(-2)
+    o = torch.where((l_sum > 0)[..., None],
+                    a_sum / torch.where(l_sum > 0, l_sum,
+                                        torch.ones_like(l_sum))[..., None],
+                    torch.zeros_like(a_sum))
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
 def _check(q, k_pages, v_pages, page_table, lengths):
     if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"want q [B,H,hd], pools [NP,page,KV,hd]; got "
@@ -63,6 +129,8 @@ def _check(q, k_pages, v_pages, page_table, lengths):
     if k_pages.shape[3] != hd or H % KV:
         raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
                          f"{tuple(q.shape)} (H must be a multiple of KV)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} must be one of {HEAD_DIMS}")
     if page_table.dim() != 2 or page_table.shape[0] != B \
             or page_table.shape[1] < 1 or tuple(lengths.shape) != (B,):
         raise ValueError(f"want page_table [B,MP>=1], lengths [B]; got "
@@ -84,9 +152,10 @@ def _check(q, k_pages, v_pages, page_table, lengths):
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale: Optional[float] = None):
     """Single-token attention through a page table. CUDA tensors launch
-    the B1 kernel; CPU tensors take ``paged_decode_plain``. The kernel
-    walks min(ceil(length / page), MP) pages of each slot and never reads
-    the table past MP."""
+    the B1 kernels (split pass, then reduce pass; ``launches`` counts
+    calls); CPU tensors take ``paged_decode_plain``. The kernel reads
+    min(length, MP * page) positions of each slot and never reads the
+    table past MP."""
     _check(q, k_pages, v_pages, page_table, lengths)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_table, lengths,
@@ -97,18 +166,27 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     ts = (q, k_pages, v_pages, page_table, lengths)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_decode_attention needs contiguous inputs")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode_attention reads the pools in 16-byte "
+                         "loads: they must be 16-byte aligned")
     B, H, hd = q.shape
     NP, page, KV, _ = k_pages.shape
+    MP = page_table.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pp = partition_pages(MP, page)
+    splits = -(-MP // pp)
     out = torch.empty_like(q)
+    # partials of the split pass: acc [B,H,splits,hd], then (m, l)
+    scratch = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.paged_decode(q.data_ptr(), k_pages.data_ptr(),
                                v_pages.data_ptr(), page_table.data_ptr(),
-                               lengths.data_ptr(), out.data_ptr(), B, H, KV,
-                               hd, page, page_table.shape[1], float(scale),
-                               _DTYPES[q.dtype], stream)
+                               lengths.data_ptr(), out.data_ptr(),
+                               scratch.data_ptr(), B, H, KV, hd, page, MP,
+                               pp, float(scale), _DTYPES[q.dtype], stream)
     _build.check(lib, err, "paged_decode")
     paged_decode_attention.launches += 1
     return out
@@ -121,8 +199,8 @@ paged_decode_attention.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.paged_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
-                                 ctypes.c_float, I, P]
+    lib.paged_decode.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                 I, ctypes.c_float, I, P]
     lib.paged_decode.restype = I
     return lib
 

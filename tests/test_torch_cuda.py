@@ -76,6 +76,69 @@ def test_paged_kernel_matches_plain(cuda, dtype):
                                rtol=_TOL[dtype])
 
 
+@pytest.mark.parametrize("B,H,KV", [(2, 4, 4), (1, 8, 2)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1531])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_flash_bf16_kernel_matches_plain(cuda, hd, S, B, H, KV):
+    """The tensor-core kernel at every head dim it is built for, on
+    lengths at and around its 64-row tiles, G = 1 and 4; two calls agree
+    bit for bit."""
+    rng = np.random.default_rng(hd + S)
+    q, k, v = [_randn(rng, *s).to(cuda, torch.bfloat16)
+               for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+    out = fa.flash_attention(q, k, v)
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+    expected = fa.flash_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), expected, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [32, 96])
+def test_flash_bf16_window_matches_plain(cuda, window):
+    """The sliding window on the tensor-core kernel: band edge tiles
+    masked, tiles left of the band skipped."""
+    rng = np.random.default_rng(window)
+    q, k, v = [_randn(rng, *s).to(cuda, torch.bfloat16)
+               for s in ((1, 8, 333, 64), (1, 2, 333, 64), (1, 2, 333, 64))]
+    out = fa.flash_attention(q, k, v, window=window)
+    assert torch.equal(out, fa.flash_attention(q, k, v, window=window))
+    expected = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        window=window)
+    torch.testing.assert_close(out.float(), expected, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("MP", [1, 32])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 2), (16, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_split_kernel_edges(cuda, dtype, H, KV, MP):
+    """B1's split at its edges (page 16; MP 32 gives partitions of 4
+    pages): lengths 0, 1, a page, a partition, a partition + 1, MP * page
+    and past it; G = 1, 4, and 3 and 8 (several blocks per KV head).
+    Length 0 gives exactly 0; two calls agree bit for bit; the result
+    matches the plain version and the plain split algorithm."""
+    page = 16
+    pp = pa.partition_pages(MP, page)
+    lengths = sorted({0, 1, page, pp * page, pp * page + 1, MP * page,
+                      MP * page + 88})
+    rng = np.random.default_rng(MP + H)
+    q = _randn(rng, len(lengths), H, 128).to(cuda, dtype)
+    kp, vp = [_randn(rng, 80, page, KV, 128).to(cuda, dtype)
+              for _ in range(2)]
+    table = torch.from_numpy(rng.integers(0, 80, (len(lengths), MP)).astype(
+        np.int32)).to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = pa.paged_decode_attention(q, kp, vp, table, lens)
+    assert torch.equal(out, pa.paged_decode_attention(q, kp, vp, table,
+                                                      lens))
+    assert not out[0].float().any()
+    for expected in (pa.paged_decode_plain(q.float(), kp.float(),
+                                           vp.float(), table, lens),
+                     pa.paged_decode_split_plain(q.float(), kp.float(),
+                                                 vp.float(), table, lens,
+                                                 partition_pages=pp)):
+        torch.testing.assert_close(out.float(), expected, atol=_TOL[dtype],
+                                   rtol=_TOL[dtype])
+
+
 def test_engine_on_card_matches_cpu(cuda):
     """fp32 SMOKE weights, page pressure that parks: the card's streams
     (kernels) equal the CPU's (plain versions)."""

@@ -144,6 +144,64 @@ def test_paged_plain_matches_pallas_edge_rows(dtype):
     _close(out[1:], np.asarray(expected, np.float32)[1:], _TOL[dtype])
 
 
+@pytest.mark.parametrize("pp", [1, 2, 3, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_plain_matches_ref(dtype, pp):
+    """The kernel's split-K algorithm (partials per partition of ``pp``
+    pages, then the reduce) against the JAX oracle: lengths 0 (every
+    partition empty: 0, not 0/0), 1, a page, a partition, a partition +
+    1, MP * page and past it (clamped to the table); partitions after a
+    slot's length are empty; pp = 6 = MP is one partition a slot. GQA
+    with G = 4."""
+    page, MP = 4, 6
+    lengths = [0, 1, page, pp * page, pp * page + 1, MP * page,
+               MP * page + 7]
+    q, kp, vp, table, lengths = _paged_inputs(len(lengths), 8, 2, 32, 20,
+                                              page, MP, seed=pp,
+                                              lengths=lengths)
+    tq, tk, tv = [_pair(x, dtype)[1] for x in (q, kp, vp)]
+    tt, tl = torch.from_numpy(table), torch.from_numpy(lengths)
+    out = pa.paged_decode_split_plain(tq, tk, tv, tt, tl, partition_pages=pp)
+    assert out.dtype == _TDT[dtype] and out.shape == tq.shape
+    assert torch.isfinite(out.float()).all()
+    assert not out[0].float().any()
+    expected = ref.paged_decode_attention_ref(
+        *[jnp.asarray(t.float().numpy()) for t in (tq, tk, tv)],
+        jnp.asarray(table), jnp.asarray(lengths))
+    _close(out[1:], np.asarray(expected, np.float32)[1:], _TOL[dtype])
+    # and the one-pass plain version the wrapper takes on the CPU
+    _close(out, pa.paged_decode_plain(tq, tk, tv, tt, tl).float().numpy(),
+           _TOL[dtype])
+
+
+def test_paged_split_plain_all_empty_is_zero():
+    """Every partition empty in every slot (m = -1e30, l = 0 throughout):
+    the combine returns 0, never NaN."""
+    q, kp, vp, table, lengths = _paged_inputs(3, 4, 4, 16, 8, 4, 5, seed=1,
+                                              lengths=[0, 0, 0])
+    out = pa.paged_decode_split_plain(
+        *[torch.from_numpy(x) for x in (q, kp, vp, table, lengths)],
+        partition_pages=2)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("MP,page,want", [
+    (128, 16, 16), (16, 16, 2), (1, 16, 1), (4, 16, 1), (6, 8, 1),
+    (256, 16, 16), (64, 32, 8), (64, 512, 1),
+])
+def test_partition_pages_from_shapes(MP, page, want):
+    """The split's partition size follows MP and page only. At the serve
+    shapes (4 slots, MP 128, page 16) the split pass has at least two
+    blocks per SM of the card's 132: 256 for qwen3-8b (KV 8), 512 for
+    moonshot-v1-16b-a3b (KV 16)."""
+    pp = pa.partition_pages(MP, page)
+    assert pp == want
+    assert 1 <= pp <= max(1, pa.PARTITION_TOKENS // page)
+    splits = -(-MP // pp)
+    if MP == 128 and page == 16:
+        assert 4 * 8 * splits >= 256 and 4 * 16 * splits >= 512
+
+
 @pytest.mark.parametrize("active", [None, [True, False, True, False],
                                     [False, False, False, False],
                                     [False, True, True, False]])
