@@ -29,7 +29,10 @@ Phases, each printing one JSON object per line:
              launch counts of the path's kernels, a second run that must
              give identical streams (for rwkv6, moonshot and jamba a
              third with fewer pages, which parks and must agree too), and
-             one decode span traced with torch.profiler;
+             one decode span traced with torch.profiler (and rwkv6's
+             1531-token and moonshot's 1900-token prefills), each port
+             kernel's device ms and launches in the trace held to its
+             wrapper's calls;
 6. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
@@ -63,10 +66,13 @@ MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
 SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
 SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
 # the __global__ functions of src/repro_torch/kernels/csrc/: B1's split and
-# reduce passes, B2's tensor-core (bf16) and FMA (fp32) kernels, B3-B7
+# reduce passes, B2's tensor-core (bf16) and FMA (fp32) kernels, B4's three
+# passes (chunk states, the scan of the carry, chunk outputs), B3, B5-B7
+WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
+                       "wkv6_chunk_output_kernel")
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
                 "flash_fwd_bf16_kernel", "flash_fwd_kernel",
-                "wkv6_chunked_kernel", "wkv6_decode_kernel",
+                *WKV_CHUNKED_KERNELS, "wkv6_decode_kernel",
                 "moe_dispatch_kernel", "linear_scan_kernel",
                 "ssm_decode_kernel")
 # WKV-6 outputs are fp32 whatever r/k/v's dtype, and kernel and plain
@@ -173,6 +179,40 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
             rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
     emit(rec)
     require(ok, f"flash_attention disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
+    """B2 through the model's ``chunked_causal_attention`` at head dims
+    it is not built for (q/k ``hd``, v ``hd_v``): zero-padded to the next
+    built head dim, the output sliced back; against the plain masked
+    softmax on the unpadded tensors."""
+    from repro_torch.models.attention import chunked_causal_attention
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, S, H, hd), rnd(B, S, KV, hd), rnd(B, S, KV, hd_v)
+    n = fa.flash_attention.launches
+    out = chunked_causal_attention(q, k, v)
+    launched = fa.flash_attention.launches - n
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(*(t.float().transpose(1, 2)
+                                     for t in (q, k, v))).transpose(1, 2)
+    name = str(dtype).split(".")[-1]
+    err = float((out.float() - ref).abs().max())
+    tol = TOL[name]
+    ok = (out.shape == (B, S, H, hd_v) and launched == 1
+          and bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)))
+    rec = {"phase": "kernels", "kernel": "flash_attention",
+           "route": "chunked_causal_attention (zero-padded head dims)",
+           "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+                     "hd_v": hd_v}, "dtype": name, "max_err": err,
+           "tol": tol, "ok": ok}
+    emit(rec)
+    require(ok, f"chunked_causal_attention disagrees with the plain "
+                f"attention: {rec}")
     return rec
 
 
@@ -335,32 +375,55 @@ def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
     return rec
 
 
-def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True):
-    """Exact equality with the plain version. Ids are uniform over the
-    experts, positions their cumsum, as the MoE layer computes them."""
+def _dispatch_rows(torch, g, T, E, C, positions, seed):
+    """Expert ids and queue positions. ``cumsum``: ids uniform over the
+    experts, positions their cumsum, as the MoE layer computes them.
+    ``sparse``: ids over E + E // 4 + 1 values (the rest out of range),
+    and each expert's rows at distinct positions drawn at random from
+    [0, max(2 C, its rows)): not dense from 0, permuted, some past C."""
+    import numpy as np
+    if positions == "cumsum":
+        eids = torch.randint(0, E, (T,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        onehot = (eids[:, None] == torch.arange(E, device="cuda")).to(
+            torch.int32)
+        pos = torch.cumsum(onehot, 0, dtype=torch.int32).gather(
+            1, eids[:, None].long())[:, 0] - 1
+        return eids, pos
+    rng = np.random.default_rng(seed)
+    eids = rng.integers(0, E + E // 4 + 1, size=T).astype(np.int32)
+    pos = np.zeros(T, np.int32)
+    for e in range(E + E // 4 + 1):
+        at = np.nonzero(eids == e)[0]
+        pos[at] = rng.permutation(max(2 * C, len(at)))[:len(at)]
+    return (torch.from_numpy(eids).to("cuda"),
+            torch.from_numpy(pos).to("cuda"))
+
+
+def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True,
+                       positions="cumsum"):
+    """Exact equality with the plain version, on rows placed as
+    ``_dispatch_rows`` says."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     toks = torch.randn(T, D, generator=g, device="cuda").to(dtype)
-    eids = torch.randint(0, E, (T,), generator=g, device="cuda",
-                         dtype=torch.int32)
-    onehot = (eids[:, None] == torch.arange(E, device="cuda")).to(
-        torch.int32)
-    pos = torch.cumsum(onehot, 0, dtype=torch.int32).gather(
-        1, eids[:, None].long())[:, 0] - 1
+    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed)
     out = md.moe_dispatch(toks, eids, pos, E, C)
     torch.cuda.synchronize()
     ref = md.moe_dispatch_plain(toks, eids, pos, E, C)
     ok = bool(torch.equal(out, ref))
-    keep = pos < C
+    keep = (eids >= 0) & (eids < E) & (pos >= 0) & (pos < C)
     kept = int(keep.sum())
     # kept rows read once, ids and positions read once, the whole buffer
     # written once; no arithmetic
     b_ms, b_by = bound(toks.element_size() * D * (kept + E * C) + 8 * T,
                        0.0, str(dtype).split(".")[-1])
     rec = {"phase": "kernels", "kernel": "moe_dispatch",
-           "shape": {"T": T, "D": D, "E": E, "C": C}, "kept": kept,
+           "shape": {"T": T, "D": D, "E": E, "C": C},
+           "positions": positions, "kept": kept,
+           "empty_slots": E * C - kept,
            "dtype": str(dtype).split(".")[-1],
-           "max_err": _max_err(torch, ((out, ref),)), "tol": 0.0,
-           "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+           "max_err": _max_err(torch, ((out, ref),)) if out.numel() else 0.0,
+           "tol": 0.0, "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         rec["kernel_ms"] = time_ms(
             lambda: md.moe_dispatch(toks, eids, pos, E, C), torch)
@@ -373,6 +436,7 @@ def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True):
                                device="cuda").index_put_((k_e, k_p), k_t)
         rec["library_ms"] = time_ms(library, torch)
         rec["library"] = "torch.zeros + index_put_ of the kept rows"
+        rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
         ok = ok and bool(torch.equal(library(), out))
         rec["ok"] = ok
     emit(rec)
@@ -510,10 +574,39 @@ def phase_kernels(torch):
                               timed=False)
         for B, H, hd in ((2, 2, 8), (1, 3, 16), (4, 1, 8)):
             check_wkv_decode(torch, wk, B, H, hd, dtype, timed=False)
+        # B4's chunk-parallel passes at their edges: one token, a chunk
+        # less one, a chunk, a chunk and one, ragged tails, a long prompt
+        # (48 chunks of 32, or 1531 of 1); head dims 8, 64 and 128 (rows
+        # by cp.async) and 6 (element by element, padded to 8 on chip);
+        # B = 2, a non-zero state0
+        for S in (1, 31, 32, 33, 37, 300, 1531):
+            for hd in (6, 8, 64, 128):
+                for chunk in (1, 32):
+                    check_wkv_chunked(torch, wk, 2, S, 2, hd, dtype,
+                                      chunk=chunk, seed=S + hd,
+                                      timed=False)
         # the sweep of tests/test_kernels.py, and rows of an odd width
         for T, D, E, C in ((64, 32, 8, 12), (100, 16, 4, 40), (32, 8, 2, 4),
                            (128, 64, 16, 8), (48, 7, 3, 5)):
             check_moe_dispatch(torch, md, T, D, E, C, dtype, timed=False)
+        # B7's slot tiles (32 slots of one expert a block): positions not
+        # dense from 0, ids out of range, rows past C, tiles no row fills
+        # (C 100 for 64 rows), odd row widths, no rows at all, and a
+        # moonshot-width prefill whose queues overflow
+        for T, D, E, C in ((64, 32, 8, 12), (100, 16, 4, 40), (48, 7, 3, 5),
+                           (64, 64, 8, 100), (0, 64, 4, 8),
+                           (3000, 2048, 64, 60)):
+            check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=T + C,
+                               timed=False, positions="sparse")
+        check_moe_dispatch(torch, md, 0, 64, 4, 8, dtype, timed=False)
+        # B2 through the model at head dims it is not built for: 120
+        # (h2o-danube-3-4b, GQA 4:1) and q/k 48 with v 32 (MLA at SMOKE
+        # size), zero-padded to 128 and 64
+        for B, H, KV, S, hd, hd_v in ((1, 8, 2, 300, 120, 120),
+                                      (2, 4, 1, 65, 120, 120),
+                                      (1, 4, 4, 257, 48, 32),
+                                      (2, 8, 8, 64, 48, 32)):
+            check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype)
     # the serving path's shapes (qwen3-8b: H 32, KV 8, hd 128)
     main = {}
     for S in (200, 1000, 1531):
@@ -523,6 +616,7 @@ def phase_kernels(torch):
                                           MP, bf16)
     # rwkv6-1.6b's (H 32, hd 64): prefill passes bf16 r/k/v, decode fp32
     for S in (200, 1000, 1531):
+        check_wkv_chunked(torch, wk, 1, S, 32, 64, f32, timed=False)
         main[("wkv6_chunked", S)] = check_wkv_chunked(torch, wk, 1, S, 32,
                                                       64, bf16)
     main[("wkv6_decode", 4)] = check_wkv_decode(torch, wk, 4, 32, 64, f32)
@@ -814,32 +908,35 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device):
     return eng, done, t.elapsed(), prefill_s[0]
 
 
-def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
-    """Where a decode span's time goes: admit and prefill the first
-    `slots` prompts with one engine step, then trace the next step (a
-    pure decode span) with torch.profiler. Returns the wall time, the
-    summed device time of the kernels, and the top kernels by device
-    time."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.timing import Timer
-    from repro_torch.serve.api import Request
-    from repro_torch.serve.engine import ServingEngine
-    eng = ServingEngine(cfg, params, ecfg, device=device)
-    for i, p in enumerate(prompts[:ecfg.slots]):
-        eng.submit(Request(i, p.copy(), max_new_tokens=1 << 20))
-    eng.step()
-    acts = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    sync(torch, device)
-    steps = eng.stats["decode_steps"]
-    with profile(activities=acts) as prof:
-        t = Timer()
-        eng.step()
-        sync(torch, device)
-        wall = t.elapsed()
-    # device-side rows only (kernels, copies, memsets): an op's row
-    # repeats the device time of the kernels it launched
+# the device kernels each wrapper launches per call: B1 a split and a
+# reduce pass, B2 one kernel of its dtype, B4 three passes, the rest one
+WRAPPER_KERNELS = {
+    "flash_attention": (("flash_fwd_bf16_kernel", "flash_fwd_kernel"), 1),
+    "paged_decode_attention": (("paged_decode_split_kernel",
+                                "paged_decode_reduce_kernel"), 2),
+    "wkv6_chunked": (WKV_CHUNKED_KERNELS, 3),
+    "wkv6_decode": (("wkv6_decode_kernel",), 1),
+    "ssm_decode_step": (("ssm_decode_kernel",), 1),
+    "linear_scan": (("linear_scan_kernel",), 1),
+    "moe_dispatch": (("moe_dispatch_kernel",), 1)}
+
+
+def _kernel_name(key):
+    """The port's __global__ name in a profiler row's key, or None."""
+    for name in PORT_KERNELS:
+        if f"::{name}<" in key or f"::{name}(" in key:
+            return name
+    return None
+
+
+def _traced(torch, prof, wall, calls):
+    """A profiler window's device-side rows (kernels, copies, memsets; an
+    op's row repeats the device time of the kernels it launched): summed
+    device time and busy share, the top ten rows, and per port kernel its
+    device ms, launches and µs a launch. Each wrapper called in the window
+    (``calls``) must show exactly its device kernels per call: that the
+    trace saw every launch, and that B7 runs as one kernel, B4 as
+    three."""
     from torch.autograd import DeviceType
     events = [(e.key, e.self_device_time_total / 1e3, e.count)
               for e in prof.key_averages()
@@ -847,17 +944,89 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e[1])
     busy = sum(ms for _, ms, _ in events) / 1e3
-    # the port's own kernels and the memsets (B7 zeroes its buffer with
-    # one), whatever their rank: their device time per launch in the span
-    ours = [[k[:80], ms, n] for k, ms, n in events
-            if any(f"::{name}{c}" in k for name in PORT_KERNELS
-                   for c in "<(")
-            or k.startswith("Memset")]
-    return {"decode_steps": eng.stats["decode_steps"] - steps,
-            "wall_s": wall, "device_kernel_s": busy,
+    ours = {}
+    for key, ms, n in events:
+        name = _kernel_name(key)
+        if name is not None:
+            row = ours.setdefault(name, {"ms": 0.0, "launches": 0})
+            row["ms"] += ms
+            row["launches"] += n
+    for row in ours.values():
+        row["us_per_launch"] = 1e3 * row["ms"] / row["launches"]
+    for wrapper, n_calls in calls.items():
+        names, per_call = WRAPPER_KERNELS[wrapper]
+        seen = sum(ours.get(k, {}).get("launches", 0) for k in names)
+        require(seen == per_call * n_calls,
+                f"trace: {wrapper} was called {n_calls} times but its "
+                f"kernels {names} launched {seen} times, not "
+                f"{per_call} a call")
+    return {"wall_s": wall, "device_kernel_s": busy,
             "device_busy_share": busy / wall,
             "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in events[:10]],
-            "port_kernels_ms": ours}
+            "port_kernels": ours,
+            "memsets": [[k[:80], ms, n] for k, ms, n in events
+                        if k.startswith("Memset")],
+            "wrapper_calls": calls}
+
+
+def _profile(torch, device, fn):
+    """Run ``fn`` under torch.profiler (CPU and CUDA) and return the
+    profile, its wall time and each wrapper's calls in the window."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.timing import Timer
+    wrappers = _wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    sync(torch, device)
+    with profile(activities=acts) as prof:
+        t = Timer()
+        fn()
+        sync(torch, device)
+        wall = t.elapsed()
+    calls = {n: w.launches - before[n] for n, w in wrappers.items()
+             if w.launches > before[n]}
+    return prof, wall, calls
+
+
+def streams_digest(streams) -> str:
+    """sha256 of a run's token streams ({req_id: tokens}), to compare runs
+    of different code without printing every token."""
+    import hashlib
+    text = json.dumps({str(k): [int(t) for t in v]
+                       for k, v in sorted(streams.items())})
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
+    """Where a decode span's time goes: admit and prefill the first
+    `slots` prompts with one engine step, then trace the next step (a
+    pure decode span) with torch.profiler (``_traced``)."""
+    from repro_torch.serve.api import Request
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, ecfg, device=device)
+    for i, p in enumerate(prompts[:ecfg.slots]):
+        eng.submit(Request(i, p.copy(), max_new_tokens=1 << 20))
+    eng.step()
+    steps = eng.stats["decode_steps"]
+    prof, wall, calls = _profile(torch, device, eng.step)
+    return {"decode_steps": eng.stats["decode_steps"] - steps,
+            **_traced(torch, prof, wall, calls)}
+
+
+def profile_prefill(torch, cfg, params, ecfg, prompt, device):
+    """Where one monolithic prefill's time goes: a fresh engine admits
+    one request of ``prompt``, which prefills it, under torch.profiler
+    (``_traced``)."""
+    from repro_torch.serve.api import Request
+    from repro_torch.serve.engine import ServingEngine
+    eng = ServingEngine(cfg, params, ecfg, device=device)
+    eng.submit(Request(0, prompt.copy(), max_new_tokens=1 << 20))
+    prof, wall, calls = _profile(torch, device, eng._admit)
+    require(eng.stats["prefills"] == 1,
+            f"traced prefill: {eng.stats['prefills']} prefills, not 1")
+    return {"prompt_len": len(prompt), **_traced(torch, prof, wall, calls)}
 
 
 def _wrappers():
@@ -908,7 +1077,7 @@ def serve_path(cfg, layout):
 
 
 def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
-                seed=0, device="cuda", park_pages=None):
+                seed=0, device="cuda", park_pages=None, trace_prefill=None):
     """Serve 8 requests with ``cfg`` (full width; the depth it gives).
     ``path`` (``serve_path``) maps each kernel the serving path must run
     to the counters its launches follow and the layers that launch it
@@ -919,7 +1088,9 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     chunks of Mamba prefill, which the prompts give once every prompt is
     prefilled exactly once (no preemption), as the run must. With
     ``park_pages`` a third run with that many pages must park, unpark and
-    give the same streams."""
+    give the same streams. One decode span is traced, and with
+    ``trace_prefill`` (a prompt length of ``prompt_lens``) that prompt's
+    prefill too."""
     import dataclasses
     import numpy as np
     from repro_torch.models import lm
@@ -982,6 +1153,9 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
                    "streams_identical": True}
         del eng3
     traced = profile_decode_span(torch, cfg, params, ecfg, prompts, device)
+    traced_prefill = (None if trace_prefill is None else profile_prefill(
+        torch, cfg, params, ecfg, prompts[prompt_lens.index(trace_prefill)],
+        device))
     decode_s = wall - prefill_s
     rec = {"phase": "serve", "arch": cfg.name, "n_layers": n_layers,
            "dtype": str(lm.param_dtype(cfg)).split(".")[-1],
@@ -997,8 +1171,10 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
            "launches": launches, "launch_path": path,
            "prefill_chunks": counts["prefill_chunks"], "stats": st,
            "completion_order": [r.req_id for r in done],
+           "streams_sha256": streams_digest(streams),
            "streams_identical_across_runs": True,
-           "parking_run": parking, "traced_decode_span": traced}
+           "parking_run": parking, "traced_decode_span": traced,
+           "traced_prefill": traced_prefill}
     if torch.device(device).type == "cuda":
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(rec)
@@ -1039,7 +1215,8 @@ def kernel_line(main, serves):
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
              PAGED_REPLACES, (("paged", 16), ("paged_moonshot", 128))),
             ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
-             WKV_CHUNKED_REPLACES, ()),
+             WKV_CHUNKED_REPLACES, (("wkv6_chunked", 200),
+                                    ("wkv6_chunked", 1000))),
             ("wkv6_decode", ("wkv6_decode", 4), "wkv6.cu",
              WKV_DECODE_REPLACES, ()),
             ("ssm_decode_step", ("ssm_decode", 4), "ssm_decode.cu",
@@ -1134,10 +1311,13 @@ def main() -> int:
         # 640-page pool (4.0 GB), jamba's 52.1 GB; 200 pages make either
         # park (moonshot's largest request needs 121 pages, jamba's two
         # largest worst-case footprints 121 + 98 on the dense layout)
-        for c, layout, n_pages, park in ((cfg, "paged", 640, None),
-                                         (rcfg, "recurrent", 4, 3),
-                                         (mcfg, "paged", 640, 200),
-                                         (jcfg, "dense", 640, 200)):
+        # rwkv6's 1531-token prefill (B4) and moonshot's 1900-token one
+        # (B7) are traced as well
+        for c, layout, n_pages, park, traced in (
+                (cfg, "paged", 640, None, None),
+                (rcfg, "recurrent", 4, 3, 1531),
+                (mcfg, "paged", 640, 200, 1900),
+                (jcfg, "dense", 640, 200, None)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -1147,7 +1327,8 @@ def main() -> int:
                                 prefix_cache_entries=0)
             serves.append(phase_serve(torch, c, ecfg,
                                       serve_path(c, layout),
-                                      park_pages=park))
+                                      park_pages=park,
+                                      trace_prefill=traced))
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

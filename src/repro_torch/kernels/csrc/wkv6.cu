@@ -9,8 +9,8 @@
 // B4 runs a whole prompt in chunks of C tokens from the cumulative
 // log-decay cum (logw = log w < 0): with cum_excl = cum - logw,
 //   A = strictly_lower((r * exp(cum_excl)) (k * exp(-cum))^T)     [C, C]
-//   y = A v + diag(r . (u * k)) v + (r * exp(cum_excl)) S
-//   S = exp(cum_last) * S + (k * exp(cum_last - cum))^T v
+//   y = A v + diag(r . (u * k)) v + (r * exp(cum_excl)) S_c
+//   S_{c+1} = exp(cum_last) * S_c + (k * exp(cum_last - cum))^T v
 // which is the factorisation of the JAX model's `wkv_chunked`
 // (src/repro/models/rwkv.py), kept as it is so that the kernel and the
 // plain version round alike. The clamp of the model's decay rates bounds
@@ -20,29 +20,50 @@
 // decode.
 //
 // What bounds them on this card.
-// - B4: operations, on the CUDA cores in fp32. At rwkv6-1.6b prefill
-//   (H 32, hd 64, C 32) a chunk of one head does 4*C*hd*(C + hd) flops
-//   (~786 kflop) on C*hd*(3*2 + 4 + 4) bytes (~29 KB of bf16 r/k/v, fp32
-//   logw and fp32 y), ~27 flops per byte; the state never leaves the chip.
-//   The fp32 form is what the decay factorisation needs, so the bound is
-//   the 67 TFLOP/s fp32 rate, a little above the bytes bound.
+// - B4: operations, on the CUDA cores in fp32, close to the bytes. At
+//   rwkv6-1.6b prefill (H 32, hd 64, C 32) a chunk of one head does
+//   ~2*C*hd*(C + 2*hd) flops on C*hd*(3*2 + 4 + 4) bytes of bf16 r/k/v,
+//   fp32 logw and fp32 y. The fp32 form is what the decay factorisation
+//   needs (TF32 keeps three digits, and exp(-cum) reaches 1e23).
 // - B3: bytes. One token reads and writes the [hd, hd] fp32 state of each
 //   (slot, head), 2 * B * H * hd^2 * 4 bytes, for ~4 flops per state entry.
 //
-// What the designs do about it, in this first version.
-// - B4: the TPU kernel carries S in VMEM scratch across a sequential grid
-//   axis of chunks. Blocks on Hopper run in any order and carry nothing,
-//   so one block per (batch, head) walks all of that head's chunks itself
-//   and keeps S in shared memory for the whole prompt: S crosses device
-//   memory twice (S0 in, S out), not once per chunk. Each chunk's r, k, v
-//   and logw tiles are read from the [B, S, H, hd] layout with strides
-//   (no transpose, no padded copy) and upcast to fp32 in shared memory;
-//   the ragged tail is masked at load (k = v = 0 and logw = 0 past S).
-//   Rows of r and k are padded to hd + 1 floats so that the score loop,
-//   whose lanes walk different rows, hits distinct banks. At B = 1 this is
-//   only H = 32 blocks on 132 SMs and every product runs on the CUDA
-//   cores: splitting the value dim across blocks and mma-based products
-//   are the next steps.
+// What the designs do about it.
+// - B4, chunk-parallel in three passes (one wrapper call). The only thing
+//   that orders the chunks is the state carry, and that carry is
+//   elementwise in (d, e): S_{c+1} = w_c * S_c + dS_c. So
+//   (a) `wkv6_chunk_state_kernel`, one block per (batch, head, chunk):
+//       the chunk's increment dS_c = k_carry^T v and its decay w_c =
+//       exp(cum_last), into a workspace;
+//   (b) `wkv6_state_scan_kernel`, one thread per (batch, head, d, e): the
+//       recurrence over the chunks, with the loads of eight chunks in
+//       flight (they do not depend on the carry); it overwrites each dS_c
+//       with the state S_c entering chunk c, and writes the final state;
+//   (c) `wkv6_chunk_output_kernel`, one block per (batch, head, chunk):
+//       the whole of y for the chunk, A v + diag v + r_dec S_c, written
+//       once. One block per (batch, head) walking its chunks in order would
+//       be 32 blocks on 132 SMs at B = 1, each chunk a row of barriers; the
+//       grid of (a) and (c) is 1536 blocks at S 1531.
+//   Pass (c) recomputes the cumulative decay and reads r, k, v, logw again
+//   instead of (a) writing a partial y that (c) would read back: that
+//   moves fewer bytes (bf16 r/k/v) and writes y once. The workspace is
+//   B*H*n_chunks*hd^2 fp32 (25 MB at S 1531), one tensor for dS_c and S_c.
+//   Every product is register-tiled: a thread owns a 4 x 4 tile of its
+//   output and reads two float4 from shared memory for 16 FMAs. A chunk's
+//   tiles arrive by 16-byte cp.async, every load of the block in flight at
+//   once (bf16 staged, then upcast in shared memory): a load-then-store
+//   loop would keep one load a thread in flight, and the passes would wait
+//   on memory. Pass (c) fetches S_c by cp.async into the space r, k and
+//   logw leave once the decayed factors are formed, while it computes the
+//   scores. Rows and columns are padded to a multiple of 4 in shared memory
+//   (zeros), and the ragged tail is masked at load (k = v = 0 and logw = 0
+//   past S), so any hd <= 128 and any C <= 32 run and nothing is copied
+//   padded (an hd whose rows are not 16-byte multiples loads element by
+//   element). All of it is fp32 on the CUDA cores; the tensor cores
+//   (3xTF32) are the next step. Every sum runs in token or channel order
+//   with fused multiply-adds (the bonus one thread per token, the carry
+//   fmaf(w, S, dS)), as a kernel that walked the chunks one after another
+//   would round them: splitting the walk into passes changes no bit.
 // - B3: one block per (slot, head), one thread per value column e, so a
 //   warp reads 32 neighbouring S_de at once (coalesced) and each state
 //   entry is read once and written once. The new state goes to a fresh
@@ -55,133 +76,349 @@
 
 namespace {
 
-constexpr int CHUNK_THREADS = 256;
+constexpr int CHUNK_THREADS = 128;   // passes (a) and (c)
+constexpr int SCAN_THREADS = 256;    // pass (b)
+constexpr int SCAN_AHEAD = 8;        // chunks of pass (b) loaded at once
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// grid (H, B); block CHUNK_THREADS; dynamic shared memory (floats):
-//   S_s [hd][hd] | r_s [C][hd+1] | k_s [C][hd+1] | kc_s [C][hd]
-//   | v_s [C][hd] | lw_s [C][hd] | cum_s [C][hd] | A_s [C][C] | diag_s [C]
-//   | wl_s [hd] | we_s [hd] | u_s [hd]
+__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A chunk of a [B, S, H, hd] tensor into shared memory [CP][HDP], rows
+// `ld` apart (a multiple of 4), zeros past S, past C and past hd. With
+// `async` (hd * sizeof(T) a multiple of 16, so HDP = hd, and 16-byte
+// aligned rows) the rows go by cp.async, all in flight at once, in T's own
+// type; the caller waits. Otherwise element by element, upcast to fp32
+// (`dst` then holds floats).
 template <typename T>
-__global__ void wkv6_chunked_kernel(const T* __restrict__ r,
-                                    const T* __restrict__ k,
-                                    const T* __restrict__ v,
-                                    const float* __restrict__ logw,
-                                    const float* __restrict__ u,
-                                    const float* __restrict__ s0,
-                                    float* __restrict__ y,
-                                    float* __restrict__ s_out, int S, int H,
-                                    int hd, int C) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int hs = hd + 1;
+__device__ __forceinline__ void load_chunk(const T* __restrict__ x,
+                                           void* dst, int ld, bool async,
+                                           size_t base, size_t row, int t0,
+                                           int S, int C, int CP, int hd,
+                                           int HDP) {
+  if (async) {
+    constexpr int PER = 16 / sizeof(T);
+    const int n_vec = HDP / PER;
+    T* d = static_cast<T*>(dst);
+    for (int i = threadIdx.x; i < CP * n_vec; i += blockDim.x) {
+      const int t = i / n_vec, j = (i % n_vec) * PER;
+      const bool valid = t < C && t0 + t < S;
+      cp_async16(d + t * ld + j,
+                 x + base + (size_t)(t0 + (valid ? t : 0)) * row + j,
+                 valid ? 16 : 0);
+    }
+    return;
+  }
+  float* d = static_cast<float*>(dst);
+  for (int i = threadIdx.x; i < CP * HDP; i += blockDim.x) {
+    const int t = i / HDP, j = i % HDP;
+    const bool valid = t < C && t0 + t < S && j < hd;
+    d[t * ld + j] = valid ? to_f(x[base + (size_t)(t0 + t) * row + j]) : 0.f;
+  }
+}
 
-  extern __shared__ float smem[];
-  float* S_s = smem;
-  float* r_s = S_s + hd * hd;
-  float* k_s = r_s + C * hs;
-  float* kc_s = k_s + C * hs;
-  float* v_s = kc_s + C * hd;
-  float* lw_s = v_s + C * hd;
-  float* cum_s = lw_s + C * hd;
-  float* A_s = cum_s + C * hd;
-  float* diag_s = A_s + C * C;
-  float* wl_s = diag_s + C;
-  float* we_s = wl_s + hd;
-  float* u_s = we_s + hd;
+// a bf16 tile [CP][HDP] staged by cp.async, upcast to fp32 rows `ld` apart
+__device__ __forceinline__ void upcast(const __nv_bfloat16* src, float* dst,
+                                       int ld, int CP, int HDP) {
+  for (int i = 8 * threadIdx.x; i < CP * HDP; i += 8 * blockDim.x) {
+    const uint4 q = *reinterpret_cast<const uint4*>(src + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]),
+                 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+    float* o = dst + (i / HDP) * ld + i % HDP;
+    *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<float4*>(o + 4) = make_float4(c.x, c.y, d.x, d.y);
+  }
+}
 
-  const size_t bh = (size_t)b * H + h;
-  const float* s0_bh = s0 + bh * hd * hd;
-  for (int i = tid; i < hd * hd; i += CHUNK_THREADS) S_s[i] = s0_bh[i];
-  for (int i = tid; i < hd; i += CHUNK_THREADS) u_s[i] = u[(size_t)h * hd + i];
+// load r/k/v-type tiles (T) and logw (fp32) of one chunk into fp32 tiles
+// (rows lds[n] apart; logw's HDP apart): by cp.async where the shapes
+// allow, r/k/v through `stage` when T is bf16; returns with every tile in
+// place (after a barrier)
+template <typename T, int N>
+__device__ __forceinline__ void load_tiles(const T* const* xs,
+                                           float* const* dsts,
+                                           const int* lds,
+                                           const float* __restrict__ logw,
+                                           float* lw_dst, void* stage,
+                                           bool async, size_t base,
+                                           size_t row, int t0, int S, int C,
+                                           int CP, int hd, int HDP) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  for (int n = 0; n < N; ++n)
+    if (async && BF16)
+      load_chunk(xs[n], static_cast<T*>(stage) + n * CP * HDP, HDP, true,
+                 base, row, t0, S, C, CP, hd, HDP);
+    else
+      load_chunk(xs[n], dsts[n], lds[n], async, base, row, t0, S, C, CP, hd,
+                 HDP);
+  load_chunk(logw, lw_dst, HDP, async, base, row, t0, S, C, CP, hd, HDP);
+  if (async) cp_async_wait_all();
+  __syncthreads();
+  if constexpr (BF16) {
+    if (async) {
+      for (int n = 0; n < N; ++n)
+        upcast(reinterpret_cast<const __nv_bfloat16*>(stage) + n * CP * HDP,
+               dsts[n], lds[n], CP, HDP);
+      __syncthreads();
+    }
+  }
+}
 
-  const size_t row = (size_t)H * hd;  // stride of one token
+__device__ __forceinline__ void fma4x4(float acc[4][4], float4 a,
+                                       float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// (a) grid (n_chunks, H, B); block CHUNK_THREADS; dynamic shared memory
+// k_s | v_s | lw_s | stage, [CP][HDP] floats each. Writes ws[b,h,c] =
+// dS_c [HDP][HDP] and wl[b,h,c] = exp(cum_last) [HDP].
+template <typename T>
+__global__ void wkv6_chunk_state_kernel(const T* __restrict__ k,
+                                        const T* __restrict__ v,
+                                        const float* __restrict__ logw,
+                                        float* __restrict__ ws,
+                                        float* __restrict__ wl, int S, int H,
+                                        int hd, int C, int async) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int HDP = round4(hd), CP = round4(C), tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + CP * HDP;
+  float* lw_s = v_s + CP * HDP;
+  float* stage = lw_s + CP * HDP;           // bf16 k and v, on their way
+
+  const size_t row = (size_t)H * hd;
   const size_t base = (size_t)b * S * row + (size_t)h * hd;
-  const int n_chunks = (S + C - 1) / C;
+  const int t0 = c * C;
+  const T* xs[2] = {k, v};
+  float* const ds[2] = {k_s, v_s};
+  const int lds[2] = {HDP, HDP};
+  load_tiles<T, 2>(xs, ds, lds, logw, lw_s, stage, async, base, row, t0, S,
+                   C, CP, hd, HDP);
 
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * C;
-    __syncthreads();  // the previous chunk is fully consumed (init visible)
-    for (int i = tid; i < C * hd; i += CHUNK_THREADS) {
-      const int t = i / hd, d = i % hd;
-      const bool valid = t0 + t < S;
-      const size_t off = base + (size_t)(t0 + t) * row + d;
-      r_s[t * hs + d] = valid ? to_f(r[off]) : 0.f;
-      k_s[t * hs + d] = valid ? to_f(k[off]) : 0.f;
-      v_s[i] = valid ? to_f(v[off]) : 0.f;
-      lw_s[i] = valid ? logw[off] : 0.f;
+  const size_t bhc = ((size_t)b * H + h) * n_chunks + c;
+  // per channel: the inclusive cumulative log-decay, in token order, then
+  // k_carry = k * exp(cum_last - cum) in place of k
+  for (int d = tid; d < HDP; d += CHUNK_THREADS) {
+    float acc = 0.f;
+    for (int t = 0; t < C; ++t) {
+      acc += lw_s[t * HDP + d];
+      lw_s[t * HDP + d] = acc;
     }
-    __syncthreads();
-    // inclusive cumulative log-decay per channel; the u bonus per row
-    for (int d = tid; d < hd; d += CHUNK_THREADS) {
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        acc += lw_s[t * hd + d];
-        cum_s[t * hd + d] = acc;
-      }
-      wl_s[d] = acc;
-      we_s[d] = expf(acc);
+    for (int t = 0; t < C; ++t)
+      k_s[t * HDP + d] *= expf(acc - lw_s[t * HDP + d]);
+    wl[bhc * HDP + d] = expf(acc);
+  }
+  __syncthreads();
+
+  // dS = k_carry^T v, 4 x 4 tiles of (d, e)
+  const int G = HDP / 4;
+  float* out = ws + bhc * HDP * HDP;
+  for (int tile = tid; tile < G * G; tile += CHUNK_THREADS) {
+    const int d0 = 4 * (tile / G), e0 = 4 * (tile % G);
+    float acc[4][4] = {};
+    for (int t = 0; t < C; ++t)
+      fma4x4(acc, *reinterpret_cast<const float4*>(k_s + t * HDP + d0),
+             *reinterpret_cast<const float4*>(v_s + t * HDP + e0));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(out + (size_t)(d0 + i) * HDP + e0) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+}
+
+// (b) grid (ceil(HDP^2 / SCAN_THREADS), B * H); one thread per (d, e).
+// S = S0; for each chunk c: ws[c] <- S, S <- w_c * S + dS_c; s_out = S.
+__global__ void wkv6_state_scan_kernel(const float* __restrict__ s0,
+                                       float* __restrict__ ws,
+                                       const float* __restrict__ wl,
+                                       float* __restrict__ s_out, int hd,
+                                       int n_chunks) {
+  const int HDP = round4(hd);
+  const int i = blockIdx.x * SCAN_THREADS + threadIdx.x;
+  if (i >= HDP * HDP) return;
+  const int d = i / HDP, e = i % HDP;
+  const size_t bh = blockIdx.y;
+  const bool real = d < hd && e < hd;
+  const size_t so = bh * hd * hd + (size_t)d * hd + e;
+  float s = real ? s0[so] : 0.f;
+  float* p = ws + bh * n_chunks * HDP * HDP + i;
+  const float* w = wl + bh * n_chunks * HDP + d;
+  const size_t step = (size_t)HDP * HDP;
+  int c = 0;
+  for (; c + SCAN_AHEAD <= n_chunks; c += SCAN_AHEAD) {
+    float ds[SCAN_AHEAD], wc[SCAN_AHEAD];
+#pragma unroll
+    for (int j = 0; j < SCAN_AHEAD; ++j) {
+      ds[j] = p[(c + j) * step];
+      wc[j] = w[(size_t)(c + j) * HDP];
     }
-    for (int t = tid; t < C; t += CHUNK_THREADS) {
-      float acc = 0.f;
-      for (int d = 0; d < hd; ++d)
-        acc = fmaf(r_s[t * hs + d], u_s[d] * k_s[t * hs + d], acc);
-      diag_s[t] = acc;
+#pragma unroll
+    for (int j = 0; j < SCAN_AHEAD; ++j) {
+      p[(c + j) * step] = s;
+      s = fmaf(wc[j], s, ds[j]);
     }
-    __syncthreads();
-    // decayed factors, in place of r and k (the bonus has used them)
-    for (int i = tid; i < C * hd; i += CHUNK_THREADS) {
-      const int t = i / hd, d = i % hd;
-      const float cum = cum_s[i];
-      const float kk = k_s[t * hs + d];
-      r_s[t * hs + d] *= expf(cum - lw_s[i]);
-      k_s[t * hs + d] = kk * expf(-cum);
-      kc_s[i] = kk * expf(wl_s[d] - cum);
-    }
-    __syncthreads();
-    // strictly lower [C, C] scores
-    for (int i = tid; i < C * C; i += CHUNK_THREADS) {
-      const int t = i / C, s = i % C;
-      float acc = 0.f;
-      if (s < t) {
-        const float* rr = r_s + t * hs;
-        const float* kr = k_s + s * hs;
-        for (int d = 0; d < hd; ++d) acc = fmaf(rr[d], kr[d], acc);
-      }
-      A_s[i] = acc;
-    }
-    __syncthreads();
-    // y = A v + diag v + r_dec S, for the chunk's valid rows
-    for (int i = tid; i < C * hd; i += CHUNK_THREADS) {
-      const int t = i / hd, e = i % hd;
-      if (t0 + t >= S) continue;
-      float acc = 0.f;
-      for (int s = 0; s < t; ++s)
-        acc = fmaf(A_s[t * C + s], v_s[s * hd + e], acc);
-      acc = fmaf(diag_s[t], v_s[i], acc);
-      float st = 0.f;
-      const float* rr = r_s + t * hs;
-      for (int d = 0; d < hd; ++d) st = fmaf(rr[d], S_s[d * hd + e], st);
-      y[base + (size_t)(t0 + t) * row + e] = acc + st;
-    }
-    __syncthreads();  // every read of S_s is done before it changes
-    // S = exp(cum_last) S + k_carry^T v
-    for (int i = tid; i < hd * hd; i += CHUNK_THREADS) {
-      const int d = i / hd, e = i % hd;
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t)
-        acc = fmaf(kc_s[t * hd + d], v_s[t * hd + e], acc);
-      S_s[i] = we_s[d] * S_s[i] + acc;
+  }
+  for (; c < n_chunks; ++c) {
+    const float ds = p[c * step];
+    p[c * step] = s;
+    s = fmaf(w[(size_t)c * HDP], s, ds);
+  }
+  if (real) s_out[so] = s;
+}
+
+// r_s, k_s [CP][HDP + 4] | lw_s [CP][HDP], later S_c [HDP][HDP]
+__host__ __device__ size_t output_region(int hd, int C) {
+  const size_t HDP = round4(hd), CP = round4(C);
+  const size_t a = CP * (2 * (HDP + 4) + HDP), b = HDP * HDP;
+  return a > b ? a : b;
+}
+
+// (c) grid (n_chunks, H, B); block CHUNK_THREADS; dynamic shared memory
+// (floats): [r_s, k_s (rows HDP + 4 apart, so that the bonus's threads,
+// one per row, spread over the banks) | lw_s, later S_c] | v_s [CP][HDP] |
+// rd_t, ki_t [HDP][CP + 4] (before them, bf16 r, k, v on their way) | a_t
+// [CP][CP] | diag [CP] | u_s [HDP]. rd_t and ki_t are r_dec and k_inv
+// transposed (channel-major), a_t the scores transposed (a_t[s][t] =
+// A[t][s]), so that every product reads float4 along its output's rows.
+template <typename T>
+__global__ void wkv6_chunk_output_kernel(const T* __restrict__ r,
+                                         const T* __restrict__ k,
+                                         const T* __restrict__ v,
+                                         const float* __restrict__ logw,
+                                         const float* __restrict__ u,
+                                         const float* __restrict__ ws,
+                                         float* __restrict__ y, int S, int H,
+                                         int hd, int C, int async) {
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int HDP = round4(hd), CP = round4(C), CS = CP + 4, RS = HDP + 4;
+  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float smem[];
+  float* r_s = smem;
+  float* k_s = r_s + CP * RS;
+  float* lw_s = k_s + CP * RS;
+  float* S_s = smem;                        // once r, k and logw are used
+  float* v_s = smem + output_region(hd, C);
+  float* rd_t = v_s + CP * HDP;
+  float* ki_t = rd_t + HDP * CS;
+  float* a_t = ki_t + HDP * CS;
+  float* diag = a_t + CP * CP;
+  float* u_s = diag + CP;
+
+  const size_t row = (size_t)H * hd;
+  const size_t base = (size_t)b * S * row + (size_t)h * hd;
+  const int t0 = c * C;
+  for (int d = tid; d < HDP; d += CHUNK_THREADS)
+    u_s[d] = d < hd ? u[(size_t)h * hd + d] : 0.f;
+  // bf16 r, k and v are staged where rd_t and ki_t go later
+  const T* xs[3] = {r, k, v};
+  float* const ds[3] = {r_s, k_s, v_s};
+  const int lds[3] = {RS, RS, HDP};
+  load_tiles<T, 3>(xs, ds, lds, logw, lw_s, rd_t, async, base, row, t0, S,
+                   C, CP, hd, HDP);
+
+  // the u bonus of each row, in channel order: one thread per token, on
+  // the last threads, while the first ones walk the channels below
+  const int t_bonus = tid - (CHUNK_THREADS - CP);
+  if (t_bonus >= 0) {
+    float acc = 0.f;
+    for (int d = 0; d < hd; ++d)
+      acc = fmaf(r_s[t_bonus * RS + d], u_s[d] * k_s[t_bonus * RS + d], acc);
+    diag[t_bonus] = acc;
+  }
+  // per channel: the cumulative log-decay in token order, and the decayed
+  // factors r_dec = r * exp(cum - logw), k_inv = k * exp(-cum)
+  for (int d = tid; d < HDP; d += CHUNK_THREADS) {
+    float acc = 0.f;
+    for (int t = 0; t < CP; ++t) {
+      const float l = lw_s[t * HDP + d];
+      acc += l;
+      rd_t[d * CS + t] = r_s[t * RS + d] * expf(acc - l);
+      ki_t[d * CS + t] = k_s[t * RS + d] * expf(-acc);
     }
   }
   __syncthreads();
-  float* so = s_out + bh * hd * hd;
-  for (int i = tid; i < hd * hd; i += CHUNK_THREADS) so[i] = S_s[i];
+
+  // S_c into the space of r, k and logw, while the scores are computed
+  const float* S_c = ws + (((size_t)b * H + h) * n_chunks + c) * HDP * HDP;
+  for (int i = 4 * tid; i < HDP * HDP; i += 4 * CHUNK_THREADS)
+    cp_async16(S_s + i, S_c + i);
+
+  // strictly lower scores A[t][s] = r_dec[t] . k_inv[s], 4 x 4 tiles
+  const int GC = CP / 4;
+  for (int tile = tid; tile < GC * GC; tile += CHUNK_THREADS) {
+    const int tt = 4 * (tile / GC), s0 = 4 * (tile % GC);
+    float acc[4][4] = {};
+    if (s0 < tt + 3)
+      for (int d = 0; d < HDP; ++d)
+        fma4x4(acc, *reinterpret_cast<const float4*>(rd_t + d * CS + tt),
+               *reinterpret_cast<const float4*>(ki_t + d * CS + s0));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = s0 + j;
+      *reinterpret_cast<float4*>(a_t + s * CP + tt) = make_float4(
+          s < tt ? acc[0][j] : 0.f, s < tt + 1 ? acc[1][j] : 0.f,
+          s < tt + 2 ? acc[2][j] : 0.f, s < tt + 3 ? acc[3][j] : 0.f);
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // y = (A v + diag v) + r_dec S_c, 4 x 4 tiles of (t, e)
+  const int G = HDP / 4;
+  for (int tile = tid; tile < GC * G; tile += CHUNK_THREADS) {
+    const int tt = 4 * (tile / G), e0 = 4 * (tile % G);
+    float in[4][4] = {}, st[4][4] = {};
+    for (int s = 0; s < tt + 3 && s < CP; ++s)
+      fma4x4(in, *reinterpret_cast<const float4*>(a_t + s * CP + tt),
+             *reinterpret_cast<const float4*>(v_s + s * HDP + e0));
+    for (int d = 0; d < HDP; ++d)
+      fma4x4(st, *reinterpret_cast<const float4*>(rd_t + d * CS + tt),
+             *reinterpret_cast<const float4*>(S_s + d * HDP + e0));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = tt + i;
+      if (t >= C || t0 + t >= S) break;
+      const float4 vt = *reinterpret_cast<const float4*>(v_s + t * HDP + e0);
+      const float vv[4] = {vt.x, vt.y, vt.z, vt.w};
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[j] = __fadd_rn(fmaf(diag[t], vv[j], in[i][j]), st[i][j]);
+      float* yo = y + base + (size_t)(t0 + t) * row + e0;
+      if ((hd & 3) == 0) {
+        *reinterpret_cast<float4*>(yo) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (e0 + j < hd) yo[j] = o[j];
+      }
+    }
+  }
 }
 
 // grid (H, B); block hd threads, one per value column e; dynamic shared
@@ -226,27 +463,50 @@ __global__ void wkv6_decode_kernel(const T* __restrict__ r,
   y[vo + e] = acc;
 }
 
-size_t chunked_smem(int hd, int C) {
-  return sizeof(float) *
-         ((size_t)hd * hd + 2 * (size_t)C * (hd + 1) + 4 * (size_t)C * hd +
-          (size_t)C * C + C + 3 * (size_t)hd);
+size_t output_smem(int hd, int C) {
+  const size_t HDP = round4(hd), CP = round4(C);
+  return sizeof(float) * (output_region(hd, C) + CP * HDP +
+                          2 * HDP * (CP + 4) + CP * CP + CP + HDP);
 }
 
 template <typename T>
 int launch_chunked(const void* r, const void* k, const void* v,
                    const void* logw, const void* u, const void* s0, void* y,
-                   void* s_out, int B, int S, int H, int hd, int C,
-                   cudaStream_t stream) {
-  const size_t smem = chunked_smem(hd, C);
+                   void* s_out, void* ws, void* wl, int B, int S, int H,
+                   int hd, int C, cudaStream_t stream) {
+  const int HDP = round4(hd), CP = round4(C);
+  const int n_chunks = (S + C - 1) / C;
+  const size_t smem_a = sizeof(float) * 4 * CP * HDP;
+  // cp.async loads: rows of 16-byte multiples, every pointer aligned
+  const int async =
+      (hd * sizeof(T)) % 16 == 0 && hd % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(logw)) &
+       15) == 0;
+  const size_t smem_c = output_smem(hd, C);
   cudaError_t err = cudaFuncSetAttribute(
-      wkv6_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      wkv6_chunk_state_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, B);
-  wkv6_chunked_kernel<T><<<grid, CHUNK_THREADS, smem, stream>>>(
+  err = cudaFuncSetAttribute(wkv6_chunk_output_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_c);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_chunks, H, B);
+  wkv6_chunk_state_kernel<T><<<grid, CHUNK_THREADS, smem_a, stream>>>(
+      (const T*)k, (const T*)v, (const float*)logw, (float*)ws, (float*)wl,
+      S, H, hd, C, async);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 scan_grid((HDP * HDP + SCAN_THREADS - 1) / SCAN_THREADS, B * H);
+  wkv6_state_scan_kernel<<<scan_grid, SCAN_THREADS, 0, stream>>>(
+      (const float*)s0, (float*)ws, (const float*)wl, (float*)s_out, hd,
+      n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wkv6_chunk_output_kernel<T><<<grid, CHUNK_THREADS, smem_c, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, (const float*)logw,
-      (const float*)u, (const float*)s0, (float*)y, (float*)s_out, S, H, hd,
-      C);
+      (const float*)u, (const float*)ws, (float*)y, S, H, hd, C, async);
   return (int)cudaGetLastError();
 }
 
@@ -268,18 +528,22 @@ extern "C" {
 // r, k, v: [B, S, H, hd] of `dtype` (0 = float32, 1 = bfloat16); logw:
 // [B, S, H, hd] float32; u: [H, hd] float32; s0: [B, H, hd, hd] float32
 // -> y [B, S, H, hd] float32, s_out [B, H, hd, hd] float32. Chunks of
-// C tokens (1 <= C <= 32). Returns a cudaError_t (0 = success).
+// C tokens (1 <= C <= 32), hd <= 128. ws: B * H * n_chunks * HDP^2 and wl:
+// B * H * n_chunks * HDP float32 of workspace (n_chunks = ceil(S / C), HDP
+// = hd rounded up to a multiple of 4). Three kernels on `stream`. Returns a
+// cudaError_t (0 = success).
 int wkv6_chunked(const void* r, const void* k, const void* v,
                  const void* logw, const void* u, const void* s0, void* y,
-                 void* s_out, int B, int S, int H, int hd, int C, int dtype,
-                 void* stream) {
+                 void* s_out, void* ws, void* wl, int B, int S, int H,
+                 int hd, int C, int dtype, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (dtype == 0)
-    return launch_chunked<float>(r, k, v, logw, u, s0, y, s_out, B, S, H, hd,
-                                 C, (cudaStream_t)stream);
+    return launch_chunked<float>(r, k, v, logw, u, s0, y, s_out, ws, wl, B,
+                                 S, H, hd, C, (cudaStream_t)stream);
   if (dtype == 1)
-    return launch_chunked<__nv_bfloat16>(r, k, v, logw, u, s0, y, s_out, B,
-                                         S, H, hd, C, (cudaStream_t)stream);
+    return launch_chunked<__nv_bfloat16>(r, k, v, logw, u, s0, y, s_out, ws,
+                                         wl, B, S, H, hd, C,
+                                         (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,13 +7,17 @@ same function in plain PyTorch, as ``ref.moe_dispatch_ref`` computes it
 (``index_put_`` into a zeroed ``[E, C+1, D]`` whose row C takes the
 dropped rows, then a slice): the wrapper takes it only for CPU tensors,
 and the tests and ``chip_smoke.py`` hold the kernel against it, for
-exact equality.
+exact equality. ``moe_dispatch_tiles_plain`` is the kernel's own
+algorithm in plain PyTorch (per tile of slots, the row that lands in
+each slot, then one write of every slot), which the CPU tests hold
+equal to both.
 
 Contract (the TPU kernel's): tokens [T, D]; expert_ids, positions [T]
-int32, ids in [0, E), positions >= 0 -> [E, C, D] in the tokens' dtype.
-Row t lands at (expert_ids[t], positions[t]); rows with a position at or
-past C are dropped; slots no row lands in are zero. No two kept rows
-may share a slot (positions from a cumsum over the routing never do).
+int32, positions >= 0 -> [E, C, D] in the tokens' dtype. Row t lands at
+(expert_ids[t], positions[t]); rows with a position at or past C, or an
+id outside [0, E), are dropped; slots no row lands in are zero. The
+positions need not be dense from 0. No two kept rows may share a slot
+(positions from a cumsum over the routing never do).
 """
 from __future__ import annotations
 
@@ -30,13 +34,47 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def moe_dispatch_plain(tokens, expert_ids, positions, n_experts: int,
                        capacity: int):
     """Scatter into a zeroed buffer with an overflow row, then slice it
-    off."""
+    off. Rows with an id outside [0, E) go to the overflow row too, as
+    the reference's scatter drops them."""
     T, D = tokens.shape
-    pos = torch.clamp(positions, max=capacity).long()
+    ids = expert_ids.long()
+    drop = (ids < 0) | (ids >= n_experts) | (positions < 0)
+    pos = torch.where(drop, capacity,
+                      torch.clamp(positions, max=capacity)).long()
     buf = torch.zeros(n_experts, capacity + 1, D, dtype=tokens.dtype,
                       device=tokens.device)
-    buf.index_put_((expert_ids.long(), pos), tokens)
+    buf.index_put_((torch.where(drop, 0, ids), pos), tokens)
     return buf[:, :capacity]
+
+
+TILE_SLOTS = 32     # slots of one expert a block of the kernel owns
+
+
+def moe_dispatch_tiles_plain(tokens, expert_ids, positions, n_experts: int,
+                             capacity: int, tile_slots: int = TILE_SLOTS):
+    """The kernel's gather by slots, in plain PyTorch: for each tile of
+    ``tile_slots`` slots of one expert, the row that lands in each slot
+    (the largest, should two land in one), found by scanning every id;
+    then each slot written once, with its row or with zeros."""
+    T, D = tokens.shape
+    n_tiles = -(-capacity // tile_slots)
+    rows = torch.arange(T, device=tokens.device)
+    pos = positions.long()
+    slot_row = torch.full((n_experts, n_tiles, tile_slots), -1,
+                          dtype=torch.long, device=tokens.device)
+    for e in range(n_experts):
+        mine = expert_ids == e                       # the scan of the ids
+        for j in range(n_tiles):
+            p0 = j * tile_slots
+            s = pos - p0
+            n_slots = min(tile_slots, capacity - p0)
+            hit = mine & (s >= 0) & (s < n_slots)
+            slot_row[e, j].scatter_reduce_(0, s[hit], rows[hit], "amax")
+    slot_row = slot_row.reshape(n_experts, n_tiles * tile_slots)[
+        :, :capacity]
+    # one write per slot: its row, or the zero row T where none landed
+    rows_or_zero = torch.cat([tokens, tokens.new_zeros(1, D)])
+    return rows_or_zero[torch.where(slot_row >= 0, slot_row, T)]
 
 
 def _check(tokens, expert_ids, positions, n_experts, capacity):
@@ -63,8 +101,8 @@ def _check(tokens, expert_ids, positions, n_experts, capacity):
 def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
                  capacity: int):
     """tokens [T,D] -> per-expert capacity buffers [E,C,D]. CUDA tensors
-    launch the B7 kernel (one zeroing of the buffer, then one warp per
-    token row); CPU tensors take ``moe_dispatch_plain``."""
+    launch the B7 kernel (one launch that writes every slot once, T = 0
+    included); CPU tensors take ``moe_dispatch_plain``."""
     _check(tokens, expert_ids, positions, n_experts, capacity)
     if tokens.device.type == "cpu":
         return moe_dispatch_plain(tokens, expert_ids, positions, n_experts,
@@ -75,9 +113,6 @@ def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
     if not all(t.is_contiguous() for t in (tokens, expert_ids, positions)):
         raise ValueError("moe_dispatch needs contiguous inputs")
     T, D = tokens.shape
-    if T == 0:
-        return torch.zeros(n_experts, capacity, D, dtype=tokens.dtype,
-                           device=tokens.device)
     out = torch.empty(n_experts, capacity, D, dtype=tokens.dtype,
                       device=tokens.device)
     lib = _lib()

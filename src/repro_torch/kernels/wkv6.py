@@ -9,7 +9,10 @@ CUDA kernels in ``csrc/wkv6.cu``, which replace the Pallas TPU kernels
 ``wkv6_decode_plain`` the einsums of its decode step (the
 ``ref.wkv6_decode_ref`` oracle), in plain PyTorch: the wrappers take them
 only for CPU tensors, and the tests and ``chip_smoke.py`` hold the
-kernels against them.
+kernels against them. ``wkv6_chunked_passes_plain`` is the B4 kernel's
+own chunk-parallel algorithm (every chunk's state increment, a scan of
+the carry over the chunks, every chunk's output) in plain PyTorch, which
+the CPU tests hold against the chunk-serial version and the JAX package.
 
 Layouts follow the JAX package. Chunked: r, k, v, logw [B,S,H,hd] (logw
 fp32 < 0), u [H,hd], state0 [B,H,hd,hd] -> y [B,S,H,hd] f32, state f32.
@@ -27,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128      # the chunked kernel keeps S and a chunk on chip
+MAX_HEAD_DIM = 128      # B4 keeps a chunk's tiles and S_c on chip
 MAX_CHUNK = 32
 
 
@@ -71,6 +74,47 @@ def wkv6_chunked_plain(r, k, v, logw, u, state0, chunk: int = 32):
     return y, state
 
 
+def wkv6_chunked_passes_plain(r, k, v, logw, u, state0, chunk: int = 32):
+    """Chunked WKV-6 as the B4 kernel computes it, in three passes over
+    all chunks at once: (a) each chunk's state increment dS_c = k_carry^T
+    v and decay w_c = exp(cum_last); (b) the carry S_{c+1} = w_c * S_c +
+    dS_c, the one step that runs chunk after chunk, giving the state S_c
+    entering every chunk; (c) each chunk's output A v + diag v + r_dec
+    S_c. The ragged tail is zero (k = v = 0, logw = 0), as the kernel
+    masks it at load."""
+    B, S, H, hd = r.shape
+    C = min(chunk, S)
+    nc = -(-S // C)
+    pad = nc * C - S
+
+    def chunks(t):                                  # [B, H, nc, C, hd]
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nc, C, H, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lw = (chunks(t) for t in (r, k, v, logw))
+    cum = torch.cumsum(lw, dim=3)
+    # (a) chunk-parallel: increments and decays
+    w = torch.exp(cum[..., -1, :])                  # [B, H, nc, hd]
+    k_carry = kc * torch.exp(cum[..., -1:, :] - cum)
+    dS = torch.einsum("bhncd,bhnce->bhnde", k_carry, vc)
+    # (b) the carry, chunk after chunk, elementwise in (d, e)
+    s_in = torch.empty_like(dS)
+    state = state0.float()
+    for c in range(nc):
+        s_in[:, :, c] = state
+        state = w[:, :, c, :, None] * state + dS[:, :, c]
+    # (c) chunk-parallel: outputs
+    r_dec = rc * torch.exp(cum - lw)
+    A = torch.einsum("bhntd,bhnsd->bhnts", r_dec, kc * torch.exp(-cum))
+    A = A * torch.tril(torch.ones(C, C, device=r.device), -1)
+    diag = torch.einsum("bhntd,bhntd->bhnt", rc, u.float()[None, :, None,
+                                                           None] * kc)
+    y = torch.einsum("bhnts,bhnse->bhnte", A, vc) + diag[..., None] * vc
+    y = y + torch.einsum("bhntd,bhnde->bhnte", r_dec, s_in)
+    y = y.permute(0, 2, 3, 1, 4).reshape(B, nc * C, H, hd)[:, :S]
+    return y, state
+
+
 def wkv6_decode_plain(r, k, v, w, u, state):
     """One WKV-6 token per (batch, head), as ``ref.wkv6_decode_ref``."""
     r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
@@ -103,8 +147,10 @@ def _launch_checks(name, ts):
 
 def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
     """Chunked WKV-6 over a whole sequence. CUDA tensors launch the B4
-    kernel (the ragged tail is masked in the kernel, no padded copy);
-    CPU tensors take ``wkv6_chunked_plain``."""
+    kernel, three device kernels a call in the passes of
+    ``wkv6_chunked_passes_plain`` (the ragged tail is masked in the
+    kernel, no padded copy; ``launches`` counts calls); CPU tensors take
+    ``wkv6_chunked_plain``."""
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"wkv6_chunked: want r, k, v, logw [B,S,H,hd]; "
                          f"got {[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -128,11 +174,19 @@ def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
                          f"hd={hd}, chunk={C}")
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(state0)
+    # the kernel's workspace: each chunk's state increment, overwritten by
+    # the state entering it, and each chunk's decay; rows padded to 4
+    n_chunks, hdp = -(-S // C), -(-hd // 4) * 4
+    ws = torch.empty(B * H * n_chunks * hdp * hdp, dtype=torch.float32,
+                     device=r.device)
+    wl = torch.empty(B * H * n_chunks * hdp, dtype=torch.float32,
+                     device=r.device)
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = lib.wkv6_chunked(*(t.data_ptr() for t in ts), y.data_ptr(),
-                               s_out.data_ptr(), B, S, H, hd, C,
+                               s_out.data_ptr(), ws.data_ptr(),
+                               wl.data_ptr(), B, S, H, hd, C,
                                _DTYPES[r.dtype], stream)
     _build.check(lib, err, "wkv6_chunked")
     wkv6_chunked.launches += 1
@@ -182,7 +236,7 @@ wkv6_decode.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wkv6")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_chunked.argtypes = [P] * 8 + [I] * 6 + [P]
+    lib.wkv6_chunked.argtypes = [P] * 10 + [I] * 6 + [P]
     lib.wkv6_chunked.restype = I
     lib.wkv6_decode.argtypes = [P] * 8 + [I] * 4 + [P]
     lib.wkv6_decode.restype = I

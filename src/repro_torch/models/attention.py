@@ -24,12 +24,31 @@ NEG_INF = -1e30
 
 def chunked_causal_attention(q, k, v, *, window: int = 0,
                              scale: Optional[float] = None):
-    """q: [B,S,H,hd], k/v: [B,S,KV,hd] -> [B,S,H,hd] (causal, +SWA)."""
-    out = fa.flash_attention(q.transpose(1, 2).contiguous(),
-                             k.transpose(1, 2).contiguous(),
-                             v.transpose(1, 2).contiguous(),
-                             window=window, scale=scale)
-    return out.transpose(1, 2)
+    """q: [B,S,H,hd], k: [B,S,KV,hd], v: [B,S,KV,hd_v] -> [B,S,H,hd_v]
+    (causal, +SWA), for any hd and hd_v up to B2's largest head dim.
+
+    B2 is built for the head dims ``fa.HEAD_DIMS``; q, k and v are
+    zero-padded to the smallest of them that holds both hd and hd_v, with
+    the scale of the unpadded q passed explicitly. The zero columns add
+    nothing to the scores, and the output's padded columns are sliced
+    off. The CPU path takes the same route."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    width = max(hd, hd_v)
+    if width > fa.HEAD_DIMS[-1]:
+        raise ValueError(
+            f"chunked_causal_attention: head dims q/k {hd}, v {hd_v}; B2 "
+            f"takes at most {fa.HEAD_DIMS[-1]} (MLA's 192 needs an instance "
+            f"or a split of B2: ROADMAP item A8)")
+    P = next(d for d in fa.HEAD_DIMS if d >= width)
+
+    def heads_first(t):                  # [B,S,n,d] -> [B,n,S,P]
+        return torch.nn.functional.pad(t.transpose(1, 2),
+                                       (0, P - t.shape[-1])).contiguous()
+
+    out = fa.flash_attention(heads_first(q), heads_first(k),
+                             heads_first(v), window=window, scale=scale)
+    return out[..., :hd_v].transpose(1, 2)
 
 
 def paged_decode_attention(q, page_table, k_pages, v_pages, lengths, *,

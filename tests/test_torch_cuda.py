@@ -106,6 +106,30 @@ def test_flash_bf16_window_matches_plain(cuda, window):
     torch.testing.assert_close(out.float(), expected, atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("B,H,KV,S,hd,hd_v", [(1, 8, 2, 300, 120, 120),
+                                              (2, 4, 1, 65, 120, 120),
+                                              (1, 4, 4, 257, 48, 32),
+                                              (2, 8, 8, 64, 48, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_through_padded_head_dims(cuda, dtype, B, H, KV, S, hd,
+                                               hd_v):
+    """The model's prefill attention at head dims B2 is not built for
+    (120, and q/k 48 with v 32) runs B2 once, zero-padded to 128 or 64,
+    and matches the plain attention on the unpadded tensors."""
+    from repro_torch.models.attention import chunked_causal_attention
+    rng = np.random.default_rng(hd + S)
+    q, k, v = [_randn(rng, *s).to(cuda, dtype)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd_v))]
+    n = fa.flash_attention.launches
+    out = chunked_causal_attention(q, k, v)
+    assert fa.flash_attention.launches == n + 1
+    assert out.shape == (B, S, H, hd_v)
+    expected = fa.flash_attention_plain(*(t.float().transpose(1, 2)
+                                          for t in (q, k, v)))
+    torch.testing.assert_close(out.float(), expected.transpose(1, 2),
+                               atol=_TOL[dtype], rtol=_TOL[dtype])
+
+
 @pytest.mark.parametrize("MP", [1, 32])
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 2), (16, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,18 +223,26 @@ def _wkv_inputs(rng, B, S, H, hd, dtype, cuda):
     return r, k, v, logw.to(cuda), u.to(cuda), s0.to(cuda)
 
 
-@pytest.mark.parametrize("S", [1, 37, 300])
+@pytest.mark.parametrize("chunk", [1, 32])
+@pytest.mark.parametrize("hd", [6, 8, 64, 128])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 37, 300, 1531])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_chunked_kernel_matches_plain(cuda, dtype, S):
+def test_wkv6_chunked_kernel_matches_plain(cuda, dtype, S, hd, chunk):
     """Both run fp32 math on the same (upcast) inputs: the tolerances of
     tests/test_kernels.py, y 2e-4 and state 2e-5, for either r/k/v
-    dtype. S = 37 leaves a ragged tail, S = 1 a chunk of one."""
-    rng = np.random.default_rng(7 + S)
-    xs = _wkv_inputs(rng, 2, S, 4, 64, dtype, cuda)
+    dtype, B = 2 and a non-zero state0. The three passes at their edges:
+    one token, a chunk less one, a chunk, a chunk and one, ragged tails,
+    a long prompt; chunks of 1 and 32; hd 8, 64 and 128 (rows loaded by
+    cp.async) and 6 (rows that are no 16-byte multiple, loaded element by
+    element and padded to 8 on chip). One wrapper call counts one
+    launch."""
+    rng = np.random.default_rng(7 + S + hd)
+    xs = _wkv_inputs(rng, 2, S, 2, hd, dtype, cuda)
+    assert float(xs[-1].abs().max()) > 0
     n = wkv6.wkv6_chunked.launches
-    y, s = wkv6.wkv6_chunked(*xs)
+    y, s = wkv6.wkv6_chunked(*xs, chunk=chunk)
     assert wkv6.wkv6_chunked.launches == n + 1
-    ey, es = wkv6.wkv6_chunked_plain(*xs)
+    ey, es = wkv6.wkv6_chunked_plain(*xs, chunk=chunk)
     torch.testing.assert_close(y, ey, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(s, es, atol=2e-5, rtol=2e-5)
 
@@ -313,6 +345,29 @@ def test_moe_dispatch_kernel_equals_plain(cuda, dtype, T, D, E, C):
     prefill-sized case where rows drop."""
     rng = np.random.default_rng(T + D + E)
     toks, eids, pos = _dispatch_inputs(rng, T, D, E, dtype, cuda)
+    n = md.moe_dispatch.launches
+    out = md.moe_dispatch(toks, eids, pos, E, C)
+    assert md.moe_dispatch.launches == n + 1
+    assert torch.equal(out, md.moe_dispatch_plain(toks, eids, pos, E, C))
+
+
+@pytest.mark.parametrize("T,D,E,C", [(64, 32, 8, 12), (100, 16, 4, 40),
+                                     (48, 7, 3, 5), (64, 64, 8, 100),
+                                     (0, 64, 4, 8), (3000, 2048, 64, 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_kernel_on_sparse_positions(cuda, dtype, T, D, E, C):
+    """Exactly equal to the plain version where positions are not dense
+    from 0 and come in no order, some rows fall past C, some ids are out
+    of range, whole tiles of slots get no row (C 100 for 64 rows), and
+    where there are no rows at all."""
+    rng = np.random.default_rng(T + C)
+    toks = _randn(rng, T, D).to(cuda, dtype)
+    eids = rng.integers(0, E + 2, size=T).astype(np.int32)
+    pos = np.zeros(T, np.int32)
+    for e in range(E + 2):
+        at = np.nonzero(eids == e)[0]
+        pos[at] = rng.permutation(max(2 * C, len(at)))[:len(at)]
+    eids, pos = torch.from_numpy(eids).to(cuda), torch.from_numpy(pos).to(cuda)
     n = md.moe_dispatch.launches
     out = md.moe_dispatch(toks, eids, pos, E, C)
     assert md.moe_dispatch.launches == n + 1

@@ -199,3 +199,39 @@ def test_prefill_bf16_logits():
     err_ref = np.abs(ref - exact).max()
     err_port = np.abs(_np(tl) - exact).max()
     assert err_port <= 2 * err_ref, (err_port, err_ref)
+
+
+# ---------------------------------------------------------------------------
+# prefill attention at head dims B2 is not built for
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,H,KV,hd,hd_v", [
+    (2, 40, 8, 2, 120, 120),        # h2o-danube-3-4b's head dim, GQA 4:1
+    (1, 33, 4, 4, 48, 32),          # MLA at SMOKE size: q/k 48, v 32
+    (2, 17, 4, 1, 20, 20),
+])
+def test_chunked_attention_pads_head_dims_like_reference(B, S, H, KV, hd,
+                                                         hd_v):
+    """The port zero-pads q, k and v to the next head dim B2 is built
+    for and slices the output back; it computes what the reference's
+    ``chunked_causal_attention`` does, with the unpadded q's scale."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention
+    rng = np.random.default_rng(hd + hd_v + S)
+    q, k, v = [rng.standard_normal(s).astype(np.float32)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd_v))]
+    out = attention.chunked_causal_attention(
+        *[torch.from_numpy(x) for x in (q, k, v)])
+    assert out.shape == (B, S, H, hd_v)
+    want = jattn.chunked_causal_attention(*[jnp.asarray(x)
+                                            for x in (q, k, v)])
+    _close(out, want)
+
+
+def test_chunked_attention_past_b2_head_dims_names_a8():
+    """MLA's full q/k head dim of 192 is past every head dim B2 is built
+    for: it raises and names the ROADMAP item that waits for it."""
+    from repro_torch.models import attention
+    q = torch.zeros(1, 4, 2, 192)
+    with pytest.raises(ValueError, match="A8"):
+        attention.chunked_causal_attention(q, q, torch.zeros(1, 4, 2, 128))

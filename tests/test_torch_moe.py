@@ -112,6 +112,46 @@ def test_dispatch_plain_equals_ref_and_pallas(T, D, E, C, dtype):
         assert (pos >= C).sum() > T // 2
 
 
+def _sparse_dispatch_inputs(T, D, E, C, seed):
+    """Rows with ids over E + 2 values (the last two out of range), each
+    expert's rows at distinct positions drawn from [0, max(2 C, rows)):
+    not dense from 0, in no order, some past C."""
+    rng = np.random.default_rng(seed)
+    toks = rng.standard_normal((T, D)).astype(np.float32)
+    eids = rng.integers(0, E + 2, size=T).astype(np.int32)
+    pos = np.zeros(T, np.int32)
+    for e in range(E + 2):
+        at = np.nonzero(eids == e)[0]
+        pos[at] = rng.permutation(max(2 * C, len(at)))[:len(at)]
+    return toks, eids, pos
+
+
+@pytest.mark.parametrize("T,D,E,C,tile", [
+    (64, 32, 8, 12, 32), (100, 16, 4, 40, 32), (48, 7, 3, 5, 32),
+    (64, 8, 4, 100, 32), (200, 8, 3, 70, 8), (0, 8, 3, 5, 32),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_tiles_plain_equals_plain_and_ref(T, D, E, C, tile, dtype):
+    """B7's gather by slot tiles is exactly the scatter: on permuted,
+    non-dense positions, rows past C, ids out of range, tiles that no
+    row fills (C 100 for 64 rows; tiles of 8 at C 70) and T = 0, against
+    the plain version the wrapper takes on the CPU and the JAX oracle."""
+    toks, eids, pos = _sparse_dispatch_inputs(T, D, E, C, seed=T + C)
+    t_toks = torch.from_numpy(toks).to(getattr(torch, dtype))
+    t_ids, t_pos = torch.from_numpy(eids), torch.from_numpy(pos)
+    out = md.moe_dispatch_tiles_plain(t_toks, t_ids, t_pos, E, C,
+                                      tile_slots=tile)
+    assert out.shape == (E, C, D) and out.dtype == t_toks.dtype
+    assert torch.equal(out, md.moe_dispatch(t_toks, t_ids, t_pos, E, C))
+    want = ref.moe_dispatch_ref(jnp.asarray(toks).astype(jnp.dtype(dtype)),
+                                jnp.asarray(eids), jnp.asarray(pos), E, C)
+    np.testing.assert_array_equal(_np(out), np.asarray(want, np.float32))
+    if T:
+        kept = (eids < E) & (pos < C)
+        assert 0 < kept.sum() < T
+        assert int((out != 0).any(-1).sum()) == kept.sum()
+
+
 def test_dispatch_refuses_bad_inputs():
     toks = torch.zeros(4, 8)
     ids = torch.zeros(4, dtype=torch.int32)

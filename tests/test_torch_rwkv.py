@@ -22,6 +22,7 @@ from repro.configs.base import RWKVConfig as JRWKVConfig  # noqa: E402
 from repro.configs.registry import SMOKE_CONFIGS as J_SMOKE  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
+from repro.models import rwkv as jrwkv  # noqa: E402
 from repro.serve import api as japi  # noqa: E402
 from repro.serve.engine import ServingEngine as JEngine  # noqa: E402
 from repro.sharding.policy import NULL_POLICY  # noqa: E402
@@ -85,6 +86,30 @@ def test_wkv6_chunked_plain_matches_ref_and_pallas(B, S, H, hd, chunk,
     for jy, js in ((ry, rs), (py, ps)):
         _close(y, jy, 2e-4)
         _close(s, js, 2e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 200])
+def test_wkv6_chunked_passes_plain_matches_serial_and_jax(S, chunk):
+    """B4's chunk-parallel algorithm (chunk states, the scan of the
+    carry, chunk outputs) against the chunk-serial plain version, the JAX
+    model's ``wkv_chunked`` and the Pallas kernel in interpret mode, with
+    a non-zero state0: y within 2e-4, the state within 2e-5. S = 1, a
+    chunk less one, a chunk, a chunk and one, and a ragged prefill."""
+    rng = np.random.default_rng(S * 41 + chunk)
+    port, xs = _wkv_inputs(rng, 2, S, 2, 8, torch.float32)
+    y, s = wkv6.wkv6_chunked_passes_plain(*port, chunk=chunk)
+    assert y.shape == (2, S, 2, 8) and s.shape == (2, 2, 8, 8)
+    assert float(port[-1].abs().max()) > 0
+    sy, ss = wkv6.wkv6_chunked_plain(*port, chunk=chunk)
+    _close(y, _np(sy), 2e-4)
+    _close(s, _np(ss), 2e-5)
+    jxs = [jnp.asarray(a) for a in xs]
+    jy, js = jrwkv.wkv_chunked(*jxs, chunk=chunk)
+    py, ps = ops.wkv6_chunked(*jxs, chunk=chunk, interpret=True)
+    for ey, es in ((jy, js), (py, ps)):
+        _close(y, ey, 2e-4)
+        _close(s, es, 2e-5)
 
 
 @pytest.mark.parametrize("rkv_dtype", [torch.float32, torch.bfloat16])
