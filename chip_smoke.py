@@ -11,9 +11,10 @@ Phases, each printing one JSON object per line:
              decode, B4 WKV-6 chunked prefill, B5 SSM decode step, B6
              linear scan, B7 MoE dispatch) against its plain PyTorch
              version on the card, on the shape sweeps of
-             tests/test_kernels.py and at the serving paths' shapes, with
-             CUDA-event times of the kernel, the plain version and a
-             library call where one exists, and the bound;
+             tests/test_kernels.py, at the edges of each kernel's design
+             and at the serving paths' shapes, with CUDA-event times of
+             the kernel, the plain version and a library call where one
+             exists (the host's work hidden behind a spin), and the bound;
 4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b and jamba-v0.1-52b
              at full width, 2 layers (jamba's an attention layer with a
              dense MLP and a Mamba layer with an MoE one), fp32 (TF32
@@ -57,6 +58,8 @@ SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# ~50 µs of spinning at the H100's 1.98 GHz boost clock (time_ms)
+SPIN_CYCLES = 100_000
 
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:119"
 PAGED_REPLACES = "src/repro/kernels/paged_attention.py:117"
@@ -108,13 +111,17 @@ def require(cond: bool, what: str) -> None:
 def time_ms(fn, torch, n: int = 20, warmup: int = 3) -> float:
     """Median of `n` CUDA-event-timed calls after warm-up. The 50 MB L2 is
     flushed before each call: on the serving path a kernel finds its
-    inputs cold, since a layer's weights pass through between calls."""
+    inputs cold, since a layer's weights pass through between calls. A
+    spin of SPIN_CYCLES is queued after the flush and before the start
+    event, so that the wrapper's host work (checks, allocation, the
+    launch) overlaps the spin and the window holds device time."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -338,16 +345,19 @@ def check_wkv_chunked(torch, wk, B, S, H, hd, dtype, chunk=32, seed=0,
 
 def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
     """One token against the plain version at 1e-5, and against the t = 1
-    column of the chunked kernel at the chunked tolerances."""
+    column of the chunked kernel at the chunked tolerances; two calls must
+    agree bit for bit."""
     r, k, v, logw, u, s0 = _wkv_inputs(torch, seed, B, 1, H, hd, dtype)
     w = torch.exp(logw)
     args = (r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
     y, s = wk.wkv6_decode(*args)
+    y2, s2 = wk.wkv6_decode(*args)
     cy, cs = wk.wkv6_chunked(r, k, v, torch.log(w), u, s0, chunk=1)
     torch.cuda.synchronize()
     ey, es = wk.wkv6_decode_plain(*args)
     tol = WKV_TOL["decode"]
-    ok = bool(torch.allclose(y, ey, atol=tol, rtol=tol)
+    repeats = bool(torch.equal(y, y2) and torch.equal(s, s2))
+    ok = repeats and bool(torch.allclose(y, ey, atol=tol, rtol=tol)
               and torch.allclose(s, es, atol=tol, rtol=tol)
               and torch.allclose(cy[:, 0], y, atol=WKV_TOL["y"],
                                  rtol=WKV_TOL["y"])
@@ -363,7 +373,8 @@ def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
            "max_err": _max_err(torch, ((y, ey), (s, es))),
            "max_err_vs_chunked_t1": _max_err(torch, ((cy[:, 0], y),
                                                      (cs, s))),
-           "tol": tol, "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+           "tol": tol, "bit_equal_repeat": repeats, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         rec["kernel_ms"] = time_ms(lambda: wk.wkv6_decode(*args), torch)
         rec["plain_ms"] = time_ms(lambda: wk.wkv6_decode_plain(*args),
@@ -476,25 +487,37 @@ def check_linear_scan(torch, ls, B, T, D, N, seed=0, timed=True):
     return rec
 
 
-def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True):
-    """B5 against its plain version at SSM_TOL, and its h' against the
-    T = 1 slice of B6."""
+def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True,
+                     offset=0):
+    """B5's y against its plain version at SSM_TOL, its h' equal to the
+    plain version's and to the T = 1 slice of B6; two calls must agree bit
+    for bit. With ``offset`` h and dA are contiguous views ``offset``
+    elements into larger buffers (not 16-byte aligned for an offset of
+    1-3: the kernel's one-n-a-thread instance)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    h = torch.randn(B, Di, N, generator=g, device="cuda")
-    dA = torch.rand(B, Di, N, generator=g, device="cuda") * 0.5 + 0.5
+    n = B * Di * N
+
+    def state(x):
+        return x[offset:].view(B, Di, N)
+
+    h = state(torch.randn(n + offset, generator=g, device="cuda"))
+    dA = state(torch.rand(n + offset, generator=g, device="cuda") * 0.5
+               + 0.5)
     dtx = torch.randn(B, Di, generator=g, device="cuda")
     Bs = torch.randn(B, N, generator=g, device="cuda")
     Cs = torch.randn(B, N, generator=g, device="cuda")
     args = (h, dA, dtx, Bs, Cs)
     y, hn = sd.ssm_decode_step(*args)
+    y2, hn2 = sd.ssm_decode_step(*args)
     _, sl = ls.linear_scan(dA[:, None].contiguous(),
                            (dtx[..., None] * Bs[:, None, :])[:, None]
                            .contiguous(), h)
     torch.cuda.synchronize()
     ey, ehn = sd.ssm_decode_step_plain(*args)
-    ok = bool(torch.allclose(y, ey, atol=SSM_TOL, rtol=SSM_TOL)
-              and torch.allclose(hn, ehn, atol=SSM_TOL, rtol=SSM_TOL)
-              and torch.allclose(sl, hn, atol=SSM_TOL, rtol=SSM_TOL))
+    repeats = bool(torch.equal(y, y2) and torch.equal(hn, hn2))
+    # h' rounds op for op as the plain version and B6's step do: equal
+    ok = repeats and bool(torch.allclose(y, ey, atol=SSM_TOL, rtol=SSM_TOL)
+                          and torch.equal(hn, ehn) and torch.equal(sl, hn))
     # h and dA read once, h' written once, dtx, B and C read once, y
     # written once; per state element two multiplies and an add for h',
     # a multiply and an add for y
@@ -503,11 +526,13 @@ def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True):
                        5.0 * h.numel(), "float32")
     rec = {"phase": "kernels", "kernel": "ssm_decode_step",
            "shape": {"B": B, "Di": Di, "N": N}, "dtype": "float32",
+           "offset": offset,
            "max_err": _max_err(torch, ((y, ey), (hn, ehn))),
            "max_err_vs_scan_t1": _max_err(torch, ((sl, hn),)),
            "state_bit_equal": bool(torch.equal(hn, ehn)),
            "state_bit_equal_scan_t1": bool(torch.equal(sl, hn)),
-           "tol": SSM_TOL, "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
+           "bit_equal_repeat": repeats, "tol": SSM_TOL, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
     if timed:
         rec["kernel_ms"] = time_ms(lambda: sd.ssm_decode_step(*args), torch)
         rec["plain_ms"] = time_ms(lambda: sd.ssm_decode_step_plain(*args),
@@ -534,6 +559,15 @@ def phase_kernels(torch):
         check_linear_scan(torch, ls, B, T, D, N, timed=False)
     for B, Di, N in ((2, 8, 4), (1, 32, 8), (3, 16, 4), (3, 5, 8)):
         check_ssm_decode(torch, ls, sd, B, Di, N, timed=False)
+    # B5 at every N it takes (four n a thread from N 4, one below), Di
+    # ragged against every block's d-range (256 / (N / 4) or 256 / N d),
+    # and h, dA one element into their buffers (the one-n-a-thread
+    # instance at any N)
+    for N in (1, 2, 4, 8, 16, 32):
+        for B, Di in ((1, 5), (3, 300)):
+            for offset in (0, 1):
+                check_ssm_decode(torch, ls, sd, B, Di, N, seed=N + Di,
+                                 timed=False, offset=offset)
     for dtype in (f32, bf16):
         for B, H, KV, S, hd in ((2, 4, 2, 256, 64), (1, 4, 4, 200, 32),
                                 (2, 8, 2, 192, 64), (1, 2, 1, 128, 16)):
@@ -574,6 +608,12 @@ def phase_kernels(torch):
                               timed=False)
         for B, H, hd in ((2, 2, 8), (1, 3, 16), (4, 1, 8)):
             check_wkv_decode(torch, wk, B, H, hd, dtype, timed=False)
+        # B3's column tiles: 16 columns at hd 16, 64 and 128, a partial
+        # tile at hd 8, element by element at hd 6; B * H 1 and 128
+        for hd in (6, 8, 16, 64, 128):
+            for B, H in ((1, 1), (4, 32)):
+                check_wkv_decode(torch, wk, B, H, hd, dtype, seed=hd,
+                                 timed=False)
         # B4's chunk-parallel passes at their edges: one token, a chunk
         # less one, a chunk, a chunk and one, ragged tails, a long prompt
         # (48 chunks of 32, or 1531 of 1); head dims 8, 64 and 128 (rows

@@ -64,11 +64,21 @@
 //   with fused multiply-adds (the bonus one thread per token, the carry
 //   fmaf(w, S, dS)), as a kernel that walked the chunks one after another
 //   would round them: splitting the walk into passes changes no bit.
-// - B3: one block per (slot, head), one thread per value column e, so a
-//   warp reads 32 neighbouring S_de at once (coalesced) and each state
-//   entry is read once and written once. The new state goes to a fresh
-//   tensor, as the TPU kernel's output does; freezing parked slots is the
-//   model's job, not the kernel's.
+// - B3: the state streams through once, so what counts is how much of it
+//   is in flight. Column e of S' and y_e need column e of S alone, so a
+//   (slot, head) splits across blocks by value columns, 16 a block, with
+//   no sum across blocks: 512 blocks at rwkv6-1.6b's B 4, H 32, hd 64.
+//   Each block fetches its hd x 16 tile by 16-byte cp.async, every row in
+//   flight at once (4 KB at hd 64, 8 KB at hd 128), with r, k, w, u for
+//   every d and v for its columns; then its first warp sums y, one
+//   thread a column over d in order, while the others write S' as float4
+//   rows. The sum and the update are written with the fused multiply-adds
+//   that nvcc made of the first version's one-thread-a-column loop, so
+//   they keep its bits. That sum stays hd dependent multiply-adds a
+//   column, begun once the tile is in: on an H100 it is what keeps the
+//   kernel above an elementwise pass over the same bytes. The new state
+//   goes to a fresh tensor, as the TPU kernel's output does; freezing
+//   parked slots is the model's job, not the kernel's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -79,6 +89,9 @@ namespace {
 constexpr int CHUNK_THREADS = 128;   // passes (a) and (c)
 constexpr int SCAN_THREADS = 256;    // pass (b)
 constexpr int SCAN_AHEAD = 8;        // chunks of pass (b) loaded at once
+constexpr int DEC_THREADS = 128;     // B3
+constexpr int DEC_TE = 16;           // B3: value columns a block
+constexpr int DEC_MAX_HD = 128;      // B3: the tile and vectors on chip
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -421,46 +434,102 @@ __global__ void wkv6_chunk_output_kernel(const T* __restrict__ r,
   }
 }
 
-// grid (H, B); block hd threads, one per value column e; dynamic shared
-// memory r_s | k_s | w_s | u_s, hd floats each
+// B3: grid (B * H, ceil(hd / DEC_TE)); block DEC_THREADS. A block owns
+// value columns e0 .. e0 + te - 1 of one (slot, head): column e of S' and
+// y_e read column e of S alone, so the tiles need nothing from each other.
+// With `vec` (hd a multiple of 4, s and s_out 16-byte aligned) the hd x te
+// tile of S comes by 16-byte cp.async, every row in flight at once, and S'
+// goes out as float4 rows; otherwise element by element. The first warp
+// sums y while the others write S'. Both round as one thread per column
+// walking d = 0 .. hd-1 did (nvcc's contraction of `fmaf(r, S + u * kv,
+// acc)` and `w * S + kv` in the first version of this kernel, written
+// out):
+//   kv = k_d * v_e,  acc = fma(r_d, fma(u_d, kv, S_de), acc),
+//   S'_de = fma(w_d, S_de, kv).
 template <typename T>
-__global__ void wkv6_decode_kernel(const T* __restrict__ r,
-                                   const T* __restrict__ k,
-                                   const T* __restrict__ v,
-                                   const float* __restrict__ w,
-                                   const float* __restrict__ u,
-                                   const float* __restrict__ s,
-                                   float* __restrict__ y,
-                                   float* __restrict__ s_out, int H,
-                                   int hd) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int e = threadIdx.x;
-  extern __shared__ float smem[];
-  float* r_s = smem;
-  float* k_s = r_s + hd;
-  float* w_s = k_s + hd;
-  float* u_s = w_s + hd;
+__global__ void __launch_bounds__(DEC_THREADS)
+    wkv6_decode_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ w,
+                       const float* __restrict__ u,
+                       const float* __restrict__ s, float* __restrict__ y,
+                       float* __restrict__ s_out, int H, int hd, int vec) {
+  __shared__ __align__(16) float S_s[DEC_MAX_HD * DEC_TE];
+  __shared__ float r_s[DEC_MAX_HD], k_s[DEC_MAX_HD], w_s[DEC_MAX_HD],
+      u_s[DEC_MAX_HD], v_s[DEC_TE];
+  const int bh = blockIdx.x;
+  const int h = bh % H;
+  const int e0 = blockIdx.y * DEC_TE;
+  const int te = min(DEC_TE, hd - e0);
+  const int tid = threadIdx.x;
+  const size_t vo = (size_t)bh * hd;
+  const float* S = s + vo * hd + e0;
+  float* So = s_out + vo * hd + e0;
 
-  const size_t bh = (size_t)b * H + h;
-  const size_t vo = bh * hd;
-  r_s[e] = to_f(r[vo + e]);
-  k_s[e] = to_f(k[vo + e]);
-  w_s[e] = w[vo + e];
-  u_s[e] = u[(size_t)h * hd + e];
-  const float ve = to_f(v[vo + e]);
+  // every load of the block in flight at once: the vectors into registers
+  // (a load whose value went straight to shared memory would hold its
+  // thread until it came), then the tile, then the vectors' stores
+  static_assert(DEC_THREADS >= DEC_MAX_HD, "one vector entry a thread");
+  float rd = 0.f, kd = 0.f, wd = 0.f, ud = 0.f, ve = 0.f;
+  if (tid < hd) {
+    rd = to_f(r[vo + tid]);
+    kd = to_f(k[vo + tid]);
+    wd = w[vo + tid];
+    ud = u[(size_t)h * hd + tid];
+  }
+  if (tid < te) ve = to_f(v[vo + e0 + tid]);
+  if (vec) {
+    for (int i = tid; i < hd * (DEC_TE / 4); i += DEC_THREADS) {
+      const int d = i / (DEC_TE / 4), c = 4 * (i % (DEC_TE / 4));
+      if (c < te) cp_async16(S_s + d * DEC_TE + c, S + d * hd + c);
+    }
+  } else {
+    for (int i = tid; i < hd * DEC_TE; i += DEC_THREADS) {
+      const int d = i / DEC_TE, c = i % DEC_TE;
+      if (c < te) S_s[d * DEC_TE + c] = S[d * hd + c];
+    }
+  }
+  if (tid < hd) {
+    r_s[tid] = rd;
+    k_s[tid] = kd;
+    w_s[tid] = wd;
+    u_s[tid] = ud;
+  }
+  if (tid < te) v_s[tid] = ve;
+  if (vec) cp_async_wait_all();
   __syncthreads();
 
-  const float* S = s + bh * hd * hd;
-  float* So = s_out + bh * hd * hd;
-  float acc = 0.f;
-  for (int d = 0; d < hd; ++d) {
-    const float sde = S[d * hd + e];
-    const float kv = k_s[d] * ve;
-    acc = fmaf(r_s[d], sde + u_s[d] * kv, acc);
-    So[d * hd + e] = w_s[d] * sde + kv;
+  // y on the first warp, one thread a column, d in order; S' on the other
+  // warps, four columns a thread, at the same time
+  static_assert(DEC_TE <= 32, "the y threads are one warp");
+  if (tid < 32) {
+    if (tid >= te) return;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < hd; ++d) {
+      const float kv = __fmul_rn(k_s[d], ve);
+      acc = fmaf(r_s[d], fmaf(u_s[d], kv, S_s[d * DEC_TE + tid]), acc);
+    }
+    y[vo + e0 + tid] = acc;
+    return;
   }
-  y[vo + e] = acc;
+  for (int i = tid - 32; i < hd * (DEC_TE / 4); i += DEC_THREADS - 32) {
+    const int d = i / (DEC_TE / 4), c = 4 * (i % (DEC_TE / 4));
+    if (c >= te) continue;
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      o[j] = c + j < te ? fmaf(w_s[d], S_s[d * DEC_TE + c + j],
+                               __fmul_rn(k_s[d], v_s[c + j]))
+                        : 0.f;
+    if (vec) {
+      *reinterpret_cast<float4*>(So + d * hd + c) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < te) So[d * hd + c + j] = o[j];
+    }
+  }
 }
 
 size_t output_smem(int hd, int C) {
@@ -514,10 +583,16 @@ template <typename T>
 int launch_decode(const void* r, const void* k, const void* v, const void* w,
                   const void* u, const void* s, void* y, void* s_out, int B,
                   int H, int hd, cudaStream_t stream) {
-  dim3 grid(H, B);
-  wkv6_decode_kernel<T><<<grid, hd, 4 * hd * sizeof(float), stream>>>(
+  if (hd < 1 || hd > DEC_MAX_HD || (long long)B * H > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int vec = hd % 4 == 0 && ((reinterpret_cast<uintptr_t>(s) |
+                                   reinterpret_cast<uintptr_t>(s_out)) &
+                                  15) == 0;
+  const dim3 grid(B * H, (hd + DEC_TE - 1) / DEC_TE);
+  wkv6_decode_kernel<T><<<grid, DEC_THREADS, 0, stream>>>(
       (const T*)r, (const T*)k, (const T*)v, (const float*)w,
-      (const float*)u, (const float*)s, (float*)y, (float*)s_out, H, hd);
+      (const float*)u, (const float*)s, (float*)y, (float*)s_out, H, hd,
+      vec);
   return (int)cudaGetLastError();
 }
 

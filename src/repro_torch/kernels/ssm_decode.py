@@ -11,7 +11,9 @@ the kernel against it.
 Contract (the TPU kernel's): h, dA [B, Di, N]; dtx (dt * x_conv) [B, Di];
 B_ssm, C_ssm [B, N], all float32 -> (y [B, Di], h' [B, Di, N]) float32
 with ``h' = dA * h + dtx (x) B_ssm`` and ``y = h' C_ssm^T``. The kernel
-reduces over N within a warp, so N must divide 32.
+reduces over N within a warp, so N must divide 32; it indexes in 32 bits
+with the batch on the grid's second axis, so B * Di * N < 2^31 and
+B <= 65535 (``kernel_sizes_fit``).
 """
 from __future__ import annotations
 
@@ -49,10 +51,26 @@ def _check(h, dA, dtx, B_ssm, C_ssm):
                          f"device; got {devs}")
 
 
+MAX_ELEMENTS = 1 << 31     # B * Di * N below this: 32-bit indices
+MAX_BATCH = 65535          # the grid's second axis
+
+
+def kernel_sizes_fit(B: int, Di: int, N: int) -> None:
+    """Raise ValueError for sizes the B5 kernel does not take."""
+    if N < 1 or 32 % N:
+        raise ValueError(f"ssm_decode_step: the kernel reduces over N "
+                         f"within a warp, so N must divide 32; got N={N}")
+    if B > MAX_BATCH or B * Di * N >= MAX_ELEMENTS:
+        raise ValueError(f"ssm_decode_step: the kernel takes B <= "
+                         f"{MAX_BATCH} and B * Di * N < 2^31; got B={B}, "
+                         f"Di={Di}, N={N}")
+
+
 def ssm_decode_step(h, dA, dtx, B_ssm, C_ssm):
-    """(y, h') of one token. CUDA tensors launch the B5 kernel (one thread
-    per state element, y reduced over N with warp shuffles), which writes
-    h' to a fresh tensor; CPU tensors take ``ssm_decode_step_plain``."""
+    """(y, h') of one token. CUDA tensors launch the B5 kernel (four n of
+    one (b, d) a thread, or one where N < 4 or a pointer is not 16-byte
+    aligned; y reduced over N with warp shuffles), which writes h' to a
+    fresh tensor; CPU tensors take ``ssm_decode_step_plain``."""
     _check(h, dA, dtx, B_ssm, C_ssm)
     if h.device.type == "cpu":
         return ssm_decode_step_plain(h, dA, dtx, B_ssm, C_ssm)
@@ -63,9 +81,7 @@ def ssm_decode_step(h, dA, dtx, B_ssm, C_ssm):
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("ssm_decode_step needs contiguous inputs")
     B, Di, N = h.shape
-    if 32 % N:
-        raise ValueError(f"ssm_decode_step: the kernel reduces over N "
-                         f"within a warp, so N must divide 32; got N={N}")
+    kernel_sizes_fit(B, Di, N)
     y = torch.empty(B, Di, dtype=torch.float32, device=h.device)
     h_out = torch.empty_like(h)
     lib = _lib()

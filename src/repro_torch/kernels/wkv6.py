@@ -198,8 +198,9 @@ wkv6_chunked.launches = 0
 
 def wkv6_decode(r, k, v, w, u, state):
     """One WKV-6 token per (batch, head). CUDA tensors launch the B3
-    kernel, which writes the new state to a fresh tensor; CPU tensors
-    take ``wkv6_decode_plain``."""
+    kernel (a block per 16 value columns of one (batch, head)), which
+    writes the new state to a fresh tensor; CPU tensors take
+    ``wkv6_decode_plain``."""
     if r.dim() != 3 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"wkv6_decode: want r, k, v, w [B,H,hd]; got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")

@@ -247,23 +247,30 @@ def test_wkv6_chunked_kernel_matches_plain(cuda, dtype, S, hd, chunk):
     torch.testing.assert_close(s, es, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,H", [(1, 1), (4, 8), (4, 32)])
+@pytest.mark.parametrize("hd", [6, 8, 16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_decode_kernel_matches_plain(cuda, dtype):
+def test_wkv6_decode_kernel_matches_plain(cuda, dtype, hd, B, H):
     """One token per (slot, head) at 1e-5, and the t = 1 column of the
-    chunked kernel gives the same token."""
-    rng = np.random.default_rng(8)
-    r, k, v, logw, u, s0 = _wkv_inputs(rng, 4, 1, 8, 64, dtype, cuda)
+    chunked kernel gives the same token; two calls bit for bit. B3's
+    column tiles at their edges: 16 value columns a block at hd 16, 64
+    and 128, a partial tile at hd 8, element by element at hd 6 (rows
+    that are no 16-byte multiple); B * H of 1, 32 and 128."""
+    rng = np.random.default_rng(8 + hd + B * H)
+    r, k, v, logw, u, s0 = _wkv_inputs(rng, B, 1, H, hd, dtype, cuda)
     w = torch.exp(logw)
+    args = (r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
     n = wkv6.wkv6_decode.launches
-    y, s = wkv6.wkv6_decode(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s0)
+    y, s = wkv6.wkv6_decode(*args)
     assert wkv6.wkv6_decode.launches == n + 1
-    ey, es = wkv6.wkv6_decode_plain(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u,
-                                    s0)
+    ey, es = wkv6.wkv6_decode_plain(*args)
     torch.testing.assert_close(y, ey, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(s, es, atol=1e-5, rtol=1e-5)
     cy, cs = wkv6.wkv6_chunked(r, k, v, torch.log(w), u, s0, chunk=1)
     torch.testing.assert_close(cy[:, 0], y, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(cs, s, atol=2e-5, rtol=2e-5)
+    y2, s2 = wkv6.wkv6_decode(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
 
 
 def test_rwkv_engine_on_card_matches_cpu(cuda):
@@ -471,32 +478,40 @@ def test_linear_scan_kernel_matches_plain(cuda, B, T, D, N):
     torch.testing.assert_close(hl, ehl, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("B,Di,N", [(2, 8, 4), (1, 32, 8), (3, 16, 4),
-                                    (4, 8192, 16), (3, 5, 8)])
-def test_ssm_decode_kernel_matches_plain_and_scan(cuda, B, Di, N):
-    """One token at 1e-5 against the plain version, on the sweep of
-    tests/test_kernels.py, jamba's decode shape and a size that leaves a
-    partial warp; h' is also the T = 1 slice of the B6 kernel."""
-    rng = np.random.default_rng(B * Di * N)
-    h = _randn(rng, B, Di, N).to(cuda)
-    dA = torch.from_numpy(rng.uniform(0.5, 1.0, (B, Di, N)).astype(
-        np.float32)).to(cuda)
+                                    (4, 8192, 16), (3, 5, 8),
+                                    *((B, Di, N) for N in (1, 2, 4, 8, 16, 32)
+                                      for B, Di in ((1, 5), (3, 300)))])
+def test_ssm_decode_kernel_matches_plain_and_scan(cuda, B, Di, N, offset):
+    """One token on the sweep of tests/test_kernels.py, jamba's decode
+    shape, every N the kernel takes (four n a thread from N 4, one below)
+    with Di ragged against every block's d-range, and h, dA one element
+    into larger buffers (not 16-byte aligned: the one-n-a-thread instance
+    at any N). y within 1e-5 of the plain version; h' equal to it and to
+    the T = 1 step of the B6 kernel; two calls bit for bit."""
+    rng = np.random.default_rng(B * Di * N + offset)
+    n = B * Di * N
+    h = _randn(rng, n + offset).to(cuda)[offset:].view(B, Di, N)
+    dA = torch.from_numpy(rng.uniform(0.5, 1.0, n + offset).astype(
+        np.float32)).to(cuda)[offset:].view(B, Di, N)
     dtx = _randn(rng, B, Di).to(cuda)
     Bs, Cs = _randn(rng, B, N).to(cuda), _randn(rng, B, N).to(cuda)
-    n = sd.ssm_decode_step.launches
+    launches = sd.ssm_decode_step.launches
     y, hn = sd.ssm_decode_step(h, dA, dtx, Bs, Cs)
-    assert sd.ssm_decode_step.launches == n + 1
+    assert sd.ssm_decode_step.launches == launches + 1
     ey, ehn = sd.ssm_decode_step_plain(h, dA, dtx, Bs, Cs)
     torch.testing.assert_close(y, ey, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(hn, ehn, atol=1e-5, rtol=1e-5)
+    assert torch.equal(hn, ehn)
     _, sl = ls.linear_scan(dA[:, None].contiguous(),
                            (dtx[..., None] * Bs[:, None, :])[:, None]
                            .contiguous(), h)
-    torch.testing.assert_close(sl, hn, atol=1e-5, rtol=1e-5)
-    with pytest.raises(ValueError):
-        sd.ssm_decode_step(h[..., :3].contiguous(), dA[..., :3].contiguous(),
-                           dtx, Bs[:, :3].contiguous(),
-                           Cs[:, :3].contiguous())
+    assert torch.equal(sl, hn)
+    y2, hn2 = sd.ssm_decode_step(h, dA, dtx, Bs, Cs)
+    assert torch.equal(y, y2) and torch.equal(hn, hn2)
+    z, z2 = torch.zeros(B, Di, 3, device=cuda), torch.zeros(B, 3, device=cuda)
+    with pytest.raises(ValueError):             # N = 3 does not divide 32
+        sd.ssm_decode_step(z, z, dtx, z2, z2)
 
 
 def test_jamba_engine_on_card_matches_cpu(cuda):

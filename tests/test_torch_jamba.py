@@ -113,10 +113,12 @@ def test_linear_scan_refuses_bad_inputs():
 
 
 @pytest.mark.parametrize("B,Di,N,bd", [(2, 8, 4, 8), (1, 32, 8, 16),
-                                       (3, 16, 4, 16)])
+                                       (3, 16, 4, 16), (2, 8, 1, 8),
+                                       (1, 16, 2, 16), (2, 8, 32, 8)])
 def test_ssm_decode_plain_matches_ref_pallas_and_scan(B, Di, N, bd):
-    """The sweep of tests/test_kernels.py; h' is also the T = 1 slice of
-    the linear scan."""
+    """The sweep of tests/test_kernels.py and the N that B5 runs one n a
+    thread (1, 2) or eight threads a channel (32); h' is also the T = 1
+    slice of the linear scan."""
     rng = np.random.default_rng(B * Di * N)
     h = rng.standard_normal((B, Di, N)).astype(np.float32)
     dA = rng.uniform(0.5, 1.0, (B, Di, N)).astype(np.float32)
@@ -146,6 +148,12 @@ def test_ssm_decode_refuses_bad_inputs():
     with pytest.raises(TypeError):
         sd.ssm_decode_step(h, h, torch.zeros(2, 8), torch.zeros(2, 4),
                            torch.zeros(2, 4).bfloat16())
+    # what the B5 kernel does not take: N that does not divide 32, B * Di
+    # * N past 32-bit indexing, B past the grid's second axis
+    for B, Di, N in ((2, 8, 3), (2, 8, 64), (1, 1 << 27, 16), (65536, 8, 4)):
+        with pytest.raises(ValueError):
+            sd.kernel_sizes_fit(B, Di, N)
+    sd.kernel_sizes_fit(4, 8192, 16)            # jamba's decode fits
 
 
 # ---------------------------------------------------------------------------

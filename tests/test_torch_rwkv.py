@@ -113,8 +113,11 @@ def test_wkv6_chunked_passes_plain_matches_serial_and_jax(S, chunk):
 
 
 @pytest.mark.parametrize("rkv_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,hd", [(2, 2, 8), (1, 3, 16), (4, 1, 8)])
+@pytest.mark.parametrize("B,H,hd", [(2, 2, 8), (1, 3, 16), (4, 1, 8),
+                                   (2, 2, 6), (1, 2, 128)])
 def test_wkv6_decode_plain_matches_ref_and_pallas(B, H, hd, rkv_dtype):
+    """The sweep of tests/test_kernels.py and the edges of B3's column
+    tiles: hd 6 (element by element) and 128 (eight tiles)."""
     rng = np.random.default_rng(B * H * hd)
     port, xs = _wkv_inputs(rng, B, 1, H, hd, rkv_dtype)
     tr, tk, tv, tlogw, tu, ts0 = port
