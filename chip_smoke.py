@@ -21,7 +21,10 @@ Phases, each printing one JSON object per line:
              off): prefill and decode on the card (kernels) against the
              CPU (plain path) on the same weights; for the MoE models, any
              token whose top-k expert set differs between the two is
-             reported with its router gap;
+             reported with its router gap; for qwen3 and moonshot also a
+             300-token prompt chained through ``prefill_chunk`` in 64-token
+             chunks, card against CPU, and for qwen3 the card's chained
+             logits against its monolithic ones (1e-4 of the logit scale);
 5. serve   — qwen3-8b and moonshot-v1-16b-a3b through the paged engine,
              rwkv6-1.6b through the recurrent engine, each at full width
              and depth, and jamba-v0.1-52b through the dense engine at
@@ -33,7 +36,14 @@ Phases, each printing one JSON object per line:
              one decode span traced with torch.profiler (and rwkv6's
              1531-token and moonshot's 1900-token prefills), each port
              kernel's device ms and launches in the trace held to its
-             wrapper's calls;
+             wrapper's calls; then chunked prefill with the prefix cache:
+             qwen3-8b on the paged engine at full depth and on the dense
+             engine at 8 of its 36 layers, 8 chat requests under one
+             512-token system prompt in 256-token chunks, twice (equal
+             streams, >= 4 prefix hits of 512 tokens each, launches held to
+             the counters, the pool empty after), beside the same prompts
+             without the cache and monolithically, with each request's time
+             to first token and one traced chunk;
 6. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
@@ -900,6 +910,9 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
             close_state("decode_state")
     finally:
         moe_mod.moe_mlp = inner_moe
+    chunked = (check_prefill_chunks(torch, cfg, runs, tokens[0],
+                                    max_pages * page, tol)
+               if tf.chunked_prefill_supported(cfg) else None)
     rec = {"phase": "model", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
            "layers": [list(k) for k in zip(cfg.layer_kinds(),
@@ -909,11 +922,76 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
            "prompts": [n_prompt] * n_seq, "decode_steps": steps,
            "tol": tol, "max_abs_err": errs, "greedy_tokens": toks,
            "tokens_equal": True}
+    if chunked is not None:
+        rec["prefill_chunks"] = chunked
     if moe_layers:
         rec["moe_route_calls"] = len(routes["cpu"])
         rec["routing_flips"] = flips
         rec["route_tie"] = ROUTE_TIE
     emit(rec)
+    return rec
+
+
+def check_prefill_chunks(torch, cfg, runs, prompt, cache_len, tol,
+                         chunk=64, mono_tol=1e-4):
+    """``prompt`` chained through ``lm.prefill_chunk`` in ``chunk``-token
+    chunks, on the card and on the CPU with ``phase_model``'s weights:
+    each chunk's logits and the final caches within ``tol``. The tail
+    chunk is padded past ``cache_len``, so its padding rows are dropped.
+    Without MoE (whose capacity counts per chunk, not per prompt) the
+    card's chained logits also equal its monolithic prefill's (B2) within
+    ``mono_tol`` of the logit scale. The chain launches no B2 (chunks
+    attend in plain PyTorch) and B7 once per MoE layer per chunk."""
+    import numpy as np
+    from repro_torch.models import lm
+    wrappers = _wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
+    out = {}
+    for name, r in runs.items():
+        dev = r["state"]["lengths"].device
+        caches = lm.init_serve_state(cfg, 1, cache_len, dtype=torch.float32,
+                                     device=dev)["caches"]
+        logits = []
+        for pos in range(0, len(prompt), chunk):
+            nv = min(chunk, len(prompt) - pos)
+            x = np.zeros((1, chunk), np.int64)
+            x[0, :nv] = prompt[pos:pos + nv]
+            lg, caches = lm.prefill_chunk(r["params"],
+                                          torch.as_tensor(x, device=dev),
+                                          caches, pos, nv, cfg)
+            logits.append(lg)
+        out[name] = (torch.cat(logits).float().cpu(), caches)
+    launched = {n: w.launches - before[n] for n, w in wrappers.items()}
+    want = dict.fromkeys(launched, 0)
+    want["moe_dispatch"] = (cfg.mlp_kinds().count("moe") if cfg.moe
+                            else 0) * len(logits)
+    require(launched == want,
+            f"model phase: the chunk chain launched {launched}, not {want}")
+
+    def err(a, b, what):
+        a, b = a.float().cpu(), b.float().cpu()
+        e = float((a - b).abs().max())
+        require(bool(torch.allclose(a, b, atol=tol, rtol=tol)),
+                f"model phase: chunked {what} differs beyond {tol} "
+                f"(max abs {e})")
+        return e
+    rec = {"prompt_len": len(prompt), "chunk": chunk,
+           "cache_len": cache_len, "tol": tol, "launches": launched,
+           "logits_max_abs_err": err(out["card"][0], out["cpu"][0],
+                                     "logits"),
+           "cache_max_abs_err": max(
+               err(a[k], b[k], f"cache {k}")
+               for a, b in zip(out["card"][1], out["cpu"][1]) for k in a)}
+    if cfg.moe is None:
+        mono = runs["card"]["logits"][0][0].float().cpu()
+        scale = float(mono.abs().max())
+        e = float((out["card"][0][-1] - mono).abs().max())
+        require(e <= mono_tol * scale,
+                f"model phase: chunked logits on the card differ from "
+                f"monolithic by {e}, beyond {mono_tol} x the logit scale "
+                f"{scale}")
+        rec.update(monolithic_max_abs_err=e, logit_scale=scale,
+                   monolithic_tol=mono_tol * scale)
     return rec
 
 
@@ -925,27 +1003,44 @@ PROMPT_LENS = (37, 200, 333, 517, 1000, 1024, 1531, 1900)
 
 
 def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device):
+    """Serve ``prompts`` once. Returns (engine, completed, wall s, meas):
+    ``meas`` holds the synchronized time spent in monolithic prefills
+    and in prefill chunks (``prefill_s``), the number of monolithic
+    prefills (``full_prefills``: the engine counts prefills and chunks,
+    not which kind ran) and each request's time to first token from the
+    start of the run (``ttft_s``), all from wrappers that only measure."""
     from repro_torch.core.timing import Timer
     from repro_torch.serve.api import Request
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, ecfg, device=device)
-    prefill_s = [0.0]
-    inner = eng._prefill_full
+    meas = {"prefill_s": 0.0, "full_prefills": 0, "ttft_s": {}}
+    run = [None]
 
-    def timed_prefill(slot, req):              # measurement only
-        sync(torch, device)
-        t = Timer()
-        inner(slot, req)
-        sync(torch, device)
-        prefill_s[0] += t.elapsed()
-    eng._prefill_full = timed_prefill
+    def timed(inner, full):                    # measurement only
+        def call(*args):
+            sync(torch, device)
+            t = Timer()
+            out = inner(*args)
+            sync(torch, device)
+            meas["prefill_s"] += t.elapsed()
+            meas["full_prefills"] += full
+            return out
+        return call
+    eng._prefill_full = timed(eng._prefill_full, 1)
+    eng._process_chunk = timed(eng._process_chunk, 0)
+    finish = eng._finish_prefill
+
+    def first_token(slot, req, tok):           # measurement only
+        meas["ttft_s"][req.req_id] = run[0].elapsed()
+        return finish(slot, req, tok)
+    eng._finish_prefill = first_token
     for i, p in enumerate(prompts):
         eng.submit(Request(i, p.copy(), max_new_tokens=max_new))
     sync(torch, device)
-    t = Timer()
+    run[0] = Timer()
     done = eng.run_until_done()
     sync(torch, device)
-    return eng, done, t.elapsed(), prefill_s[0]
+    return eng, done, run[0].elapsed(), meas
 
 
 # the device kernels each wrapper launches per call: B1 a split and a
@@ -1087,33 +1182,51 @@ def _wrappers():
             "moe_dispatch": md.moe_dispatch}
 
 
-def serve_path(cfg, layout):
+def serve_path(cfg, layout, chunked=False):
     """The kernels a config's serving path on ``layout`` must launch,
     each mapped to the counters its launches follow and the number of
     layers that launch it once per count: attention layers run B2 once
-    per prefill and, on the paged layout only, B1 once per decode step
-    (the dense layout decodes attention in plain PyTorch, as the
-    reference does in jnp); RWKV layers B4 once per prefill and B3 once
-    per decode step; Mamba layers B6 once per 256-token prefill chunk
-    (``prefill_chunks``, counted by ``phase_serve`` from the prompts) and
-    B5 once per decode step; MoE layers B7 once per prefill and once per
-    decode step."""
+    per monolithic prefill (``full_prefills``, counted by
+    ``_serve_once``; a prefill chunk attends in plain PyTorch, as the
+    reference does in jnp, so a ``chunked`` run launches no B2) and, on
+    the paged layout only, B1 once per decode step (the dense layout
+    decodes attention in plain PyTorch, as the reference does in jnp);
+    RWKV layers B4 once per prefill (always monolithic) and B3 once per
+    decode step; Mamba layers B6 once per 256-token scan chunk
+    (``scan_chunks``, counted by ``phase_serve`` from the prompts) and B5
+    once per decode step; MoE layers B7 once per monolithic prefill, once
+    per prefill chunk (``prefill_chunks``) and once per decode step."""
     kinds, mlps = cfg.layer_kinds(), cfg.mlp_kinds()
     path = {}
     for name, n, counters in (
-            ("flash_attention", kinds.count("attn"), ("prefills",)),
+            ("flash_attention", 0 if chunked else kinds.count("attn"),
+             ("full_prefills",)),
             ("paged_decode_attention",
              kinds.count("attn") if layout == "paged" else 0,
              ("decode_steps",)),
-            ("wkv6_chunked", kinds.count("rwkv"), ("prefills",)),
+            ("wkv6_chunked", kinds.count("rwkv"), ("full_prefills",)),
             ("wkv6_decode", kinds.count("rwkv"), ("decode_steps",)),
-            ("linear_scan", kinds.count("mamba"), ("prefill_chunks",)),
+            ("linear_scan", kinds.count("mamba"), ("scan_chunks",)),
             ("ssm_decode_step", kinds.count("mamba"), ("decode_steps",)),
             ("moe_dispatch", mlps.count("moe") if cfg.moe else 0,
-             ("prefills", "decode_steps"))):
+             ("full_prefills", "prefill_chunks", "decode_steps"))):
         if n:
             path[name] = {c: n for c in counters}
     return path
+
+
+def check_launches(cfg, path, launches, counts):
+    """Every kernel of ``path`` launched exactly (layers x count) summed
+    over its counters, and at least once; every other kernel never."""
+    for name, per in path.items():
+        want = sum(n * counts[c] for c, n in per.items())
+        terms = [f"{n} x {c} ({counts[c]})" for c, n in per.items()]
+        require(launches[name] == want > 0,
+                f"serve: {name} launches {launches[name]} != "
+                f"{' + '.join(terms)}")
+    require(all(v == 0 for n, v in launches.items() if n not in path),
+            f"serve: a kernel off the {cfg.name} path launched: "
+            f"{launches}")
 
 
 def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
@@ -1124,9 +1237,10 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     per count; every kernel's count is set to 0 just before the run and
     read just after, and must equal the sum over its counters of layers
     x count. The
-    engine's counters stand beside ``prefill_chunks``, the 256-token
-    chunks of Mamba prefill, which the prompts give once every prompt is
-    prefilled exactly once (no preemption), as the run must. With
+    engine's counters stand beside ``full_prefills`` (``_serve_once``)
+    and ``scan_chunks``, the 256-token chunks of Mamba prefill, which the
+    prompts give once every prompt is prefilled exactly once (no
+    preemption), as the run must. With
     ``park_pages`` a third run with that many pages must park, unpark and
     give the same streams. One decode span is traced, and with
     ``trace_prefill`` (a prompt length of ``prompt_lens``) that prompt's
@@ -1144,8 +1258,9 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     wrappers = _wrappers()
     for w in wrappers.values():
         w.launches = 0
-    eng, done, wall, prefill_s = _serve_once(torch, cfg, params, ecfg,
-                                             prompts, max_new, device)
+    eng, done, wall, meas = _serve_once(torch, cfg, params, ecfg, prompts,
+                                        max_new, device)
+    prefill_s = meas["prefill_s"]
     launches = {n: w.launches for n, w in wrappers.items()}
     st = eng.stats
     streams = {r.req_id: list(r.tokens_out) for r in done}
@@ -1159,17 +1274,9 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     n_layers = cfg.n_layers
     require(st["prefills"] == len(prompts) and st["preempt_restarts"] == 0,
             f"serve: {st['prefills']} prefills for {len(prompts)} prompts")
-    counts = dict(st, prefill_chunks=sum(-(-n // CHUNK)
-                                         for n in prompt_lens))
-    for name, per in path.items():
-        want = sum(n * counts[c] for c, n in per.items())
-        terms = [f"{n} x {c} ({counts[c]})" for c, n in per.items()]
-        require(launches[name] == want > 0,
-                f"serve: {name} launches {launches[name]} != "
-                f"{' + '.join(terms)}")
-    require(all(v == 0 for n, v in launches.items() if n not in path),
-            f"serve: a kernel off the {cfg.name} path launched: "
-            f"{launches}")
+    counts = dict(st, full_prefills=meas["full_prefills"],
+                  scan_chunks=sum(-(-n // CHUNK) for n in prompt_lens))
+    check_launches(cfg, path, launches, counts)
     eng2, done2, wall2, _ = _serve_once(torch, cfg, params, ecfg, prompts,
                                         max_new, device)
     streams2 = {r.req_id: list(r.tokens_out) for r in done2}
@@ -1197,7 +1304,8 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
         torch, cfg, params, ecfg, prompts[prompt_lens.index(trace_prefill)],
         device))
     decode_s = wall - prefill_s
-    rec = {"phase": "serve", "arch": cfg.name, "n_layers": n_layers,
+    rec = {"phase": "serve", "arch": cfg.name,
+           "label": f"{cfg.name} {ecfg.kv_layout}", "n_layers": n_layers,
            "dtype": str(lm.param_dtype(cfg)).split(".")[-1],
            "engine": {k: getattr(ecfg, k) for k in (
                "slots", "cache_len", "page_size", "n_pages", "decode_span",
@@ -1209,7 +1317,7 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
            "prefill_tok_per_s": st["prefill_tokens"] / prefill_s,
            "decode_tok_per_s": st["decode_tokens"] / decode_s,
            "launches": launches, "launch_path": path,
-           "prefill_chunks": counts["prefill_chunks"], "stats": st,
+           "scan_chunks": counts["scan_chunks"], "stats": st,
            "completion_order": [r.req_id for r in done],
            "streams_sha256": streams_digest(streams),
            "streams_identical_across_runs": True,
@@ -1219,6 +1327,153 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(rec)
     del params, eng
+    return rec
+
+
+# chat requests under one system prompt: a shared 512-token prefix (32
+# pages of 16) and a distinct tail each, 549 to 1900 tokens in all
+SHARED_PREFIX = 512
+PREFIX_TAILS = (37, 200, 333, 517, 1000, 1024, 1331, 1388)
+
+
+def _run_summary(eng, done, wall, meas):
+    """A serve run's streams and its end-to-end numbers."""
+    st = eng.stats
+    decode_s = wall - meas["prefill_s"]
+    streams = {r.req_id: list(r.tokens_out) for r in done}
+    return streams, {
+        "wall_s": wall, "prefill_s": meas["prefill_s"], "decode_s": decode_s,
+        "prefill_tok_per_s": st["prefill_tokens"] / meas["prefill_s"],
+        "decode_tok_per_s": st["decode_tokens"] / decode_s,
+        "ttft_s": [meas["ttft_s"][i] for i in sorted(meas["ttft_s"])],
+        "pages_peak": st["pages_peak"], "stats": dict(st),
+        "streams_sha256": streams_digest(streams)}
+
+
+def phase_serve_prefix(torch, cfg, layout, max_new=32, seed=0,
+                       device="cuda", chunk=256, entries=64):
+    """Chunked prefill and the block prefix cache at full width: 8 chat
+    requests under one system prompt (``SHARED_PREFIX`` tokens, then
+    ``PREFIX_TAILS``), 256-token chunks, 64 cache entries. The first
+    four prefill the prefix themselves; the four admitted after them
+    must hit it, each reusing exactly the 512 prefix tokens. Checks:
+    every request completes, ``host_syncs == prefills + decode_spans``,
+    more chunks than prefills, every kernel's launches held to its
+    counters (no B2: chunks attend in plain PyTorch), the pool empty once
+    the cache is dropped, equal streams in a second run. The same
+    prompts then run without the cache (``pages_peak`` beside the
+    cached run's) and monolithically without it; whether their streams
+    equal the cached run's is printed, not required (bf16 logits of
+    random weights are near-flat, and the monolithic run attends through
+    B2). One middle chunk of the longest prompt is traced, with the
+    host's own time by operator beside the device's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serve.api import EngineConfig, Request
+    from repro_torch.serve.engine import ServingEngine
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=device)
+    sync(torch, device)
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab_size, size=SHARED_PREFIX)
+    prompts = [np.concatenate([shared, rng.integers(1, cfg.vocab_size,
+                                                    size=n)]).astype(np.int32)
+               for n in PREFIX_TAILS]
+    ecfg = EngineConfig(slots=4, cache_len=2048, page_size=16, n_pages=640,
+                        decode_span=8, eos_token=-1, kv_layout=layout,
+                        prefill_chunk=chunk, prefix_cache_entries=entries)
+    path = serve_path(cfg, layout, chunked=True)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    eng, done, wall, meas = _serve_once(torch, cfg, params, ecfg, prompts,
+                                        max_new, device)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    st = eng.stats
+    streams, run = _run_summary(eng, done, wall, meas)
+    require(len(done) == len(prompts)
+            and all(len(v) == max_new for v in streams.values()),
+            f"prefix serve: not every request completed with {max_new} "
+            f"tokens: { {k: len(v) for k, v in streams.items()} }")
+    require(st["prefills"] == len(prompts) and st["preempt_restarts"] == 0,
+            f"prefix serve: {st['prefills']} prefills for {len(prompts)} "
+            f"prompts, {st['preempt_restarts']} preempted")
+    require(st["host_syncs"] == st["prefills"] + st["decode_spans"],
+            f"prefix serve: host_syncs {st['host_syncs']} != prefills "
+            f"{st['prefills']} + decode_spans {st['decode_spans']}")
+    require(st["prefix_hits"] >= 4
+            and st["prefix_tokens_reused"]
+            == SHARED_PREFIX * st["prefix_hits"],
+            f"prefix serve: {st['prefix_hits']} hits reused "
+            f"{st['prefix_tokens_reused']} tokens, not >= 4 hits of "
+            f"{SHARED_PREFIX}")
+    require(st["prefill_chunks"] > st["prefills"],
+            f"prefix serve: {st['prefill_chunks']} chunks for "
+            f"{st['prefills']} prefills")
+    check_launches(cfg, path, launches,
+                   dict(st, full_prefills=meas["full_prefills"]))
+    eng.prefix.clear()
+    require(eng.pool.n_free == eng.pool.n_pages and not eng.pool.tables,
+            f"prefix serve: {eng.pool.n_used} pages still held after the "
+            f"run and the cache were released")
+    del eng
+    eng2, done2, wall2, _ = _serve_once(torch, cfg, params, ecfg, prompts,
+                                        max_new, device)
+    require({r.req_id: list(r.tokens_out) for r in done2} == streams,
+            "prefix serve: a second run gave other streams")
+    del eng2
+    others = {}
+    for name, change in (("no_cache", dict(prefix_cache_entries=0)),
+                         ("monolithic", dict(prefill_chunk=0,
+                                             prefix_cache_entries=0))):
+        e, d, w, m = _serve_once(torch, cfg, params,
+                                 dataclasses.replace(ecfg, **change),
+                                 prompts, max_new, device)
+        other_streams, others[name] = _run_summary(e, d, w, m)
+        others[name]["streams_equal_to_cached_run"] = other_streams == streams
+        del e
+    # one 256-token chunk at position 256 of the longest prompt
+    eng = ServingEngine(cfg, params, ecfg, device=device)
+    eng.submit(Request(0, prompts[-1].copy(), max_new_tokens=max_new))
+    eng.step()
+    prof, twall, calls = _profile(torch, device, eng._prefill_step)
+    require(eng.stats["prefill_chunks"] == 2,
+            f"traced chunk: {eng.stats['prefill_chunks']} chunks, not 2")
+    from torch.autograd import DeviceType
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda e: -e[1])
+    traced = {"start": chunk, "width": chunk,
+              **_traced(torch, prof, twall, calls),
+              "host_self_ms": sum(ms for _, ms, _ in host),
+              "top_host_ops_ms": [[k[:80], ms, n] for k, ms, n in host[:12]]}
+    del eng
+    if layout != "paged":                      # footprint accounting only
+        for r in (run, *others.values()):
+            r.pop("pages_peak")
+    rec = {"phase": "serve_prefix", "arch": cfg.name,
+           "label": f"{cfg.name} {layout} chunked+prefix",
+           "n_layers": cfg.n_layers,
+           "dtype": str(lm.param_dtype(cfg)).split(".")[-1],
+           "engine": {k: getattr(ecfg, k) for k in (
+               "slots", "cache_len", "page_size", "n_pages", "decode_span",
+               "eos_token", "kv_layout", "prefill_chunk",
+               "prefix_cache_entries")},
+           "shared_prefix": SHARED_PREFIX, "tails": list(PREFIX_TAILS),
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": max_new, **run, "wall_s_second_run": wall2,
+           "launches": launches, "launch_path": path,
+           "full_prefills": meas["full_prefills"],
+           "completion_order": [r.req_id for r in done],
+           "streams_identical_across_runs": True,
+           "without_cache": others["no_cache"],
+           "monolithic_without_cache": others["monolithic"],
+           "traced_chunk": traced}
+    if torch.device(device).type == "cuda":
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(rec)
+    del params
     return rec
 
 
@@ -1268,9 +1523,9 @@ def kernel_line(main, serves):
                             ("moe_dispatch_jamba", "prefill"),
                             ("moe_dispatch_jamba", "decode")))):
         rec = main[key]
-        by_path = {s["arch"]: s["launches"][name] for s in serves
+        by_path = {s["label"]: s["launches"][name] for s in serves
                    if s["launches"][name]}
-        declared = {s["arch"] for s in serves if name in s["launch_path"]}
+        declared = {s["label"] for s in serves if name in s["launch_path"]}
         require(by_path and set(by_path) == declared,
                 f"{name} ran on the paths {sorted(by_path)}, not on "
                 f"{sorted(declared)}")
@@ -1369,6 +1624,13 @@ def main() -> int:
                                       serve_path(c, layout),
                                       park_pages=park,
                                       trace_prefill=traced))
+        # chunked prefill and the prefix cache: qwen3-8b on paged at full
+        # depth, and on dense at 8 of its 36 layers (for time)
+        for c, layout in ((cfg, "paged"), (cfg.scaled(n_layers=8), "dense")):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            serves.append(phase_serve_prefix(torch, c, layout))
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

@@ -7,15 +7,18 @@ and serve them to completion through the serving engine.
       --kv-layout recurrent
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --kv-layout dense --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+      --prefill-chunk 64 --smoke --device cpu
 
 runs on the first CUDA card with random weights; ``--smoke`` takes the
 reduced config and ``--device cpu`` the plain PyTorch path. The flags
 match ``repro.launch.serve`` for what the port serves: the dense layout
 (every ported config, the default, as in the reference), the paged
 layout (plain attention) and the recurrent layout (RWKV), greedy
-sampling, monolithic prefill. Live-traffic mode, chunked prefill, the
-latent layout, the other samplers and crash snapshots wait for their
-slices (ROADMAP queue A). The full jamba-v0.1-52b needs 103 GB of bf16
+sampling, monolithic or chunked prefill and the block prefix cache (the
+engine's default 32 entries; plain attention stacks on dense and paged).
+Live-traffic mode, the latent layout, the other samplers and crash
+snapshots wait for their slices (ROADMAP queue A). The full jamba-v0.1-52b needs 103 GB of bf16
 weights, more than one 80 GB card holds.
 """
 from __future__ import annotations
@@ -54,6 +57,13 @@ def main(argv=None):
                     help="Scheduler name (fcfs | priority | round_robin)")
     ap.add_argument("--qos-classes", type=int, default=2,
                     help="QoS classes; requests get class i %% N")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="stream prompts in page-aligned chunks of this "
+                         "many tokens, interleaved with decode steps "
+                         "(0 = monolithic prefill)")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="max prefill tokens ingested per engine step "
+                         "(0 derives it from --prefill-chunk)")
     ap.add_argument("--decode-span", type=int, default=8,
                     help="decode steps between host syncs (1 = per step)")
     ap.add_argument("--seed", type=int, default=0,
@@ -71,7 +81,8 @@ def main(argv=None):
         slots=args.slots, cache_len=args.cache_len, n_pages=n_pages,
         page_size=args.page_size, kv_layout=args.kv_layout,
         scheduler=args.scheduler, qos_classes=args.qos_classes,
-        eos_token=-1, decode_span=args.decode_span)
+        eos_token=-1, prefill_chunk=args.prefill_chunk,
+        prefill_budget=args.prefill_budget, decode_span=args.decode_span)
     eng = ServingEngine(cfg, params, ecfg, device=device)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
@@ -88,7 +99,8 @@ def main(argv=None):
           f"({eng.stats['decode_tokens'] / dt:.1f} decode tok/s, "
           f"{eng.stats['host_syncs']} host syncs)  "
           f"[{args.kv_layout} kv, {args.scheduler} scheduler, greedy "
-          f"sampler, {n_pages} pages, span {args.decode_span}, {device}]")
+          f"sampler, {n_pages} pages, prefill chunk {args.prefill_chunk}, "
+          f"span {args.decode_span}, {device}]")
     print("completion order (req_id:qos):",
           " ".join(f"{r.req_id}:{r.qos}" for r in done))
     print("stats:", eng.stats)

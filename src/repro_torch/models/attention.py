@@ -4,10 +4,11 @@
 ([B,S,H,hd]) and computes the same function as its jnp pair-list scan
 (forward only) with kernel B2, causal flash attention.
 ``paged_decode_attention`` runs kernel B1 through the page table.
-``decode_attention`` attends over per-slot slabs (the ``dense`` layout)
-in plain PyTorch, as the JAX model does in jnp: the reference has no
-Pallas kernel for it. GQA is native in all three: KV is never expanded
-to H heads.
+``decode_attention`` attends over per-slot slabs (the ``dense`` layout),
+and ``chunk_prefix_attention`` attends a prompt chunk over the cache
+written so far (chunked prefill), both in plain PyTorch, as the JAX
+model does in jnp: the reference has no Pallas kernel for either. GQA is
+native in all four: KV is never expanded to H heads.
 """
 from __future__ import annotations
 
@@ -80,3 +81,31 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def chunk_prefix_attention(q, k_cache, v_cache, q_pos, *,
+                           scale: Optional[float] = None):
+    """One prompt chunk against a dense cache (chunked prefill).
+    q: [B,C,H,hd], chunk token i at absolute position q_pos[i] ([C]);
+    k_cache/v_cache: [B,L,KV,hd] hold every position written so far,
+    this chunk's included -> [B,C,H,hd].
+
+    Step for step the JAX model's ``chunk_prefix_attention``: scores
+    accumulated in fp32, the causal mask ``arange(L) <= q_pos`` over
+    absolute positions, an fp32 softmax, the probabilities cast to the
+    cache dtype, the weighted sum accumulated in fp32 and cast to q's
+    dtype. So a prompt run in chunks computes the rows of monolithic
+    prefill attention that belong to each chunk. Rows of padding (q_pos
+    past the prompt) are computed and never read."""
+    B, C, H, hd = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, C, KV, H // KV, hd)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg.float(), k_cache.float()) * scale
+    causal = (torch.arange(L, device=q.device)[None, :]
+              <= q_pos[:, None])                        # [C,L]
+    s = torch.where(causal[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgcs,bskd->bckgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, C, H, v_cache.shape[-1]).to(q.dtype)

@@ -9,7 +9,8 @@ matrix layout. Decoding state is ``{"caches": [one entry per layer],
 slabs of the ``dense`` layout, Mamba's and RWKV's carries); decode
 updates it in place.
 
-Four families are served: plain attention with dense SwiGLU MLPs
+``prefill_chunk`` extends dense caches by one prompt chunk (chunked
+prefill, plain attention stacks). Four families are served: plain attention with dense SwiGLU MLPs
 (qwen3-8b), the same attention with MoE MLPs after ``first_dense`` dense
 layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
 (jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b).
@@ -134,6 +135,35 @@ def prefill(params, tokens, cfg: ModelConfig,
              "lengths": torch.full((B,), S, dtype=torch.int32, device=dev),
              "positions": torch.full((B,), S, dtype=torch.int32, device=dev)}
     return logits, state
+
+
+def prefill_chunk(params, tokens, caches, start: int, n_valid: int,
+                  cfg: ModelConfig):
+    """Chunked prefill: extend dense caches by one prompt chunk, IN PLACE.
+
+    tokens: [B,C], the chunk at absolute positions start..start+C-1;
+    ``caches`` is a dense cache list (attention leaves [B, cache_len, KV,
+    hd]) holding positions [0, start). Tokens past ``n_valid`` are
+    padding: their K/V lands past the valid length (masked by
+    ``lengths`` downstream) and their outputs are never read. ``start``
+    and ``n_valid`` are host ints, so no index is read back from the
+    device. Returns (logits [B,V] at the last valid chunk token, the
+    caches). Chaining chunks over a prompt gives ``prefill``'s logits."""
+    if not tf.chunked_prefill_supported(cfg):
+        kinds = sorted(set(cfg.layer_kinds()))
+        raise ValueError(
+            f"chunked prefill needs per-token dense attention caches that "
+            f"extend row-by-row; {cfg.name} (layer kinds {kinds}, "
+            f"mla={cfg.mla is not None}, swa_window={cfg.swa_window}) "
+            f"doesn't expose them — use monolithic prefill")
+    if isinstance(start, torch.Tensor) or isinstance(n_valid, torch.Tensor):
+        raise TypeError("prefill_chunk: start and n_valid are host ints; "
+                        "a device tensor would be read back on every use")
+    x = embed(params["embed"], tokens)
+    ctx = {"mode": "prefill_chunk", "start": start}
+    x, caches = tf.apply_stack(params, x, cfg, ctx, caches=caches)
+    x = rms_norm(x[:, n_valid - 1], params["final_norm"], cfg.norm_eps)
+    return head_logits(x, _head_weight(params, cfg)), caches
 
 
 def decode_step(params, tokens, state, cfg: ModelConfig, active=None):

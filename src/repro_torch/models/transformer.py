@@ -16,7 +16,10 @@ slices (ROADMAP queue A).
 Attention decodes through a shared page pool (``paged`` layout) when the
 decode state carries a page table, else against per-slot slabs
 ``[B, cache_len, KV, hd]`` (``dense`` layout). Mamba and RWKV layers
-carry constant-size per-slot state.
+carry constant-size per-slot state. The ``prefill_chunk`` mode extends a
+dense cache by one prompt chunk (chunked prefill): plain attention
+stacks only (``chunked_prefill_supported``); the engine stages a paged
+slot's pages as such a cache (``pages_to_dense``).
 
 MoE layers return the router's stats (``moe_aux``, ``moe_dropped``);
 serving has no loss to add them to and drops them unread, so no value
@@ -36,7 +39,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
 from repro_torch.models import mamba, moe, rwkv
-from repro_torch.models.attention import (chunked_causal_attention,
+from repro_torch.models.attention import (chunk_prefix_attention,
+                                          chunked_causal_attention,
                                           decode_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
@@ -89,6 +93,12 @@ def paged_stack_supported(cfg: ModelConfig) -> bool:
             and cfg.mla is None and cfg.swa_window == 0)
 
 
+def chunked_prefill_supported(cfg: ModelConfig) -> bool:
+    """Chunked prefill (and the block prefix cache built on it) extends
+    per-token attention rows: the same gate as the paged layout."""
+    return paged_stack_supported(cfg)
+
+
 def recurrent_state_supported(cfg: ModelConfig) -> bool:
     """Constant-size slot state needs every mixer to carry a recurrence
     (RWKV/Mamba): any attention layer grows per token."""
@@ -136,6 +146,33 @@ def attn_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
         cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
                  "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
     return out, cache
+
+
+def attn_prefill_chunk(x, p, cfg: ModelConfig, ctx, cache):
+    """Chunked prefill: extend a dense cache by one prompt chunk. x:
+    [B,C,D], the chunk's tokens at absolute positions start..start+C-1
+    (``ctx["start"]``, a host int); cache {k,v: [B,L,KV,hd]} holds
+    positions [0, start). The chunk's K/V is written IN PLACE at its
+    positions, rows past L dropped (the padding of a tail chunk that
+    straddles cache_len), as the reference's scatter with mode="drop":
+    host-int slice bounds do that with no device read, and never shift
+    the write back over valid rows as a clamped fixed-width slice would.
+    Attention then runs causally over absolute positions against rows
+    [0, start + C) of the cache; every later row is masked for every
+    chunk row."""
+    B, C, _ = x.shape
+    start = ctx["start"]
+    q, k_new, v_new = _qkv(x, p, cfg)
+    pos = start + torch.arange(C, device=x.device)
+    ang = rope_angles(pos, cfg.head_dim, cfg.rope_theta)       # [C, hd/2]
+    q = apply_rope(q, ang)
+    k_new = apply_rope(k_new, ang)
+    end = min(start + C, cache["k"].shape[1])
+    for n, val in (("k", k_new), ("v", v_new)):
+        cache[n][:, start:end] = val[:, :end - start].to(cache[n].dtype)
+    out = chunk_prefix_attention(q, cache["k"][:, :end],
+                                 cache["v"][:, :end], pos)
+    return out.reshape(B, C, -1) @ p["wo"], cache
 
 
 def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
@@ -232,8 +269,9 @@ def _rwkv_block(p, x, cfg: ModelConfig, ctx, cache, want_cache: bool):
 def _moe_block_mlp(h2, p, cfg: ModelConfig, decode: bool):
     """The MoE MLP as the reference's ``apply_block`` calls it: decode
     tokens [B,D] form one group with capacity factor 2.0, prefill runs
-    one group per sequence at the config's factor. The stats are
-    dropped."""
+    one group per sequence at the config's factor (a prefill chunk one
+    group of its C tokens, padding rows included, as there). The stats
+    are dropped."""
     if decode:
         out, _ = moe.moe_mlp(h2[None], p, cfg, capacity_factor=2.0)
         return out[0]
@@ -246,7 +284,10 @@ def _mixer(h, kind: str, p, cfg: ModelConfig, ctx, cache,
     """The attention or Mamba mixer of one layer. Decode writes its new
     state into ``cache`` in place: attention into the page pool (a page
     table in ``ctx``) or the slot's slab, Mamba through
-    ``commit_slots`` under the active mask."""
+    ``commit_slots`` under the active mask. A prefill chunk extends the
+    attention cache in place (``attn_prefill_chunk``)."""
+    if ctx["mode"] == "prefill_chunk":
+        return attn_prefill_chunk(h, p["attn"], cfg, ctx, cache)
     if ctx["mode"] != "decode":
         if kind == "mamba":
             return mamba.mamba_forward(h, p["mamba"], cfg, state=cache,
@@ -352,6 +393,19 @@ def dense_to_pages(dense_caches, n_pages: int, page_size: int):
         return d[0].reshape((L // page_size, page_size)
                             + tuple(d.shape[2:]))[:n_pages]
     return [{k: one(v) for k, v in layer.items()} for layer in dense_caches]
+
+
+def pages_to_dense(page_caches, cache_len: int, page_size: int):
+    """Inverse of ``dense_to_pages``: page-granular data in token order
+    back to a batch-1 dense cache list zero-padded to ``cache_len``:
+    leaves [P, page, KV, hd] -> [1, cache_len, KV, hd] (new tensors).
+    Chunked prefill stages a paged slot's pages this way as the dense
+    cache ``attn_prefill_chunk`` extends."""
+    def one(p):
+        d = p.reshape((p.shape[0] * page_size,) + tuple(p.shape[2:]))
+        pad = (0, 0) * (d.dim() - 1) + (0, cache_len - d.shape[0])
+        return torch.nn.functional.pad(d, pad)[None]
+    return [{k: one(v) for k, v in layer.items()} for layer in page_caches]
 
 
 def gather_pages(pool_caches, page_ids):

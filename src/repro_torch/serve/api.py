@@ -13,10 +13,10 @@ drives subsystems behind protocols, selected by name from
   Sampler          <- per-token selection on the device
 
 The port keeps its own registries, so its parts never collide with the
-JAX package's names. The protocols list what this slice implements:
-crash snapshots, chunked prefill and prefix sharing join them with their
-slices (ROADMAP queue A). ``EngineConfig`` refuses the settings that are
-not ported yet, naming the slice that brings each.
+JAX package's names. The protocols list what the port implements: crash
+snapshots join them with their slice (ROADMAP queue A). ``EngineConfig``
+refuses the settings that are not ported yet, naming the slice that
+brings each.
 """
 from __future__ import annotations
 
@@ -61,8 +61,11 @@ class EngineConfig:
     cache_len: int = 256
     page_size: int = 16
     n_pages: int = 256            # device page budget (admission control)
-    prefix_cache_entries: int = 0  # must stay 0 until the prefix cache slice
-    prefill_chunk: int = 0        # must stay 0 (monolithic prefill)
+    prefix_cache_entries: int = 32
+    prefill_chunk: int = 0        # tokens per prefill chunk; 0 = monolithic
+    prefill_budget: int = 0       # prefill tokens per engine step, spent
+                                  # in whole chunks (min. one chunk/step);
+                                  # 0 derives it from prefill_chunk
     decode_span: int = 8          # decode steps between host syncs
     eos_token: int = 0
     host_offload: bool = True     # VoQ overflow tier
@@ -89,16 +92,6 @@ class EngineConfig:
                 f"sampler {self.sampler!r} is not ported yet: the port "
                 f"serves 'greedy' only; stochastic sampling waits for "
                 f"ROADMAP item A5")
-        if self.prefill_chunk != 0:
-            raise ValueError(
-                f"prefill_chunk={self.prefill_chunk}: chunked prefill is "
-                f"not ported yet (the chunked-prefill and prefix-cache "
-                f"slice, ROADMAP queue A4); use 0 for monolithic prefill")
-        if self.prefix_cache_entries != 0:
-            raise ValueError(
-                f"prefix_cache_entries={self.prefix_cache_entries}: the "
-                f"prefix cache is not ported yet (the chunked-prefill and "
-                f"prefix-cache slice, ROADMAP queue A4); use 0")
 
 
 class ParkMeta(NamedTuple):
@@ -138,7 +131,12 @@ class StateBackend(Protocol):
     config sniffing: `needs_growth` gates span reservation, pool growth
     and prefix-cache eviction; `supports_chunked_prefill` and
     `supports_prefix_share` gate streaming prefill and the block prefix
-    cache (both off in the port until ROADMAP A4b)."""
+    cache. Chunked prefill stages a slot as a dense cache
+    (`slot_caches`) and writes a chunk's rows back (`store_chunk`); the
+    prefix cache takes one page-aligned block of a slot
+    (`block_payload`), pins and unpins it (`cache_retain`,
+    `cache_release`) and installs cached blocks in a new slot
+    (`share_prefix`)."""
     needs_growth: bool            # True if capacity can run out mid-decode
     supports_chunked_prefill: bool  # slot state extends a chunk at a time
     supports_prefix_share: bool   # per-token blocks can back a PrefixCache
@@ -152,6 +150,15 @@ class StateBackend(Protocol):
     def held(self, req_id: int) -> int: ...
     def prefill_into_slot(self, state: dict, slot: int, req_id: int,
                           caches, length: int) -> dict: ...
+    def slot_caches(self, state: dict, slot: int, req_id: int) -> Any: ...
+    def store_chunk(self, state: dict, slot: int, req_id: int, caches,
+                    start: int, n_tokens: int) -> dict: ...
+    def share_prefix(self, state: dict, slot: int, req_id: int,
+                     payloads, n_tokens: int) -> dict: ...
+    def block_payload(self, state: dict, slot: int, req_id: int,
+                      block: int) -> Any: ...
+    def cache_retain(self, payload: Any) -> None: ...
+    def cache_release(self, payload: Any) -> None: ...
     def park(self, state: dict, slot: int,
              req_id: int) -> Tuple[Any, ParkMeta]: ...
     def unpark(self, state: dict, slot: int, req: Request, caches,

@@ -2,19 +2,27 @@
 pluggable subsystems of serve/api.py.
 
 The loop is the JAX engine's (``repro.serve.engine``): admit from the
-scheduler, restore due unparks, run the backend's alloc-on-append pass,
+scheduler, restore due unparks, stream one budget of page-aligned chunks
+of the prompts still prefilling, run the backend's alloc-on-append pass,
 reserve page headroom for the coming decode span, sync page tables, then
 decode up to ``decode_span`` tokens on the device with the active mask
 freezing finished and parked slots. Stop conditions (EOS, max_new_tokens,
 cache_len, span budget) are evaluated on the device, and the host reads
-the emitted tokens once per span. Prefill is monolithic. Parked slots'
-state (KV pages, or a recurrent carry) really moves to host tensors and
-back. The loop never branches on the layout: the backend's
-`needs_growth` decides admission charges, growth, span reservation and
-prefix-cache eviction.
+the emitted tokens once per span. Prefill is monolithic, or with
+``prefill_chunk > 0`` streamed in chunks between decode spans, so a long
+prompt never holds running sequences back. Prompts that share a
+page-aligned prefix with an earlier one share its blocks through the
+prefix cache (page references on ``paged``, copied rows on ``dense``)
+and compute only their tail. Parked slots' state (KV pages, or a
+recurrent carry) really moves to host tensors and back. The loop never
+branches on the layout: the backend's capability flags decide chunking
+and prefix sharing, and `needs_growth` admission charges, growth, span
+reservation and prefix-cache eviction.
 
 Every read the serving loop makes off the device goes through
-``_host_sync``, so ``host_syncs == prefills + decode_spans``.
+``_host_sync``, so ``host_syncs == prefills + decode_spans``: a prefill
+chunk reads nothing back, only a finished prefill's first token does (a
+prefill preempted before its last chunk reads nothing at all).
 """
 from __future__ import annotations
 
@@ -42,6 +50,11 @@ class ServingEngine:
                  kv_backend: Optional[StateBackend] = None,
                  transport: Optional[ParkingTransport] = None,
                  sampler: Optional[Sampler] = None):
+        if ecfg.prefill_chunk and ecfg.prefill_chunk % ecfg.page_size:
+            raise ValueError(
+                f"prefill_chunk {ecfg.prefill_chunk} must be a page_size "
+                f"({ecfg.page_size}) multiple so chunk boundaries stay "
+                f"page-aligned")
         if ecfg.decode_span < 1:
             raise ValueError(
                 f"decode_span must be >= 1, got {ecfg.decode_span}")
@@ -61,18 +74,30 @@ class ServingEngine:
             ecfg.bus, clock=self.clock)
         self.sampler = sampler or make_sampler(ecfg.sampler)
         self.active = np.zeros(B, bool)          # slot has a sequence
-        self.running = np.zeros(B, bool)         # decoding (not parked)
+        self.running = np.zeros(B, bool)         # decoding (not parked,
+        #                                          not mid-prefill)
+        self.prefilling = np.zeros(B, bool)      # streaming its prompt in
+        self.prefill_pos = np.zeros(B, np.int64)  # prompt tokens ingested
+        self._prefill_rr = 0                     # chunk-budget round-robin
         self.slot_req: List[Optional[Request]] = [None] * B
-        # held at capacity 0 (EngineConfig refuses anything else): inert,
-        # its evict_one is the first reclaim valve under page pressure
-        self.prefix = PrefixCache(ecfg.prefix_cache_entries,
-                                  block=ecfg.page_size)
+        # capability routing: the backend says whether its slot state
+        # extends a chunk at a time and whether per-token blocks can back
+        # the prefix cache; other layouts prefill monolithically, with
+        # the cache held at capacity 0 (inert)
+        self._chunked_ok = bool(self.kv.supports_chunked_prefill)
+        self.prefix = PrefixCache(
+            ecfg.prefix_cache_entries
+            if self._chunked_ok and self.kv.supports_prefix_share else 0,
+            block=ecfg.page_size,
+            retain=self.kv.cache_retain, release=self.kv.cache_release)
         self._stalled: set = set()               # req_ids frozen in place
         self.completed: List[Request] = []
         self.stats = {"decode_steps": 0, "decode_tokens": 0,
                       "decode_spans": 0, "host_syncs": 0, "span_shrinks": 0,
-                      "prefills": 0, "prefill_tokens": 0,
+                      "prefills": 0,
+                      "prefill_tokens": 0, "prefill_chunks": 0,
                       "parked": 0, "unparked": 0,
+                      "prefix_hits": 0, "prefix_tokens_reused": 0,
                       "page_allocs": 0, "pages_peak": 0,
                       "preempt_restarts": 0}
 
@@ -80,6 +105,9 @@ class ServingEngine:
     def pool(self):
         """The StateBackend's PagePool (MTT accounting)."""
         return self.kv.pool
+
+    def _streaming(self) -> bool:
+        return bool(self.ecfg.prefill_chunk) and self._chunked_ok
 
     def _host_sync(self, tensors):
         """THE accounted blocking device->host transfer: one per decode
@@ -121,6 +149,8 @@ class ServingEngine:
     def _release_slot(self, slot: int):
         self.active[slot] = False
         self.running[slot] = False
+        self.prefilling[slot] = False
+        self.prefill_pos[slot] = 0
         self.slot_req[slot] = None
 
     def _complete(self, slot: int, req: Request):
@@ -138,20 +168,46 @@ class ServingEngine:
             req: Optional[Request] = self.sched.next()
             if req is None:
                 break
+            prompt = np.asarray(req.prompt, np.int32)
+            matched, payloads = self.prefix.match(prompt)
+            streaming = self._streaming()
             if self.kv.needs_growth:
-                n_tok = len(req.prompt) + 1      # prompt + first decode token
+                # charge only what this step writes: the shared prefix
+                # joins by reference, the first chunk (or the whole tail
+                # when not streaming) takes new pages
+                first = len(prompt) - matched
+                if streaming:
+                    first = min(self.ecfg.prefill_chunk, first)
+                n_tok = matched + first
+                if n_tok == len(prompt):
+                    n_tok += 1                   # first decode token
             else:
                 n_tok = self.kv.footprint(req)   # reserved up front
+            if matched:
+                self.state = self.kv.share_prefix(
+                    self.state, slot, req.req_id, payloads, matched)
             if not self._append_or_free(req.req_id, n_tok,
                                         self.sched.class_of(req)):
-                self.kv.release(req.req_id)
+                self.kv.release(req.req_id)      # drop shared-prefix refs
+                self.prefix.unrecord(matched)    # a retry re-matches
                 self._requeue(req)               # requeue; others proceed
                 break
             self.active[slot] = True
             self.running[slot] = False
+            self.prefilling[slot] = True
+            self.prefill_pos[slot] = matched
             self.slot_req[slot] = req
+            if matched:
+                self.stats["prefix_hits"] += 1
+                self.stats["prefix_tokens_reused"] += matched
             self.stats["prefills"] += 1
-            self._prefill_full(slot, req)
+            if not streaming:
+                if matched:
+                    # the cached prefix is installed: compute the tail
+                    # only, as one chunk
+                    self._process_chunk(slot, len(prompt) - matched)
+                else:
+                    self._prefill_full(slot, req)
             admitted += 1
         return admitted
 
@@ -173,10 +229,73 @@ class ServingEngine:
         tok, = self._host_sync((lm.select_token(logits, self.sampler.sample),))
         return int(tok[0])
 
+    # -- chunked prefill -------------------------------------------------
+    def _prefill_step(self):
+        """Stream page-aligned chunks of the prefilling slots' prompts,
+        bounded by the per-step token budget, so long prompts interleave
+        with decode spans. The budget is spent in whole chunks, at least
+        one a step, and rotates round-robin over the slots so concurrent
+        prefills share it."""
+        if not self._streaming():
+            return
+        chunk = self.ecfg.prefill_chunk
+        budget = self.ecfg.prefill_budget or chunk
+        quota = max(1, budget // chunk)          # whole chunks this step
+        n = self.ecfg.slots
+        for k in range(n):
+            i = (self._prefill_rr + k) % n
+            if quota <= 0:
+                break
+            if not (self.active[i] and self.prefilling[i]):
+                continue
+            if self._process_chunk(i, chunk):
+                quota -= 1
+                self._prefill_rr = (i + 1) % n
+
+    def _process_chunk(self, slot: int, width: int) -> int:
+        """Ingest up to ``width`` prompt tokens of one prefilling slot.
+        Returns the number of tokens processed (0 if out of pages). The
+        chunk reads nothing back; the last one syncs its first token."""
+        req = self.slot_req[slot]
+        pos = int(self.prefill_pos[slot])
+        total = len(req.prompt)
+        n_valid = min(width, total - pos)
+        last = pos + n_valid == total
+        need = pos + n_valid + (1 if last else 0)
+        if self.kv.needs_growth and not self._append_or_free(
+                req.req_id, need, self.sched.class_of(req)):
+            # no pages for this chunk: wait in place (decodes go on). If
+            # nothing decodes and someone else waits on pages too (a
+            # lower prefilling slot or a stalled decode), back off with a
+            # preempt-restart so that the other side can progress
+            if (not self.running.any()
+                    and (self._stalled
+                         or any(self.prefilling[j] and self.active[j]
+                                for j in range(slot)))):
+                self._preempt_restart(slot)
+            return 0
+        chunk = np.zeros(width, np.int32)
+        chunk[:n_valid] = np.asarray(req.prompt[pos:pos + n_valid], np.int32)
+        caches = self.kv.slot_caches(self.state, slot, req.req_id)
+        logits, caches = lm.prefill_chunk(
+            self.params, torch.as_tensor(chunk[None], device=self.device),
+            caches, pos, n_valid, self.cfg)
+        self.state = self.kv.store_chunk(
+            self.state, slot, req.req_id, caches, pos, n_valid)
+        self.prefill_pos[slot] = pos + n_valid
+        self.stats["prefill_chunks"] += 1
+        self.stats["prefill_tokens"] += n_valid
+        if last:
+            self._finish_prefill(slot, req, self._first_token(logits))
+        return n_valid
+
     def _finish_prefill(self, slot: int, req: Request, first_tok: int):
         total = len(req.prompt)
         self.state["lengths"][slot] = total
         self.state["positions"][slot] = total
+        self.prefilling[slot] = False
+        self.prefill_pos[slot] = total
+        self._donate_prefix(slot, req)
         req.tokens_out.append(first_tok)
         # the prefill token can already satisfy the contract
         if (len(req.tokens_out) >= req.max_new_tokens
@@ -185,10 +304,22 @@ class ServingEngine:
         else:
             self.running[slot] = True
 
+    def _donate_prefix(self, slot: int, req: Request):
+        """Offer the prompt's full page-aligned blocks to the prefix
+        cache (paged: page ids pinned by refcount; dense: copies of the
+        blocks' rows)."""
+        n_blocks = len(req.prompt) // self.ecfg.page_size
+        if n_blocks <= 0 or self.prefix.capacity <= 0:
+            return
+        self.prefix.insert(
+            np.asarray(req.prompt, np.int32), n_blocks,
+            lambda b: self.kv.block_payload(self.state, slot, req.req_id, b))
+
     def _claim_reclaim(self, claim) -> bool:
         """Run a page-claiming thunk, dropping LRU prefix-cache blocks
-        under page pressure when the backend grows (inert while the cache
-        is empty)."""
+        under page pressure when the backend grows: cached pages are the
+        cheapest to free (a later request merely prefills its prefix
+        again)."""
         if claim():
             return True
         if self.kv.needs_growth:
@@ -283,8 +414,8 @@ class ServingEngine:
         changed = False
         for i in range(self.ecfg.slots):
             req = self.slot_req[i]
-            if req is None or not self.active[i]:
-                continue
+            if req is None or not self.active[i] or self.prefilling[i]:
+                continue                     # chunks manage their own pages
             if not self.running[i]:
                 if req.req_id in self._stalled:
                     before = self.kv.held(req.req_id)
@@ -393,6 +524,7 @@ class ServingEngine:
     def _step(self):
         self._admit()
         self._try_unpark()
+        self._prefill_step()
         if self.kv.needs_growth:
             self._grow()
         act = self.active & self.running
@@ -403,7 +535,7 @@ class ServingEngine:
             self.state,
             [r.req_id if r is not None else None for r in self.slot_req])
         if not act.any():
-            return                           # only parked slots
+            return                           # only prefilling/parked slots
         tokens = np.zeros(self.ecfg.slots, np.int32)
         for i, req in enumerate(self.slot_req):
             if req is not None and req.tokens_out:

@@ -2,9 +2,10 @@
 blocks, keyed by a hash chain, with LRU eviction.
 
 Copied from ``repro.serve.prefix_cache`` (without its crash-snapshot
-codec). In this slice the engine holds it at capacity 0: it is inert,
-and its `evict_one` is the first of the engine's page-reclaim valves.
-The chunked-prefill slice turns it on (ROADMAP queue A4).
+codec). Payloads are the state backend's: page ids pinned by the
+``PagePool``'s refcounts on ``paged`` (N sharers hold one physical
+copy), copies of each block's K/V rows on ``dense``. Under page
+pressure its `evict_one` is the first of the engine's reclaim valves.
 """
 from __future__ import annotations
 

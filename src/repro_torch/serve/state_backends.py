@@ -17,6 +17,15 @@
   carries (`[H, hd, hd]` wkv state + two token-shift rows per layer) in
   per-slot slabs: footprint 1, no growth, park/unpark moves the carry.
 
+`dense` and `paged` take chunked prefill and back the block prefix cache
+for plain attention stacks (`transformer.chunked_prefill_supported`):
+`slot_caches` stages a slot's rows as the dense cache a chunk extends,
+`store_chunk` writes the chunk's rows back, `block_payload` hands the
+prefix cache one page-aligned block (a page id on `paged`, pinned by
+refcount through `cache_retain`/`cache_release`; a copy of the block's
+rows on `dense`) and `share_prefix` installs cached blocks in a slot.
+`recurrent` declines both.
+
 State tensors are written in place. The ``latent`` backend of the JAX
 package waits for its slice (ROADMAP A8), and sliding-window ring slabs
 for A6.
@@ -43,11 +52,11 @@ class _PooledKV:
         self.ecfg = ecfg
         self.device = device
         self.pool = PagePool(ecfg.n_pages, ecfg.page_size)
-
-    # capability flags (StateBackend protocol): chunked prefill and the
-    # block prefix cache are not ported yet (ROADMAP A4b)
-    supports_chunked_prefill = False
-    supports_prefix_share = False
+        # capability flags (StateBackend protocol): chunked prefill and
+        # the block prefix cache extend per-token attention rows, which
+        # only plain-attention caches expose
+        self.supports_chunked_prefill = tf.chunked_prefill_supported(cfg)
+        self.supports_prefix_share = tf.chunked_prefill_supported(cfg)
 
     def admission_error(self, req: Request) -> Optional[str]:
         """A single request needing more pages than the whole pool can
@@ -73,6 +82,14 @@ class _PooledKV:
 
     def release(self, req_id: int) -> None:
         self.pool.release(req_id)
+
+    # prefix-cache payload pinning: only payloads that live in the pool
+    # (paged) need real refcounts
+    def cache_retain(self, payload) -> None:
+        pass
+
+    def cache_release(self, payload) -> None:
+        pass
 
 
 @register_state_backend("paged")
@@ -103,6 +120,47 @@ class PagedKV(_PooledKV):
         tf.scatter_pages(state["caches"], chunks, pages)
         self._dirty = True
         return state
+
+    def slot_caches(self, state: dict, slot: int, req_id: int):
+        """Stage the slot's pages (token order, a shared prefix included)
+        as the batch-1 dense cache a prefill chunk extends (a copy)."""
+        pages = self.pool.pages_of(req_id)
+        return tf.pages_to_dense(tf.gather_pages(state["caches"], pages),
+                                 self.ecfg.cache_len, self.ecfg.page_size)
+
+    def store_chunk(self, state: dict, slot: int, req_id: int, caches,
+                    start: int, n_tokens: int) -> dict:
+        """Scatter exactly the pages the chunk touched back into the
+        pool. ``start`` is page-aligned and at or past the shared-prefix
+        extent, so a chunk never writes a page that another sequence or
+        the prefix cache also holds."""
+        ps = self.ecfg.page_size
+        p0, p1 = start // ps, -(-(start + n_tokens) // ps)
+        pages = self.pool.pages_of(req_id)[p0:p1]
+        data = [{k: t[0, p0 * ps:p1 * ps].reshape(
+                    (len(pages), ps) + tuple(t.shape[2:]))
+                 for k, t in layer.items()} for layer in caches]
+        tf.scatter_pages(state["caches"], data, pages)
+        self._dirty = True
+        return state
+
+    def share_prefix(self, state: dict, slot: int, req_id: int,
+                     payloads, n_tokens: int) -> dict:
+        # zero-copy: the cached pages join this sequence's table (one new
+        # ref each); the pool already holds the prefix's K/V
+        self.pool.share(req_id, list(payloads))
+        self._dirty = True
+        return state
+
+    def block_payload(self, state: dict, slot: int, req_id: int,
+                      block: int) -> Any:
+        return self.pool.pages_of(req_id)[block]
+
+    def cache_retain(self, payload) -> None:
+        self.pool.addref([payload])
+
+    def cache_release(self, payload) -> None:
+        self.pool.decref([payload])
 
     def park(self, state: dict, slot: int,
              req_id: int) -> Tuple[Any, ParkMeta]:
@@ -170,6 +228,39 @@ def _slot_extract(tree, slot: int):
     return [{k: t[slot].cpu() for k, t in layer.items()} for layer in tree]
 
 
+def _slot_view(tree, slot: int):
+    """Batch-1 view of one slot (it keeps the batch axis)."""
+    return [{k: t[slot:slot + 1] for k, t in layer.items()}
+            for layer in tree]
+
+
+def _slot_range_view(tree, slot: int, t0: int, t1: int):
+    """Batch-1 view of one slot's token positions [t0, t1)."""
+    return [{k: t[slot:slot + 1, t0:t1] for k, t in layer.items()}
+            for layer in tree]
+
+
+def _cloned(tree):
+    return [{k: t.clone() for k, t in layer.items()} for layer in tree]
+
+
+def _cat_blocks(blocks):
+    """Concatenate per-block payloads along the token axis."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return [{k: torch.cat([b[i][k] for b in blocks], dim=1)
+             for k in blocks[0][i]} for i in range(len(blocks[0]))]
+
+
+def _slot_write_range(dst, src, slot: int, t0: int, length: int):
+    """Write the batch-1 list ``src`` (token extent ``length``) into slot
+    ``slot`` of ``dst`` at token positions [t0, t0 + length), in place."""
+    for d_layer, s_layer in zip(dst, src):
+        for k, d in d_layer.items():
+            d[slot, t0:t0 + length].copy_(s_layer[k][0])
+    return dst
+
+
 @register_state_backend("dense")
 class DenseKV(_PooledKV):
     """Per-slot contiguous slabs; worst-case reservation at admission.
@@ -195,6 +286,39 @@ class DenseKV(_PooledKV):
                           caches, length: int) -> dict:
         _slot_insert(state["caches"], caches, slot)
         return state
+
+    def slot_caches(self, state: dict, slot: int, req_id: int):
+        # a copy, not a view: the chunk also writes its padding rows,
+        # which must not land in the slab (store_chunk writes back only
+        # the valid rows, as the reference does)
+        return _cloned(_slot_view(state["caches"], slot))
+
+    def store_chunk(self, state: dict, slot: int, req_id: int, caches,
+                    start: int, n_tokens: int) -> dict:
+        # only the rows the chunk produced: the slab past the valid
+        # length stays as it was (zero in a fresh slot, as after a
+        # monolithic prefill)
+        _slot_write_range(state["caches"],
+                          _slot_range_view(caches, 0, start,
+                                           start + n_tokens),
+                          slot, start, n_tokens)
+        return state
+
+    def share_prefix(self, state: dict, slot: int, req_id: int,
+                     payloads, n_tokens: int) -> dict:
+        # no indirection to share through: copy the cached blocks' rows
+        # into the slot's slab
+        _slot_write_range(state["caches"], _cat_blocks(payloads), slot, 0,
+                          n_tokens)
+        return state
+
+    def block_payload(self, state: dict, slot: int, req_id: int,
+                      block: int) -> Any:
+        # a copy: the prefix cache outlives the slot, whose slab the next
+        # request overwrites in place
+        ps = self.ecfg.page_size
+        return _cloned(_slot_range_view(state["caches"], slot, block * ps,
+                                        (block + 1) * ps))
 
     def park(self, state: dict, slot: int,
              req_id: int) -> Tuple[Any, ParkMeta]:
@@ -241,9 +365,6 @@ class RecurrentState(DenseKV):
     blocks to share or to extend chunk-wise.
     """
 
-    supports_chunked_prefill = False     # never, whatever A4b brings
-    supports_prefix_share = False
-
     def __init__(self, cfg, ecfg: EngineConfig, device):
         if not tf.recurrent_state_supported(cfg):
             kinds = sorted(set(cfg.layer_kinds()))
@@ -253,6 +374,8 @@ class RecurrentState(DenseKV):
                 f"layer kinds {kinds}: attention layers grow per token, "
                 f"use the 'dense' or 'paged' layout")
         super().__init__(cfg, ecfg, device)
+        self.supports_chunked_prefill = False
+        self.supports_prefix_share = False
 
     def footprint(self, req: Request) -> int:
         # one accounting page marks the slot resident in the MTT; the

@@ -1,7 +1,8 @@
 """The port on a CUDA card: each kernel against its plain version, and
 the serving engine on the card against the same engine on the CPU, on
 the paged (qwen3-8b, moonshot-v1-16b-a3b), recurrent (rwkv6-1.6b) and
-dense (jamba-v0.1-52b) backends.
+dense (jamba-v0.1-52b) backends; chunked prefill against monolithic
+prefill, and a paged serve with prefix-cache hits.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -176,7 +177,8 @@ def test_engine_on_card_matches_cpu(cuda):
                            device=dev)
         eng = ServingEngine(cfg, p, api.EngineConfig(
             slots=3, cache_len=64, page_size=8, n_pages=9, eos_token=-1,
-            decode_span=8, kv_layout="paged"), device=dev)
+            decode_span=8, kv_layout="paged", prefix_cache_entries=0),
+            device=dev)
         for i, pr in enumerate(prompts):
             eng.submit(api.Request(i, pr, max_new_tokens=12))
         streams[dev] = {r.req_id: r.tokens_out
@@ -212,6 +214,72 @@ def test_decode_span_never_syncs_on_card(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert emit.sum(0).tolist() == [8, 3, 0]
     assert state["positions"].tolist() == [13, 12, 0]
+
+
+def test_chunked_prefill_matches_monolithic_on_card(cuda):
+    """fp32 SMOKE qwen3 on the card: a prompt chained through
+    ``prefill_chunk`` (plain chunk attention, padded tail) gives the
+    monolithic prefill's logits (B2) within 1e-4, and the CPU chain's."""
+    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(dtype="float32")
+    prompt = np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=75).astype(np.int32)
+    chained = {}
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        caches = lm.init_serve_state(cfg, 1, 96, device=dev)["caches"]
+        for pos in range(0, len(prompt), 16):
+            nv = min(16, len(prompt) - pos)
+            chunk = np.zeros((1, 16), np.int32)
+            chunk[0, :nv] = prompt[pos:pos + nv]
+            logits, caches = lm.prefill_chunk(
+                p, torch.from_numpy(chunk).to(dev), caches, pos, nv, cfg)
+        chained[dev] = logits
+    n = fa.flash_attention.launches
+    mono, _ = lm.prefill(p, torch.from_numpy(prompt[None]).to(cuda), cfg,
+                         cache_len=96)
+    assert fa.flash_attention.launches == n + cfg.n_layers
+    torch.testing.assert_close(chained["cuda"], mono, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(chained["cuda"].cpu(), chained["cpu"],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_paged_engine_prefix_hit_on_card(cuda):
+    """fp32 SMOKE qwen3 on the paged backend with 16-token chunks and the
+    prefix cache: requests that share a 32-token prefix hit it, the
+    card's streams equal the CPU's, chunks launch no B2 and decode runs
+    B1 once per layer per step."""
+    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(dtype="float32")
+    rng = np.random.default_rng(5)
+    shared = rng.integers(1, cfg.vocab_size, size=32).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(
+        1, cfg.vocab_size, size=n).astype(np.int32)]) for n in (9, 20, 3)]
+    streams, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        eng = ServingEngine(cfg, p, api.EngineConfig(
+            slots=2, cache_len=64, page_size=8, n_pages=32, eos_token=-1,
+            decode_span=8, kv_layout="paged", prefill_chunk=16,
+            prefix_cache_entries=32), device=dev)
+        before = (fa.flash_attention.launches,
+                  pa.paged_decode_attention.launches)
+        eng.submit(api.Request(0, prompts[0], max_new_tokens=6))
+        eng.run_until_done()
+        for i, pr in enumerate(prompts[1:], 1):
+            eng.submit(api.Request(i, pr, max_new_tokens=10))
+        streams[dev] = {r.req_id: r.tokens_out
+                        for r in eng.run_until_done()}
+        stats[dev] = eng.stats
+        launched = (fa.flash_attention.launches - before[0],
+                    pa.paged_decode_attention.launches - before[1])
+    st = stats["cuda"]
+    assert st["prefix_hits"] == 2 and st["prefix_tokens_reused"] == 64
+    assert st["prefill_chunks"] > st["prefills"]
+    assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+    assert launched == (0, cfg.n_layers * st["decode_steps"])
+    assert st == stats["cpu"]
+    assert streams["cuda"] == streams["cpu"]
 
 
 def _wkv_inputs(rng, B, S, H, hd, dtype, cuda):
@@ -412,7 +480,8 @@ def test_moe_engine_on_card_matches_cpu(cuda):
                            device=dev)
         eng = ServingEngine(cfg, p, api.EngineConfig(
             slots=3, cache_len=64, page_size=8, n_pages=9, eos_token=-1,
-            decode_span=8, kv_layout="paged"), device=dev)
+            decode_span=8, kv_layout="paged", prefix_cache_entries=0),
+            device=dev)
         for i, pr in enumerate(prompts):
             eng.submit(api.Request(i, pr, max_new_tokens=12))
         streams[dev] = {r.req_id: r.tokens_out

@@ -154,8 +154,7 @@ def test_parking_under_page_pressure_matches_reference(model,
 
 
 @pytest.mark.parametrize("setting", [
-    {"kv_layout": "latent"}, {"sampler": "stochastic"},
-    {"prefill_chunk": 16}, {"prefix_cache_entries": 4}])
+    {"kv_layout": "latent"}, {"sampler": "stochastic"}])
 def test_unsupported_settings_raise(setting):
     with pytest.raises(ValueError):
         api.EngineConfig(**setting)
@@ -174,8 +173,8 @@ def test_non_greedy_request_rejected_at_submit(model):
 
 
 def test_prefix_cache_copy_matches_reference():
-    """The copied block cache (inert in the engine until the chunked
-    prefill slice) answers like the reference on one op sequence."""
+    """The copied block cache answers like the reference on one op
+    sequence (the engines' use of it: tests/test_torch_chunked.py)."""
     rng = np.random.default_rng(0)
     base = rng.integers(1, 100, size=40).astype(np.int32)
     prompts = [base, np.concatenate([base[:24], base[:9]]), base[:17],
