@@ -44,7 +44,24 @@ Phases, each printing one JSON object per line:
              the counters, the pool empty after), beside the same prompts
              without the cache and monolithically, with each request's time
              to first token and one traced chunk;
-6. the kernels line, the total wall time, the nvidia-smi line, and the
+6. sampling — ``derive_keys``, ``sample_logits`` and ``token_logprob``
+             on the card against the port's CPU path at qwen3's vocab
+             (keys and bits bit for bit, Gumbel noise within 4 ulp, tokens
+             under the margin rule with flips counted, logprobs within
+             1e-5, bit for bit across calls and neighbours), one call's
+             device µs and launches;
+   serve_sampled — qwen3-8b paged at full depth with the stochastic
+             sampler: t = 0 gives the greedy phase's digest; mixed
+             SamplingParams (logprobs on half) give the same streams
+             across runs, spans 1 and 8, parking and batch neighbours;
+             launches and host syncs held; a sampled traced span beside a
+             greedy one (the sampler's device share);
+   frontend — ``LocalFrontend`` over a poisson ``make_trace`` on the same
+             engine with a VirtualClock: terminal outcomes, streams equal
+             to ``tokens_out``, class 1 alone shed or rejected, two runs
+             identical, per-class TTFT and TPOT; each of the three prints
+             its seconds on a line of its own;
+7. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
 Exits non-zero, printing no result, without a CUDA card or without the
@@ -887,8 +904,8 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
         close_state("prefill_state")
         toks = []
         for i in range(steps):
-            want = lm.select_token(cpu["logits"][-1])
-            got = lm.select_token(card["logits"][-1]).cpu()
+            want = lm.select_token(cpu["logits"][-1])[0]
+            got = lm.select_token(card["logits"][-1])[0].cpu()
             same = [want[b] == got[b] for b in range(n_seq)
                     if (b,) not in last]
             require(all(same),
@@ -1002,8 +1019,11 @@ def check_prefill_chunks(torch, cfg, runs, prompt, cache_len, tol,
 PROMPT_LENS = (37, 200, 333, 517, 1000, 1024, 1531, 1900)
 
 
-def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device):
-    """Serve ``prompts`` once. Returns (engine, completed, wall s, meas):
+def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
+                sampling=None, req_ids=None):
+    """Serve ``prompts`` once (request i with ``sampling[i]``, default
+    greedy, and id ``req_ids[i]``, default i). Returns (engine,
+    completed, wall s, meas):
     ``meas`` holds the synchronized time spent in monolithic prefills
     and in prefill chunks (``prefill_s``), the number of monolithic
     prefills (``full_prefills``: the engine counts prefills and chunks,
@@ -1030,12 +1050,14 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device):
     eng._process_chunk = timed(eng._process_chunk, 0)
     finish = eng._finish_prefill
 
-    def first_token(slot, req, tok):           # measurement only
+    def first_token(slot, req, *rest):         # measurement only
         meas["ttft_s"][req.req_id] = run[0].elapsed()
-        return finish(slot, req, tok)
+        return finish(slot, req, *rest)
     eng._finish_prefill = first_token
     for i, p in enumerate(prompts):
-        eng.submit(Request(i, p.copy(), max_new_tokens=max_new))
+        kw = {} if sampling is None else {"sampling": sampling[i]}
+        eng.submit(Request(i if req_ids is None else req_ids[i], p.copy(),
+                           max_new_tokens=max_new, **kw))
     sync(torch, device)
     run[0] = Timer()
     done = eng.run_until_done()
@@ -1097,6 +1119,7 @@ def _traced(torch, prof, wall, calls):
                 f"{per_call} a call")
     return {"wall_s": wall, "device_kernel_s": busy,
             "device_busy_share": busy / wall,
+            "device_ops": sum(n for _, _, n in events),
             "top_kernels_ms": [[k[:80], ms, n] for k, ms, n in events[:10]],
             "port_kernels": ours,
             "memsets": [[k[:80], ms, n] for k, ms, n in events
@@ -1134,15 +1157,18 @@ def streams_digest(streams) -> str:
     return hashlib.sha256(text.encode()).hexdigest()
 
 
-def profile_decode_span(torch, cfg, params, ecfg, prompts, device):
+def profile_decode_span(torch, cfg, params, ecfg, prompts, device,
+                        sampling=None):
     """Where a decode span's time goes: admit and prefill the first
-    `slots` prompts with one engine step, then trace the next step (a
-    pure decode span) with torch.profiler (``_traced``)."""
+    `slots` prompts (request i with ``sampling[i]``, default greedy) with
+    one engine step, then trace the next step (a pure decode span) with
+    torch.profiler (``_traced``)."""
     from repro_torch.serve.api import Request
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, ecfg, device=device)
     for i, p in enumerate(prompts[:ecfg.slots]):
-        eng.submit(Request(i, p.copy(), max_new_tokens=1 << 20))
+        kw = {} if sampling is None else {"sampling": sampling[i]}
+        eng.submit(Request(i, p.copy(), max_new_tokens=1 << 20, **kw))
     eng.step()
     steps = eng.stats["decode_steps"]
     prof, wall, calls = _profile(torch, device, eng.step)
@@ -1478,6 +1504,441 @@ def phase_serve_prefix(torch, cfg, layout, max_new=32, seed=0,
 
 
 # --------------------------------------------------------------------------
+# phase 6: stochastic sampling, sampled serving, the live front end
+# --------------------------------------------------------------------------
+
+# the margin rule: a draw may differ from another device's only where the
+# winner of the CPU's draw leads the runner-up by at most this much
+DRAW_TIE = 1e-4
+# (temperature, top_k, top_p) of the sampling phase's rows: greedy, pure
+# temperature, top-k, top-p; then all four rows at k and p together
+SAMPLE_ROWS = ((0.0, 0, 1.0), (0.7, 0, 1.0), (1.0, 50, 1.0), (0.8, 0, 0.9))
+SAMPLE_ROWS_2 = ((1.3, 40, 0.95),) * 4
+
+
+def _wrap_i32(v: int) -> int:
+    """A Python int wrapped into int32, as the engine wraps seeds."""
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _sample_inputs(torch, rows, seed, V):
+    """fp32 logits with a realistic spread (a standard normal body at
+    scale 2 and a head of 20 entries 6-10 above it, so top-p 0.9 keeps a
+    few dozen) and per-row (t, k, p), seeds, req ids and indices, seeds
+    including 2^31 + 5 and a negative one."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    B = len(rows)
+    lg = rng.standard_normal((B, V)) * 2.0
+    for b in range(B):
+        head = rng.choice(V, size=20, replace=False)
+        lg[b, head] += rng.uniform(6.0, 10.0, size=20)
+    t, k, p = zip(*rows)
+    return {"logits": torch.from_numpy(lg.astype(np.float32)),
+            "temperature": torch.tensor(t, dtype=torch.float32),
+            "top_k": torch.tensor(k, dtype=torch.int32),
+            "top_p": torch.tensor(p, dtype=torch.float32),
+            "seeds": torch.tensor([_wrap_i32(2**31 + 5), -7, 0, 12345],
+                                  dtype=torch.int32),
+            "req_ids": torch.tensor([0, 1, 2**31 - 1, 9 + seed],
+                                    dtype=torch.int32),
+            "indices": torch.tensor([0, 17, 2**20, 3 + seed],
+                                    dtype=torch.int32)}
+
+
+def _sample_call(torch, ks, x):
+    """Keys, bits (first 4096), noise, masked logits, tokens and logprobs
+    of one draw on the inputs' device."""
+    keys = ks.derive_keys(x["seeds"], x["req_ids"], x["indices"])
+    V = x["logits"].shape[1]
+    flt = (x["temperature"], x["top_k"], x["top_p"])
+    tok = ks.sample_logits(x["logits"], keys, *flt)
+    return {"keys": keys, "bits": ks.random_bits(keys, 4096),
+            "gumbel": ks.gumbel(keys, V),
+            "masked": ks.masked_logits(x["logits"], *flt),
+            "tokens": tok, "logprobs": ks.token_logprob(x["logits"], tok)}
+
+
+def phase_sampling(torch, V=151936, device="cuda"):
+    """``derive_keys``, ``sample_logits`` and ``token_logprob`` on the card
+    against the port's CPU path, at B = 4 and qwen3's vocab: keys and
+    random bits bit for bit, Gumbel noise within 4 ulp of max(|g|, 1),
+    tokens equal wherever the CPU's winner leads by more than DRAW_TIE
+    (flips counted), t = 0 rows the argmax exactly, logprobs within 1e-5;
+    the card bit for bit across two calls, and each row's masked logits
+    and token the same bits whatever its neighbours hold (the sort, the
+    softmax and the cumsum per row). One call's device µs (CUDA events)
+    and its device launches (torch.profiler)."""
+    from repro_torch.core.timing import Timer
+    from repro_torch.kernels import sampling as ks
+    t0 = Timer()
+    out = {"phase": "sampling", "V": V, "calls": []}
+    for seed, rows in ((0, SAMPLE_ROWS), (1, SAMPLE_ROWS_2)):
+        x = _sample_inputs(torch, rows, seed, V)
+        xd = {k: v.to(device) for k, v in x.items()}
+        cpu = _sample_call(torch, ks, x)
+        card = _sample_call(torch, ks, xd)
+        again = _sample_call(torch, ks, xd)
+        card = {k: v.cpu() for k, v in card.items()}
+        require(all(torch.equal(card[k], again[k].cpu()) for k in card),
+                f"sampling: two calls on the card differ (rows {rows})")
+        for k in ("keys", "bits"):
+            require(torch.equal(card[k], cpu[k]),
+                    f"sampling: {k} differ between the card and the CPU")
+        g = cpu["gumbel"]
+        ulp = torch.abs(torch.nextafter(torch.clamp_min(g.abs(), 1.0),
+                                        torch.tensor(float("inf")))
+                        - torch.clamp_min(g.abs(), 1.0))
+        g_err = (card["gumbel"] - g).abs()
+        require(bool((g_err <= 4 * ulp).all()),
+                f"sampling: Gumbel noise beyond 4 ulp: {float(g_err.max())}")
+        z = cpu["gumbel"] + cpu["masked"]
+        top2 = torch.topk(z, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        greedy = x["temperature"] <= 0
+        # entries one side's top-p filter keeps and the other's drops (a
+        # prefix sum a few ulp from p); a draw may follow such an entry
+        edge = torch.isfinite(card["masked"]) != torch.isfinite(cpu["masked"])
+        flips = []
+        for b in range(len(rows)):
+            a, c = int(card["tokens"][b]), int(cpu["tokens"][b])
+            if bool(greedy[b]):
+                require(a == int(torch.argmax(x["logits"][b])),
+                        f"sampling: t = 0 row {b} is not the argmax")
+                continue
+            if a != c:
+                require(margin[b] <= DRAW_TIE or bool(edge[b, a])
+                        or bool(edge[b, c]),
+                        f"sampling: row {b} drew {a} on the card, {c} on "
+                        f"the CPU, margin {margin[b]} > {DRAW_TIE}")
+                flips.append(b)
+        lp_err = float((card["logprobs"] - cpu["logprobs"]).abs().max())
+        require(lp_err <= 1e-5, f"sampling: logprobs differ by {lp_err}")
+        kept = torch.isfinite(cpu["masked"]).sum(-1).tolist()
+        # neighbours: row 2 among other logits
+        other = dict(xd)
+        gen = torch.Generator(device=device).manual_seed(5 + seed)
+        lg = torch.randn(xd["logits"].shape, generator=gen,
+                         device=device) * 3.0
+        lg[2] = xd["logits"][2]
+        other["logits"] = lg
+        nb = _sample_call(torch, ks, other)
+        require(torch.equal(nb["masked"][2].cpu(), card["masked"][2])
+                and int(nb["tokens"][2]) == int(card["tokens"][2]),
+                "sampling: a row's draw depends on its neighbours")
+        out["calls"].append({
+            "rows": [list(r) for r in rows], "tokens": card["tokens"].tolist(),
+            "cpu_tokens": cpu["tokens"].tolist(), "flips": flips,
+            "draw_margins": margin, "kept": kept,
+            "filter_edge_entries": int(edge.sum()),
+            "gumbel_max_abs_err": float(g_err.max()),
+            "gumbel_mismatches": int((g_err > 0).sum()),
+            "logprob_max_abs_err": lp_err})
+    # one call at the serving shape: CUDA-event device time and launches
+    keys = ks.derive_keys(xd["seeds"], xd["req_ids"], xd["indices"])
+    flt = (xd["temperature"], xd["top_k"], xd["top_p"])
+    out["sample_logits_us"] = 1e3 * time_ms(
+        lambda: ks.sample_logits(xd["logits"], keys, *flt), torch)
+    out["derive_keys_us"] = 1e3 * time_ms(
+        lambda: ks.derive_keys(xd["seeds"], xd["req_ids"], xd["indices"]),
+        torch)
+    prof, wall, _ = _profile(torch, device, lambda: ks.sample_logits(
+        xd["logits"], keys, *flt))
+    tr = _traced(torch, prof, wall, {})
+    out["sample_logits_traced"] = {k: tr[k] for k in (
+        "wall_s", "device_kernel_s", "device_ops", "top_kernels_ms")}
+    prof, wall, _ = _profile(torch, device, lambda: ks.derive_keys(
+        xd["seeds"], xd["req_ids"], xd["indices"]))
+    tr = _traced(torch, prof, wall, {})
+    out["derive_keys_traced"] = {k: tr[k] for k in (
+        "wall_s", "device_kernel_s", "device_ops")}
+    out["seconds"] = t0.elapsed()
+    emit(out)
+    emit({"phase": "sampling", "seconds": out["seconds"]})
+    return out
+
+
+def _mixed_sampling(api, n, logprob_every=2):
+    """Request i's SamplingParams: a cycle of greedy, pure temperature,
+    top-k, top-p and both, seeds 1000 + i (one >= 2^31), logprobs on
+    every other request."""
+    kinds = ((0.0, 0, 1.0), (0.7, 0, 1.0), (1.0, 50, 1.0), (0.8, 0, 0.9),
+             (1.3, 40, 0.95))
+    out = []
+    for i in range(n):
+        t, k, p = kinds[i % len(kinds)]
+        seed = 2**31 + 5 if i == 3 else 1000 + i
+        out.append(api.SamplingParams(temperature=t, top_k=k, top_p=p,
+                                      seed=seed,
+                                      logprobs=i % logprob_every == 0))
+    return out
+
+
+def _sampled_streams(done):
+    return ({r.req_id: list(r.tokens_out) for r in done},
+            {r.req_id: list(r.logprobs_out) for r in done})
+
+
+def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
+                        max_new=32, seed=0, device="cuda", park_pages=200):
+    """qwen3-8b on the paged engine with ``sampler="stochastic"``: the
+    qwen3 paged serve phase's EngineConfig, seed and prompts with only
+    the sampler changed. (a) every request at t = 0 gives that phase's
+    greedy digest; with mixed SamplingParams (logprobs on half) (b) two
+    runs give the same streams and logprobs, (c) decode_span 1 and 8
+    the same streams, (d) a run with ``park_pages`` pages parks and gives
+    the same streams, (e) one request alone and among three others the
+    same stream; (f) host_syncs == prefills + decode_spans in every run;
+    (g) B2 launches 36 x prefills and B1 36 x decode steps in the main
+    run, every count set to 0 just before it; (h) logprobs_out as long as
+    tokens_out, finite and <= 0 where asked for, empty elsewhere. One
+    decode span of sampled requests is traced beside one of greedy
+    requests: the difference is the sampler's device time and launches a
+    step. Returns (record, params) for the front-end phase."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.timing import Timer
+    from repro_torch.models import lm
+    from repro_torch.serve import api
+    t0 = Timer()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=device)
+    sync(torch, device)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in prompt_lens]
+    ecfg = api.EngineConfig(slots=4, cache_len=2048, page_size=16,
+                            n_pages=640, decode_span=8, eos_token=-1,
+                            kv_layout="paged", prefill_chunk=0,
+                            prefix_cache_entries=0, sampler="stochastic")
+    n = len(prompts)
+
+    def serve(e, sampling, ps=prompts, ids=None):
+        eng, done, wall, meas = _serve_once(torch, cfg, params, e, ps,
+                                            max_new, device, sampling, ids)
+        st = eng.stats
+        require(len(done) == len(ps)
+                and all(len(r.tokens_out) == max_new for r in done),
+                "serve_sampled: not every request completed")
+        require(st["host_syncs"] == st["prefills"] + st["decode_spans"],
+                f"serve_sampled: host_syncs {st['host_syncs']} != prefills "
+                f"{st['prefills']} + decode_spans {st['decode_spans']}")
+        return eng, done, wall, meas
+
+    # (a) temperature 0 under the stochastic sampler is the greedy path
+    zero = [api.SamplingParams(temperature=0.0, seed=7 + i,
+                               logprobs=i % 2 == 0) for i in range(n)]
+    _, done0, _, _ = serve(ecfg, zero)
+    digest0 = streams_digest(_sampled_streams(done0)[0])
+    require(digest0 == greedy_digest,
+            f"serve_sampled: t = 0 under stochastic gave {digest0[:8]}, "
+            f"not the greedy digest {greedy_digest[:8]}")
+    # the main run: mixed sampling, every count set to 0 just before it
+    sp = _mixed_sampling(api, n)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    eng, done, wall, meas = serve(ecfg, sp)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    st = dict(eng.stats)
+    del eng
+    path = serve_path(cfg, "paged")
+    check_launches(cfg, path, launches,
+                   dict(st, full_prefills=meas["full_prefills"]))
+    streams, lps = _sampled_streams(done)
+    for r in done:                                           # (h)
+        if r.sampling.logprobs:
+            require(len(r.logprobs_out) == len(r.tokens_out)
+                    and all(np.isfinite(v) and v <= 0.0
+                            for v in r.logprobs_out),
+                    f"serve_sampled: request {r.req_id}'s logprobs "
+                    f"{r.logprobs_out[:4]}... are not {max_new} finite "
+                    f"values <= 0")
+        else:
+            require(r.logprobs_out == [],
+                    f"serve_sampled: request {r.req_id} recorded logprobs "
+                    f"it did not ask for")
+    sampled = [i for i in range(n) if sp[i].temperature > 0]
+    require(any(streams[i] != _sampled_streams(done0)[0][i]
+                for i in sampled),
+            "serve_sampled: every sampled stream equals the greedy one")
+    _, done2, wall2, _ = serve(ecfg, sp)                     # (b)
+    require(_sampled_streams(done2) == (streams, lps),
+            "serve_sampled: a second run gave other streams or logprobs")
+    _, done1, wall1, _ = serve(dataclasses.replace(ecfg, decode_span=1),
+                               sp)                           # (c)
+    require(_sampled_streams(done1)[0] == streams,
+            "serve_sampled: decode_span 1 gave other streams than 8")
+    eng_p, done_p, _, _ = serve(dataclasses.replace(ecfg,
+                                                    n_pages=park_pages), sp)
+    st_p = eng_p.stats                                       # (d)
+    require(st_p["parked"] > 0 and st_p["unparked"] == st_p["parked"],
+            f"serve_sampled: n_pages={park_pages} did not park: {st_p}")
+    require(_sampled_streams(done_p)[0] == streams,
+            "serve_sampled: the run that parks gave other streams")
+    parking = {"n_pages": park_pages, "parked": st_p["parked"],
+               "unparked": st_p["unparked"], "streams_identical": True}
+    del eng_p
+    # (e) request 3 (a top-p draw with a seed >= 2^31) alone, then among
+    # three others (requests 0-2 of a 4-request run)
+    solo = 3
+    _, done_s, _, _ = serve(ecfg, [sp[solo]], [prompts[solo]], [solo])
+    _, done_c, _, _ = serve(ecfg, [sp[i] for i in (0, 1, 2, solo)],
+                            [prompts[i] for i in (0, 1, 2, solo)],
+                            [0, 1, 2, solo])
+    require(_sampled_streams(done_s)[0][solo] == streams[solo]
+            == _sampled_streams(done_c)[0][solo],
+            "serve_sampled: request 3 alone, among three others and among "
+            "seven gave other streams")
+    # the sampler's share of a decode span: sampled against greedy
+    # requests, same prompts, one traced span each
+    tr_s = profile_decode_span(torch, cfg, params, ecfg, prompts, device, sp)
+    tr_g = profile_decode_span(torch, cfg, params,
+                               dataclasses.replace(ecfg, sampler="greedy"),
+                               prompts, device)
+    steps = tr_s["decode_steps"]
+    sampler_ms = 1e3 * (tr_s["device_kernel_s"] - tr_g["device_kernel_s"])
+    decode_s = wall - meas["prefill_s"]
+    rec = {"phase": "serve_sampled", "arch": cfg.name,
+           "label": f"{cfg.name} paged stochastic", "n_layers": cfg.n_layers,
+           "dtype": str(lm.param_dtype(cfg)).split(".")[-1],
+           "engine": {k: getattr(ecfg, k) for k in (
+               "slots", "cache_len", "page_size", "n_pages", "decode_span",
+               "eos_token", "kv_layout", "sampler")},
+           "sampling": [[s.temperature, s.top_k, s.top_p, s.seed,
+                         s.logprobs] for s in sp],
+           "prompt_lens": list(prompt_lens), "max_new_tokens": max_new,
+           "temp0_digest": digest0, "greedy_digest": greedy_digest,
+           "wall_s": wall, "wall_s_second_run": wall2,
+           "wall_s_span1": wall1, "prefill_s": meas["prefill_s"],
+           "decode_s": decode_s,
+           "prefill_tok_per_s": st["prefill_tokens"] / meas["prefill_s"],
+           "decode_tok_per_s": st["decode_tokens"] / decode_s,
+           "launches": launches, "launch_path": path, "stats": st,
+           "full_prefills": meas["full_prefills"],
+           "streams_sha256": streams_digest(streams),
+           "logprobs_first": {i: lps[i][:3] for i in sorted(lps)
+                              if lps[i]},
+           "streams_identical_across_runs_spans_neighbours": True,
+           "parking_run": parking,
+           "traced_decode_span": tr_s, "traced_greedy_span": tr_g,
+           "sampler_device_ms_per_step": sampler_ms / steps,
+           "sampler_device_share": sampler_ms
+           / (1e3 * tr_s["device_kernel_s"]),
+           "device_ops_per_step": tr_s["device_ops"] / steps,
+           "greedy_device_ops_per_step": tr_g["device_ops"] / steps,
+           "sampler_ops_per_step": (tr_s["device_ops"]
+                                    - tr_g["device_ops"]) / steps}
+    if torch.device(device).type == "cuda":
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = t0.elapsed()
+    emit(rec)
+    emit({"phase": "serve_sampled", "seconds": rec["seconds"]})
+    return rec, params
+
+
+def phase_frontend(torch, cfg, params, n_req=24, max_new=16, seed=0,
+                   rate=4.0, device="cuda"):
+    """``LocalFrontend`` over ``make_trace`` on the 36-layer paged engine
+    with a VirtualClock (one engine step = 1 time unit): 24 poisson
+    arrivals at 4 a unit, prompts of 64-512 tokens, 16 new tokens, two
+    QoS classes under strict priority, mixed sampling, a wait pool of 4
+    so that class 1 is shed or rejected (outcomes follow the step count
+    alone: eos_token is -1). Checks: every request ends
+    completed, rejected or shed; every completed stream equals its
+    tokens_out; class 0 always completes and every drop is class 1 (a
+    capacity drop only ever displaces a lower class than its arrival's);
+    two runs give the same outcomes, streams and stamps; host_syncs ==
+    prefills + decode_spans (streaming adds no sync)."""
+    from repro_torch.core.timing import Timer
+    from repro_torch.serve import api
+    from repro_torch.serve.frontend import VirtualClock
+    from repro_torch.serve.loadgen import TraceSpec, make_trace
+    t0 = Timer()
+    spec = TraceSpec(arrival="poisson", rate=rate,
+                     prompt_lens=((0.7, 64, 256), (0.3, 256, 512)),
+                     output_lens=((1.0, max_new, max_new),),
+                     qos_weights=(1.0, 1.0), seed=seed)
+
+    def run():
+        clock = VirtualClock()
+        ecfg = api.EngineConfig(
+            slots=4, cache_len=2048, page_size=16, n_pages=640,
+            decode_span=8, eos_token=-1, kv_layout="paged",
+            prefill_chunk=0, prefix_cache_entries=0, sampler="stochastic",
+            scheduler="priority", qos_classes=2, admit_capacity=4,
+            feed_depth=2, clock=clock)
+        eng = api.make_engine(cfg, params, ecfg, device=device)
+        fe = api.make_frontend("local", eng, step_dt=1.0)
+        trace = make_trace(spec, n_req, cfg.vocab_size)
+        sp = _mixed_sampling(api, n_req)
+        streamed = {}
+        events = []
+        for (t, r), s in zip(trace, sp):
+            r.sampling = s
+            events.append((t, r, lambda tok, idx, i=r.req_id:
+                           streamed.setdefault(i, []).append((idx, tok))))
+        wall = Timer()
+        handles = fe.run(events)
+        sync(torch, device)
+        wall_s = wall.elapsed()
+        st = eng.stats
+        require(st["host_syncs"] == st["prefills"] + st["decode_spans"],
+                f"frontend: host_syncs {st['host_syncs']} != prefills "
+                f"{st['prefills']} + decode_spans {st['decode_spans']}")
+        require(all(h.outcome in ("completed", "rejected", "shed")
+                    for h in handles) and len(handles) == n_req,
+                "frontend: a request ended without a terminal outcome")
+        for h in handles:
+            if h.ok:
+                require(h.streamed == h.req.tokens_out
+                        == [tok for _, tok in streamed[h.req.req_id]],
+                        f"frontend: request {h.req.req_id}'s stream is not "
+                        f"its tokens_out")
+        require(all(h.ok for h in handles if h.req.qos == 0),
+                "frontend: a class-0 request did not complete")
+        require(all(e["qos"] == 1 for e in fe.shed_log)
+                and all(e["qos"] > e["trigger_qos"] for e in fe.shed_log
+                        if e["reason"] == "capacity"),
+                f"frontend: a drop cut upward: {fe.shed_log}")
+        require(any(not h.ok for h in handles),
+                "frontend: nothing was shed or rejected at this load")
+        rows = [(h.req.req_id, h.req.qos, h.outcome, tuple(h.streamed),
+                 h.submitted_at, h.first_token_at, h.finished_at)
+                for h in handles]
+        return fe, eng, handles, rows, wall_s
+
+    fe, eng, handles, rows, wall_s = run()
+    fe2, eng2, _, rows2, wall_s2 = run()
+    require(rows2 == rows and fe2.stats == fe.stats,
+            "frontend: a second run gave other outcomes or streams")
+    per_class = {}
+    for c in (0, 1):
+        mine = [h for h in handles if h.req.qos == c]
+        ttft = sorted(h.ttft for h in mine if h.ttft is not None)
+        tpot = sorted(h.tpot for h in mine if h.tpot is not None)
+        per_class[c] = {
+            "n": len(mine), "completed": sum(h.ok for h in mine),
+            "shed": sum(h.outcome == "shed" for h in mine),
+            "rejected": sum(h.outcome == "rejected" for h in mine),
+            "ttft": ttft, "tpot": tpot}
+    rec = {"phase": "frontend", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "trace": {"arrival": spec.arrival, "rate": spec.rate,
+                     "n": n_req, "prompt_lens": spec.prompt_lens,
+                     "max_new_tokens": max_new, "qos_classes": 2},
+           "admit_capacity": 4, "steps": fe.steps, "fe_stats": fe.stats,
+           "shed_log": fe.shed_log, "engine_stats": dict(eng.stats),
+           "per_class_virtual": per_class, "wall_s": wall_s,
+           "wall_s_second_run": wall_s2,
+           "identical_across_runs": True}
+    rec["seconds"] = t0.elapsed()
+    emit(rec)
+    emit({"phase": "frontend", "seconds": rec["seconds"]})
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 def ptxas_summary(log: str):
     """nvcc's ``-Xptxas -v`` output per compiled kernel: [entry (mangled,
@@ -1631,6 +2092,17 @@ def main() -> int:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             serves.append(phase_serve_prefix(torch, c, layout))
+        # stochastic sampling, then sampled serving and the live front
+        # end on qwen3-8b paged at full depth
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        phase_sampling(torch)
+        sampled, params = phase_serve_sampled(
+            torch, cfg, serves[0]["streams_sha256"])
+        serves.append(sampled)
+        phase_frontend(torch, cfg, params)
+        del params
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

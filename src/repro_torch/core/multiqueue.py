@@ -32,6 +32,9 @@ class HostMultiQueue:
     def free_slots(self) -> int:
         return len(self._free)
 
+    def qlen(self, q: int) -> int:
+        return int(self._len[q])
+
     def push(self, q: int, item: Any) -> bool:
         """Dynamic Enqueue; False when the shared pool is exhausted."""
         if not self._free:

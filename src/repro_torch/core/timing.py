@@ -2,8 +2,9 @@
 
 The serving engine reads time only through ``EngineConfig.clock``, whose
 default is ``DEFAULT_CLOCK`` from here; launcher timing goes through
-``Timer``. So serve/ and launch/ never name a wall-clock function
-themselves, and tests inject a fake clock for deterministic runs.
+``Timer`` and the front end's real-time nap through ``sleep``. So serve/
+and launch/ never name a wall-clock function themselves, and tests
+inject a fake clock for deterministic runs.
 """
 from __future__ import annotations
 
@@ -23,3 +24,9 @@ class Timer:
 
     def elapsed(self) -> float:
         return self.clock() - self._t0
+
+
+def sleep(seconds: float) -> None:
+    """Nap the calling thread: the front end's idle gap before the next
+    arrival on a real clock."""
+    time.sleep(seconds)

@@ -32,19 +32,20 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-# a partition holds at most this many tokens, and a slot is cut into at
-# least this many partitions where its table has the pages
+# a partition holds this many tokens (fewer where the table is narrower)
 PARTITION_TOKENS = 256
-MIN_SPLITS = 8
 
 
 def partition_pages(max_pages: int, page: int) -> int:
-    """Pages per partition of the kernel's split pass, from the shapes
-    alone (never from ``lengths``): at most PARTITION_TOKENS tokens, and
-    at least MIN_SPLITS partitions per slot while a partition keeps one
-    page or more. MP 128, page 16 gives 16 pages (8 partitions); MP 16
-    gives 2 (8 partitions of 32 tokens)."""
-    return max(1, min(PARTITION_TOKENS // page, max_pages // MIN_SPLITS))
+    """Pages per partition of the kernel's split pass: PARTITION_TOKENS
+    tokens of pages, capped at the table width MP. Never from
+    ``lengths`` (no host read), and not from MP beyond that cap: the
+    partitions start at the same pages whatever the table's width, and
+    the reduce pass skips empty ones, so a slot's output is the same bits
+    at every width that covers its live pages (the engine exports tables
+    at the batch's live width, which parking and span reservation move).
+    MP 128, page 16 gives 16 pages (8 partitions); MP 16 gives 16 (one)."""
+    return max(1, min(PARTITION_TOKENS // page, max_pages))
 
 
 def paged_decode_plain(q, k_pages, v_pages, page_table, lengths, *,

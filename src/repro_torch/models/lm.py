@@ -13,7 +13,9 @@ updates it in place.
 prefill, plain attention stacks). Four families are served: plain attention with dense SwiGLU MLPs
 (qwen3-8b), the same attention with MoE MLPs after ``first_dense`` dense
 layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
-(jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b).
+(jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b). ``decode_span``
+and ``select_token`` pick tokens through a pluggable sampler with keys
+derived on the device (kernels/sampling.py).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import sampling as ksamp
 from repro_torch.models import mamba, moe, rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_dense_mlp, rms_norm
@@ -188,7 +191,8 @@ def decode_step(params, tokens, state, cfg: ModelConfig, active=None):
 
 
 def decode_span(params, tokens, state, cfg: ModelConfig, active, budgets, *,
-                span: int, eos_token: int, cache_len: int, sample_fn=None):
+                span: int, eos_token: int, cache_len: int, sample_fn=None,
+                sampler_params=None, rng=None, want_logprobs: bool = False):
     """Run ``span`` decode steps with no host read inside.
 
     The counterpart of the JAX ``lax.scan``: the stop conditions (the
@@ -196,32 +200,55 @@ def decode_span(params, tokens, state, cfg: ModelConfig, active, budgets, *,
     ``cache_len``) update an on-device ``active`` mask, finished slots
     keep running frozen (their pool writes dropped, their counters
     halted), and there is no early exit, so every span runs ``span``
-    steps. ``sample_fn(logits, keys, params)`` selects each token on the
-    device (None = argmax). Returns (toks [span,B] int32, emit [span,B]
-    bool, state); emit[t,i] marks a real emission of slot i at step t.
+    steps. ``sample_fn(logits, keys, sampler_params)`` selects each token
+    on the device (None = argmax). With ``rng = (seeds [B], req_ids [B],
+    counters [B])`` each step's keys are ``derive_keys(seed, req_id,
+    counter)`` and the counter advances only where a slot emits, so a
+    slot's key stream depends on its ``(seed, req_id)`` and stream
+    position alone, whatever the span, the batch or parking did.
+    Returns (toks [span,B] int32, emit [span,B] bool, state), or with
+    ``want_logprobs`` (toks, emit, logprobs [span,B] float32, state);
+    emit[t,i] marks a real emission of slot i at step t.
     """
     toks, act, left = tokens, active, budgets
-    out_t, out_e = [], []
+    ctr = rng[2] if rng is not None else None
+    out_t, out_e, out_lp = [], [], []
     for _ in range(span):
         logits, state = decode_step(params, toks, state, cfg, active=act)
-        nxt = select_token(logits, sample_fn)
+        step_rng = None if rng is None else (rng[0], rng[1], ctr)
+        nxt, _ = select_token(logits, sample_fn, sampler_params, step_rng,
+                              want_logprob=False)
         nxt = torch.where(act, nxt, toks)
         out_t.append(nxt)
         out_e.append(act)
-        left = left - act.to(torch.int32)
+        if want_logprobs:
+            out_lp.append(ksamp.token_logprob(logits, nxt))
+        step = act.to(torch.int32)
+        left = left - step
+        if ctr is not None:
+            ctr = ctr + step
         done = ((nxt == eos_token) | (left <= 0)
                 | (state["positions"] >= cache_len))
         toks, act = nxt, act & ~done
+    if want_logprobs:
+        return (torch.stack(out_t), torch.stack(out_e), torch.stack(out_lp),
+                state)
     return torch.stack(out_t), torch.stack(out_e), state
 
 
-def select_token(logits, sample_fn=None):
-    """On-device token selection for a batch of logits: [B] int32. The
-    sampler contract of ``decode_span``; greedy samplers take no keys and
-    no parameters."""
+def select_token(logits, sample_fn=None, sampler_params=None, rng=None,
+                 want_logprob: bool = True):
+    """On-device token selection for a batch of logits, the sampler
+    contract of ``decode_span``: ``rng = (seeds, req_ids, indices)``
+    gives each row its key (index 0 for a prefill's first token).
+    Returns (tokens [B] int32, logprobs [B] float32 under the raw
+    logits, or None without ``want_logprob``)."""
     if sample_fn is None:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    return sample_fn(logits, None, ()).to(torch.int32)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    else:
+        keys = ksamp.derive_keys(*rng) if rng is not None else None
+        tok = sample_fn(logits, keys, sampler_params).to(torch.int32)
+    return tok, (ksamp.token_logprob(logits, tok) if want_logprob else None)
 
 
 def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,

@@ -11,12 +11,16 @@ drives subsystems behind protocols, selected by name from
                       carries)
   ParkingTransport <- Transport Subsystem: host-tier park/restore moves
   Sampler          <- per-token selection on the device
+  Frontend         <- the client side: continuous arrivals, per-token
+                      streaming, SLO-graded admission
 
 The port keeps its own registries, so its parts never collide with the
 JAX package's names. The protocols list what the port implements: crash
-snapshots join them with their slice (ROADMAP queue A). ``EngineConfig``
-refuses the settings that are not ported yet, naming the slice that
-brings each.
+snapshots (and the front end's ``reattach``) join them with their slice
+(ROADMAP queue A). ``EngineConfig`` refuses the settings that are not
+ported yet, naming the slice that brings each. ``make_engine`` wires an
+engine from an ``EngineConfig`` and ``make_frontend`` a front end over
+it.
 """
 from __future__ import annotations
 
@@ -33,11 +37,20 @@ from repro_torch.core.timing import DEFAULT_CLOCK
 
 @dataclass
 class SamplingParams:
-    """Per-request token-selection parameters. The port serves the
-    defaults only (exact greedy, no logprobs); stochastic sampling waits
-    for ROADMAP item A5."""
+    """Per-request token-selection parameters.
+
+    The defaults are exact greedy: ``temperature <= 0`` returns the argmax
+    of the raw logits. ``top_k <= 0`` and ``top_p >= 1`` disable their
+    filters. ``seed`` names the replayable stream (folded into the key
+    modulo 2^32): a request's keys are a pure function of ``(seed,
+    req_id)`` and the token's index in its emitted stream, so the stream
+    does not depend on batching, span length, prefill chunking or
+    parking wherever the logits are bit-equal, and equals the JAX
+    reference's wherever a draw is not within a few ulp of a tie.
+    ``logprobs`` records each chosen token's log-probability under the
+    raw logits in ``Request.logprobs_out``."""
     temperature: float = 0.0
-    top_k: int = 0
+    top_k: int = 0                # 0 = full vocab
     top_p: float = 1.0
     seed: int = 0
     logprobs: bool = False
@@ -53,6 +66,16 @@ class Request:
     tokens_out: List[int] = field(default_factory=list)
     finished_at: Optional[float] = None
     sampling: SamplingParams = field(default_factory=SamplingParams)
+    logprobs_out: List[float] = field(default_factory=list)
+    # streaming hooks: the engine calls `on_tokens(req, toks)` with the
+    # tokens just appended, at its existing host syncs (one per finished
+    # prefill, one per decode span), and `on_done(req)` once when the
+    # request completes. A preempt-restart replays the stream from index
+    # 0; the front end's handle drops what it already delivered.
+    on_tokens: Optional[Callable[["Request", List[int]], None]] = \
+        field(default=None, repr=False, compare=False)
+    on_done: Optional[Callable[["Request"], None]] = \
+        field(default=None, repr=False, compare=False)
 
 
 @dataclass
@@ -71,14 +94,27 @@ class EngineConfig:
     host_offload: bool = True     # VoQ overflow tier
     kv_layout: str = "dense"      # StateBackend name
     scheduler: str = "fcfs"       # Scheduler name
-    sampler: str = "greedy"       # Sampler name
+    sampler: str = "greedy"       # Sampler name: "greedy" | "stochastic"
+    frontend: str = "local"       # Frontend name
     qos_classes: int = 4
     queue_capacity: int = 1 << 12
     bus: BusModel = field(default_factory=BusModel)
     # the one time source: arrival and completion stamps, eviction
-    # tie-breaks and bus-timed park/restore readiness all read it
+    # tie-breaks, bus-timed park/restore readiness and SLO accounting all
+    # read it (tests and the launcher's live mode inject a VirtualClock)
     clock: Callable[[], float] = field(default=DEFAULT_CLOCK, repr=False,
                                        compare=False)
+    # front-end admission control
+    admit_capacity: int = 64      # bounded wait pool (all classes)
+    feed_depth: int = 0           # scheduler backlog the front end keeps
+                                  # fed; 0 derives it from `slots`
+    slo_ttft: Tuple[float, ...] = ()   # per-class TTFT budgets, clock units
+                                       # (a shorter tuple broadcasts its
+                                       # last entry; () or <= 0 = none)
+    slo_tpot: Tuple[float, ...] = ()   # per-class per-token budgets
+    degrade_max_new: int = 0      # > 0: under pressure, lower classes are
+                                  # admitted with max_new_tokens clamped to
+                                  # this instead of queued at full length
 
     def __post_init__(self):
         if self.kv_layout not in ("dense", "paged", "recurrent"):
@@ -87,11 +123,6 @@ class EngineConfig:
                 f"serves 'dense' (every ported config), 'paged' (plain "
                 f"attention) and 'recurrent' (RWKV); the 'latent' backend "
                 f"waits for ROADMAP item A8")
-        if self.sampler != "greedy":
-            raise ValueError(
-                f"sampler {self.sampler!r} is not ported yet: the port "
-                f"serves 'greedy' only; stochastic sampling waits for "
-                f"ROADMAP item A5")
 
 
 class ParkMeta(NamedTuple):
@@ -172,11 +203,32 @@ class StateBackend(Protocol):
 @runtime_checkable
 class Sampler(Protocol):
     """On-device token selection: `sample(logits [B,V], keys, params)`
-    picks one token per row without reading the device."""
+    picks one token per row without reading the device. `slot_params(req)`
+    gives a request's parameters as a fixed-arity tuple of numpy scalars
+    (defaults for `req is None`), which the engine stacks into per-slot
+    tensors; with `needs_rng`, `keys` are per-slot keys from `(seed,
+    req_id, token_index)` (kernels/sampling.derive_keys), else None."""
     needs_rng: bool
 
     def slot_params(self, req: Optional[Request]) -> Tuple[Any, ...]: ...
     def sample(self, logits, keys, params): ...
+
+
+@runtime_checkable
+class Frontend(Protocol):
+    """The client side: `submit` accepts a request at any time (between
+    engine steps too), applies SLO-graded admission over bounded
+    per-class wait queues and returns a handle that streams tokens and
+    ends in an explicit outcome (completed | rejected | shed); `step`
+    pumps one engine step; `run` drives a timed arrival trace."""
+
+    def submit(self, req: Request,
+               on_token: Optional[Callable] = None) -> Any: ...
+    def step(self) -> None: ...
+    def run(self, arrivals=None, max_steps: int = 100_000,
+            drain: bool = True) -> List[Any]: ...
+    @property
+    def live(self) -> bool: ...
 
 
 @runtime_checkable
@@ -198,6 +250,7 @@ class ParkingTransport(Protocol):
 SCHEDULERS: Dict[str, Type] = {}
 STATE_BACKENDS: Dict[str, Type] = {}
 SAMPLERS: Dict[str, Type] = {}
+FRONTENDS: Dict[str, Type] = {}
 
 
 def _positional_shape(fn) -> Optional[Tuple[int, int]]:
@@ -267,6 +320,7 @@ register_scheduler = _checked_register("scheduler", Scheduler, SCHEDULERS)
 register_state_backend = _checked_register(
     "state backend", StateBackend, STATE_BACKENDS)
 register_sampler = _checked_register("sampler", Sampler, SAMPLERS)
+register_frontend = _checked_register("frontend", Frontend, FRONTENDS)
 
 
 def make_scheduler(name: str, n_classes: int = 4,
@@ -293,6 +347,36 @@ def make_sampler(name: str) -> Sampler:
         raise ValueError(f"unknown sampler {name!r}; "
                          f"registered: {sorted(SAMPLERS)}")
     return SAMPLERS[name]()
+
+
+def make_frontend(name: str, engine, **kw) -> Frontend:
+    from repro_torch.serve import frontend  # noqa: F401 (built-ins)
+    if name not in FRONTENDS:
+        raise ValueError(f"unknown frontend {name!r}; "
+                         f"registered: {sorted(FRONTENDS)}")
+    return FRONTENDS[name](engine, **kw)
+
+
+def slo_budget(cls: int, budgets: Tuple[float, ...]) -> Optional[float]:
+    """A class's SLO budget: a shorter tuple broadcasts its last entry to
+    the lower classes; `()` or a non-positive entry means none."""
+    if not budgets:
+        return None
+    b = budgets[cls] if cls < len(budgets) else budgets[-1]
+    return float(b) if b > 0 else None
+
+
+def make_engine(cfg, params, ecfg: EngineConfig, device=None,
+                scheduler: Optional[Scheduler] = None,
+                kv_backend: Optional[StateBackend] = None,
+                transport: Optional[ParkingTransport] = None,
+                sampler: Optional[Sampler] = None):
+    """A ServingEngine with parts resolved by name from `ecfg`, or
+    injected directly; on ``cuda`` unless `device` says otherwise."""
+    from repro_torch.serve.engine import ServingEngine
+    return ServingEngine(cfg, params, ecfg, device=device,
+                         scheduler=scheduler, kv_backend=kv_backend,
+                         transport=transport, sampler=sampler)
 
 
 def default_page_budget(slots: int, cache_len: int, page_size: int,

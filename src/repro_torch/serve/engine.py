@@ -21,8 +21,13 @@ reservation and prefix-cache eviction.
 
 Every read the serving loop makes off the device goes through
 ``_host_sync``, so ``host_syncs == prefills + decode_spans``: a prefill
-chunk reads nothing back, only a finished prefill's first token does (a
-prefill preempted before its last chunk reads nothing at all).
+chunk reads nothing back, only a finished prefill's first token (and its
+logprob) does (a prefill preempted before its last chunk reads nothing
+at all). Tokens are selected on the device by the sampler, with keys
+derived there from ``(seed, req_id, emitted index)``; every token a
+request receives passes through ``_emit``, which feeds ``tokens_out``,
+``logprobs_out`` and the streaming hook from values the host already
+holds, so streaming adds no sync.
 """
 from __future__ import annotations
 
@@ -36,11 +41,16 @@ from repro_torch.core.device import resolve_device
 from repro_torch.kernels.paged_attention import live_table_width
 from repro_torch.models import lm
 from repro_torch.serve.api import (EngineConfig, ParkingTransport, Request,
-                                   Sampler, SamplingParams, Scheduler,
-                                   StateBackend, make_sampler,
-                                   make_scheduler, make_state_backend)
+                                   Sampler, Scheduler, StateBackend,
+                                   make_sampler, make_scheduler,
+                                   make_state_backend)
 from repro_torch.serve.parking import HostParkingTransport
 from repro_torch.serve.prefix_cache import PrefixCache
+
+
+def _wrap_i32(v: int) -> np.int32:
+    """An arbitrary Python int wrapped into int32 (two's complement)."""
+    return np.uint32(int(v) & 0xFFFFFFFF).astype(np.int32)
 
 
 class ServingEngine:
@@ -73,6 +83,7 @@ class ServingEngine:
         self.transport = transport or HostParkingTransport(
             ecfg.bus, clock=self.clock)
         self.sampler = sampler or make_sampler(ecfg.sampler)
+        self._needs_rng = bool(self.sampler.needs_rng)
         self.active = np.zeros(B, bool)          # slot has a sequence
         self.running = np.zeros(B, bool)         # decoding (not parked,
         #                                          not mid-prefill)
@@ -115,6 +126,39 @@ class ServingEngine:
         self.stats["host_syncs"] += 1
         return tuple(t.cpu().numpy() for t in tensors)
 
+    # -- sampler inputs ----------------------------------------------------
+    def _sampler_params(self, reqs: List[Optional[Request]]):
+        """Per-request sampling parameters stacked into per-slot tensors
+        on the device (a tuple of [len(reqs)] tensors; () for samplers
+        without parameters)."""
+        per = [self.sampler.slot_params(r) for r in reqs]
+        if not per[0]:
+            return ()
+        return tuple(torch.as_tensor(np.asarray([p[j] for p in per]),
+                                     device=self.device)
+                     for j in range(len(per[0])))
+
+    def _sampler_rng(self, reqs: List[Optional[Request]]):
+        """(seeds, req_ids, counters) for `derive_keys`, or None for
+        samplers without keys. The counter is the request's emitted-token
+        count from host bookkeeping, so a parked, unparked or
+        preempt-restarted request resumes its key stream exactly where
+        an undisturbed run would be."""
+        if not self._needs_rng:
+            return None
+        n = len(reqs)
+        seeds = np.zeros(n, np.int32)
+        rids = np.zeros(n, np.int32)
+        ctrs = np.zeros(n, np.int32)
+        for i, r in enumerate(reqs):
+            if r is not None:
+                # seeds and req_ids fold into the key modulo 2^32
+                seeds[i] = _wrap_i32(r.sampling.seed)
+                rids[i] = _wrap_i32(r.req_id)
+                ctrs[i] = len(r.tokens_out)
+        return tuple(torch.as_tensor(a, device=self.device)
+                     for a in (seeds, rids, ctrs))
+
     # ------------------------------------------------------------------
     def try_submit(self, req: Request) -> bool:
         """Validate + enqueue; False means scheduler-queue backpressure.
@@ -123,12 +167,6 @@ class ServingEngine:
             raise ValueError(
                 f"prompt length {len(req.prompt)} does not fit "
                 f"cache_len {self.ecfg.cache_len} (need len+1 <= cache_len)")
-        if req.sampling != SamplingParams():
-            raise ValueError(
-                f"request {req.req_id}: sampling parameters "
-                f"{req.sampling} are not ported yet; the port serves exact "
-                f"greedy only (stochastic sampling and logprobs: ROADMAP "
-                f"item A5)")
         err = self.kv.admission_error(req)
         if err is not None:
             raise ValueError(err)
@@ -158,6 +196,20 @@ class ServingEngine:
         self.completed.append(req)
         self.kv.release(req.req_id)
         self._release_slot(slot)
+        if req.on_done is not None:
+            req.on_done(req)
+
+    def _emit(self, req: Request, toks: List[int],
+              lps: Optional[List[float]] = None):
+        """The one funnel of every token a request receives (prefill
+        first tokens, monolithic or chunked, and decode spans), from
+        values the host holds after its one accounted sync: `on_tokens`
+        sees exactly what `tokens_out` received, in order."""
+        req.tokens_out.extend(toks)
+        if lps is not None and req.sampling.logprobs:
+            req.logprobs_out.extend(lps)
+        if req.on_tokens is not None and toks:
+            req.on_tokens(req, toks)
 
     def _admit(self) -> int:
         admitted = 0
@@ -221,13 +273,16 @@ class ServingEngine:
         self.state = self.kv.prefill_into_slot(
             self.state, slot, req.req_id, st["caches"], len(req.prompt))
         self.stats["prefill_tokens"] += len(req.prompt)
-        self._finish_prefill(slot, req, self._first_token(logits))
+        self._finish_prefill(slot, req, *self._first_token(req, logits))
 
-    def _first_token(self, logits) -> int:
+    def _first_token(self, req: Request, logits):
         """Select a finished prefill's first token ON DEVICE through the
-        sampler and sync exactly one accounted scalar."""
-        tok, = self._host_sync((lm.select_token(logits, self.sampler.sample),))
-        return int(tok[0])
+        sampler (index 0 of the request's key stream) and sync exactly
+        one accounted (token, logprob) pair."""
+        tok, lp = self._host_sync(lm.select_token(
+            logits, self.sampler.sample, self._sampler_params([req]),
+            self._sampler_rng([req])))
+        return int(tok[0]), float(lp[0])
 
     # -- chunked prefill -------------------------------------------------
     def _prefill_step(self):
@@ -286,17 +341,18 @@ class ServingEngine:
         self.stats["prefill_chunks"] += 1
         self.stats["prefill_tokens"] += n_valid
         if last:
-            self._finish_prefill(slot, req, self._first_token(logits))
+            self._finish_prefill(slot, req, *self._first_token(req, logits))
         return n_valid
 
-    def _finish_prefill(self, slot: int, req: Request, first_tok: int):
+    def _finish_prefill(self, slot: int, req: Request, first_tok: int,
+                        first_lp: float):
         total = len(req.prompt)
         self.state["lengths"][slot] = total
         self.state["positions"][slot] = total
         self.prefilling[slot] = False
         self.prefill_pos[slot] = total
         self._donate_prefix(slot, req)
-        req.tokens_out.append(first_tok)
+        self._emit(req, [first_tok], [first_lp])
         # the prefill token can already satisfy the contract
         if (len(req.tokens_out) >= req.max_new_tokens
                 or first_tok == self.ecfg.eos_token):
@@ -462,6 +518,7 @@ class ServingEngine:
         self.kv.release(req.req_id)
         self._stalled.discard(req.req_id)
         req.tokens_out.clear()
+        req.logprobs_out.clear()
         self._release_slot(slot)
         self._requeue(req)
         self.stats["preempt_restarts"] += 1
@@ -540,24 +597,33 @@ class ServingEngine:
         for i, req in enumerate(self.slot_req):
             if req is not None and req.tokens_out:
                 tokens[i] = req.tokens_out[-1]
+        want_lp = any(r is not None and r.sampling.logprobs
+                      for r in self.slot_req)
         dev = self.device
-        toks, emit, self.state = lm.decode_span(
+        out = lm.decode_span(
             self.params, torch.as_tensor(tokens, device=dev), self.state,
             self.cfg, torch.as_tensor(act, device=dev),
             torch.as_tensor(budgets, device=dev), span=span_exec,
             eos_token=self.ecfg.eos_token, cache_len=self.ecfg.cache_len,
-            sample_fn=self.sampler.sample)
+            sample_fn=self.sampler.sample,
+            sampler_params=self._sampler_params(self.slot_req),
+            rng=self._sampler_rng(self.slot_req), want_logprobs=want_lp)
+        self.state = out[-1]
         self.stats["decode_steps"] += span_exec
         self.stats["decode_spans"] += 1
-        # ONE blocking device->host sync per span: the stacked emissions
-        # and their mask; positions come from host bookkeeping
-        toks, emit = self._host_sync((toks, emit))
+        # ONE blocking device->host sync per span: the stacked emissions,
+        # their mask and (when asked for) logprobs; positions come from
+        # host bookkeeping
+        got = self._host_sync(out[:-1])
+        toks, emit = got[0], got[1]
+        lps = got[2] if want_lp else None
         for i in range(self.ecfg.slots):
             req = self.slot_req[i]
             if req is None or not act[i]:
                 continue
             new = [int(t) for t in toks[emit[:, i], i]]
-            req.tokens_out.extend(new)
+            self._emit(req, new, None if lps is None
+                       else [float(x) for x in lps[emit[:, i], i]])
             self.stats["decode_tokens"] += len(new)
             done = (len(req.tokens_out) >= req.max_new_tokens
                     or (len(new) and int(new[-1]) == self.ecfg.eos_token)

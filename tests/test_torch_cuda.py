@@ -2,7 +2,9 @@
 the serving engine on the card against the same engine on the CPU, on
 the paged (qwen3-8b, moonshot-v1-16b-a3b), recurrent (rwkv6-1.6b) and
 dense (jamba-v0.1-52b) backends; chunked prefill against monolithic
-prefill, and a paged serve with prefix-cache hits.
+prefill, and a paged serve with prefix-cache hits; stochastic sampling
+on the card against its CPU path, and sampled streams across spans and
+parking.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -15,11 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.registry import SMOKE_CONFIGS  # noqa: E402
+from repro_torch.configs.registry import SMOKE_CONFIGS, get_config  # noqa: E402,E501
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import linear_scan as ls  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import sampling as ks  # noqa: E402
 from repro_torch.kernels import ssm_decode as sd  # noqa: E402
 from repro_torch.kernels import wkv6  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -162,6 +165,26 @@ def test_paged_split_kernel_edges(cuda, dtype, H, KV, MP):
                                                  partition_pages=pp)):
         torch.testing.assert_close(out.float(), expected, atol=_TOL[dtype],
                                    rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_same_bits_at_every_table_width(cuda, dtype):
+    """The engine exports tables at the batch's live width, which parking
+    and span reservation move: a slot's output must be the same bits at
+    every width that covers its live pages."""
+    g = torch.Generator(cuda).manual_seed(0)
+    B, H, KV, hd, page = 4, 32, 8, 128, 16
+    q = torch.randn(B, H, hd, generator=g, device=cuda).to(dtype)
+    kp, vp = [torch.randn(80, page, KV, hd, generator=g, device=cuda)
+              .to(dtype) for _ in range(2)]
+    lens = torch.tensor([37, 200, 250, 90], dtype=torch.int32, device=cuda)
+    table = torch.zeros(B, 128, dtype=torch.int32, device=cuda)
+    table[:, :16] = torch.randperm(80, generator=g, device=cuda)[
+        :64].reshape(B, 16).to(torch.int32)
+    outs = [pa.paged_decode_attention(q, kp, vp,
+                                      table[:, :mp].contiguous(), lens)
+            for mp in (16, 32, 64, 128)]
+    assert all(torch.equal(o, outs[0]) for o in outs)
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -656,3 +679,109 @@ def test_jamba_decode_span_never_syncs_on_card(cuda):
     for layer, old in zip(state["caches"], frozen):
         for k, t in layer.items():
             assert torch.equal(t[2], old[k]), k
+
+
+def _draw_inputs(seed, V):
+    rng = np.random.default_rng(seed)
+    lg = rng.standard_normal((4, V)) * 2.0
+    for b in range(4):
+        lg[b, rng.choice(V, size=20, replace=False)] += 8.0
+    wrap = np.uint32((2**31 + 5) & 0xFFFFFFFF).astype(np.int32)
+    return {"logits": torch.from_numpy(lg.astype(np.float32)),
+            "temperature": torch.tensor([0.0, 0.7, 1.0, 0.8]),
+            "top_k": torch.tensor([0, 0, 50, 0], dtype=torch.int32),
+            "top_p": torch.tensor([1.0, 1.0, 1.0, 0.9]),
+            "seeds": torch.tensor([int(wrap), -7, 0, 12345],
+                                  dtype=torch.int32),
+            "req_ids": torch.tensor([0, 1, 2**31 - 1, 9 + seed],
+                                    dtype=torch.int32),
+            "indices": torch.tensor([0, 17, 2**20, 3], dtype=torch.int32)}
+
+
+def _draw(x):
+    keys = ks.derive_keys(x["seeds"], x["req_ids"], x["indices"])
+    flt = (x["temperature"], x["top_k"], x["top_p"])
+    tok = ks.sample_logits(x["logits"], keys, *flt)
+    return {"keys": keys, "bits": ks.random_bits(keys, 1024),
+            "gumbel": ks.gumbel(keys, x["logits"].shape[1]),
+            "masked": ks.masked_logits(x["logits"], *flt), "tokens": tok,
+            "logprobs": ks.token_logprob(x["logits"], tok)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sampling_on_card_matches_cpu(cuda, seed):
+    """Keys and bits bit for bit, Gumbel noise within 4 ulp of
+    max(|g|, 1), tokens equal wherever the CPU's winner leads by more
+    than 1e-4, t = 0 the argmax, logprobs within 1e-5; the card bit for
+    bit across two calls and whatever a row's neighbours hold."""
+    x = _draw_inputs(seed, 4099)
+    xd = {k: v.to(cuda) for k, v in x.items()}
+    cpu = _draw(x)
+    card = {k: v.cpu() for k, v in _draw(xd).items()}
+    again = {k: v.cpu() for k, v in _draw(xd).items()}
+    assert all(torch.equal(card[k], again[k]) for k in card)
+    assert torch.equal(card["keys"], cpu["keys"])
+    assert torch.equal(card["bits"], cpu["bits"])
+    g = torch.clamp_min(cpu["gumbel"].abs(), 1.0)
+    ulp = torch.nextafter(g, torch.tensor(float("inf"))) - g
+    assert bool(((card["gumbel"] - cpu["gumbel"]).abs() <= 4 * ulp).all())
+    z = cpu["gumbel"] + cpu["masked"]
+    top2 = torch.topk(z, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = card["tokens"] == cpu["tokens"]
+    assert bool((same | (margin <= 1e-4)).all())
+    assert int(card["tokens"][0]) == int(torch.argmax(x["logits"][0]))
+    torch.testing.assert_close(card["logprobs"], cpu["logprobs"],
+                               atol=1e-5, rtol=0)
+    other = dict(xd)
+    other["logits"] = torch.randn(xd["logits"].shape, device=cuda,
+                                  generator=torch.Generator(cuda)
+                                  .manual_seed(seed)) * 3.0
+    other["logits"][1] = xd["logits"][1]
+    nb = _draw(other)
+    assert torch.equal(nb["masked"][1].cpu(), card["masked"][1])
+    assert int(nb["tokens"][1]) == int(card["tokens"][1])
+
+
+def test_stochastic_streams_across_spans_and_parking_on_card(cuda):
+    """2-layer full-width qwen3-8b (bf16) on the paged engine with mixed
+    sampling: the same streams at decode_span 1 and 8 and in a run that
+    parks; logprobs where asked for; one host sync a prefill and a
+    span; B1 once a layer a decode step."""
+    cfg = get_config("qwen3-8b").scaled(n_layers=2)
+    params = lm.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                            device=cuda)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (37, 200, 333, 90, 150)]
+    kinds = ((0.0, 0, 1.0), (0.7, 0, 1.0), (1.0, 50, 1.0), (0.8, 0, 0.9),
+             (1.3, 40, 0.95))
+    runs = {}
+    for span, n_pages in ((8, 160), (1, 160), (8, 30)):
+        eng = ServingEngine(cfg, params, api.EngineConfig(
+            slots=3, cache_len=512, page_size=16, n_pages=n_pages,
+            eos_token=-1, decode_span=span, kv_layout="paged",
+            prefix_cache_entries=0, sampler="stochastic"), device=cuda)
+        for i, pr in enumerate(prompts):
+            t, k, p = kinds[i]
+            eng.submit(api.Request(i, pr, max_new_tokens=24,
+                                   sampling=api.SamplingParams(
+                                       temperature=t, top_k=k, top_p=p,
+                                       seed=2**31 + i, logprobs=i % 2 == 0)))
+        n = pa.paged_decode_attention.launches
+        done = eng.run_until_done()
+        st = eng.stats
+        assert (pa.paged_decode_attention.launches - n
+                == cfg.n_layers * st["decode_steps"])
+        assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+        for r in done:
+            assert len(r.tokens_out) == 24
+            if r.sampling.logprobs:
+                assert len(r.logprobs_out) == 24
+                assert all(np.isfinite(v) and v <= 0 for v in r.logprobs_out)
+            else:
+                assert r.logprobs_out == []
+        runs[(span, n_pages)] = ({r.req_id: r.tokens_out for r in done},
+                                 st["parked"])
+    assert runs[(8, 30)][1] > 0
+    assert runs[(8, 160)][0] == runs[(1, 160)][0] == runs[(8, 30)][0]

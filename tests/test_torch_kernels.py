@@ -186,17 +186,23 @@ def test_paged_split_plain_all_empty_is_zero():
 
 
 @pytest.mark.parametrize("MP,page,want", [
-    (128, 16, 16), (16, 16, 2), (1, 16, 1), (4, 16, 1), (6, 8, 1),
+    (128, 16, 16), (16, 16, 16), (1, 16, 1), (4, 16, 4), (6, 8, 6),
     (256, 16, 16), (64, 32, 8), (64, 512, 1),
 ])
 def test_partition_pages_from_shapes(MP, page, want):
-    """The split's partition size follows MP and page only. At the serve
+    """The split's partition size follows page only, capped at MP, so its
+    partitions start at the same pages at every table width: a slot's
+    output does not depend on how wide the batch's table is. At the serve
     shapes (4 slots, MP 128, page 16) the split pass has at least two
     blocks per SM of the card's 132: 256 for qwen3-8b (KV 8), 512 for
     moonshot-v1-16b-a3b (KV 16)."""
     pp = pa.partition_pages(MP, page)
     assert pp == want
     assert 1 <= pp <= max(1, pa.PARTITION_TOKENS // page)
+    for wider in (2 * MP, 4 * MP, 1024):
+        pw = pa.partition_pages(wider, page)
+        assert ([lo for lo in range(0, wider, pw) if lo < MP]
+                == list(range(0, MP, pp)))
     splits = -(-MP // pp)
     if MP == 128 and page == 16:
         assert 4 * 8 * splits >= 256 and 4 * 16 * splits >= 512

@@ -154,7 +154,7 @@ def test_parking_under_page_pressure_matches_reference(model,
 
 
 @pytest.mark.parametrize("setting", [
-    {"kv_layout": "latent"}, {"sampler": "stochastic"}])
+    {"kv_layout": "latent"}, {"kv_layout": "no-such-layout"}])
 def test_unsupported_settings_raise(setting):
     with pytest.raises(ValueError):
         api.EngineConfig(**setting)
@@ -166,10 +166,12 @@ def test_non_greedy_request_rejected_at_submit(model):
                                                    n_pages=16),
                         device="cpu")
     with pytest.raises(ValueError):
-        eng.submit(api.Request(0, _prompt(0), sampling=api.SamplingParams(
-            temperature=0.7)))
-    with pytest.raises(ValueError):
         eng.submit(api.Request(1, np.ones(L, np.int32)))   # len + 1 > L
+    # sampled requests are served since stochastic sampling was ported
+    eng.submit(api.Request(0, _prompt(0), max_new_tokens=4,
+                           sampling=api.SamplingParams(temperature=0.7)))
+    done = eng.run_until_done()
+    assert [(r.req_id, len(r.tokens_out)) for r in done] == [(0, 4)]
 
 
 def test_prefix_cache_copy_matches_reference():
