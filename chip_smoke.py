@@ -15,26 +15,36 @@ Phases, each printing one JSON object per line:
              and at the serving paths' shapes, with CUDA-event times of
              the kernel, the plain version and a library call where one
              exists (the host's work hidden behind a spin), and the bound;
-4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b and jamba-v0.1-52b
-             at full width, 2 layers (jamba's an attention layer with a
-             dense MLP and a Mamba layer with an MoE one), fp32 (TF32
-             off): prefill and decode on the card (kernels) against the
-             CPU (plain path) on the same weights; for the MoE models, any
+             B2 also at h2o-danube-3-4b's shape (hd 120 padded to 128, a
+             window of 4096, S 4500 and 7000, against SDPA with a band
+             mask) and nemotron-4-15b's (G 6), B1 at nemotron's G 6 and
+             musicgen-large's G 1 at hd 64;
+4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b, jamba-v0.1-52b,
+             qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b and
+             musicgen-large at full width, 2 layers (jamba's an attention
+             layer with a dense MLP and a Mamba layer with an MoE one),
+             fp32 (TF32 off): prefill and decode on the card (kernels)
+             against the CPU (plain path) on the same weights, danube also
+             on a 4500-token prompt past its window and 8 decode steps
+             around its ring slabs; for the MoE models, any
              token whose top-k expert set differs between the two is
              reported with its router gap; for qwen3 and moonshot also a
              300-token prompt chained through ``prefill_chunk`` in 64-token
              chunks, card against CPU, and for qwen3 the card's chained
              logits against its monolithic ones (1e-4 of the logit scale);
-5. serve   — qwen3-8b and moonshot-v1-16b-a3b through the paged engine,
-             rwkv6-1.6b through the recurrent engine, each at full width
+5. serve   — qwen3-8b, nemotron-4-15b and moonshot-v1-16b-a3b through
+             the paged engine, rwkv6-1.6b through the recurrent engine,
+             h2o-danube-3-4b through the dense engine (prompts of 37-7000
+             tokens around its window, cache_len 8192), each at full width
              and depth, and jamba-v0.1-52b through the dense engine at
              full width and 16 of its 32 layers (its 103 GB of bf16
              weights do not fit one card), all in bf16: 8 requests,
              launch counts of the path's kernels, a second run that must
-             give identical streams (for rwkv6, moonshot and jamba a
-             third with fewer pages, which parks and must agree too), and
-             one decode span traced with torch.profiler (and rwkv6's
-             1531-token and moonshot's 1900-token prefills), each port
+             give identical streams (for rwkv6, danube, moonshot and jamba
+             a third with fewer pages, which parks and must agree too),
+             and one decode span traced with torch.profiler (and rwkv6's
+             1531-token, danube's 7000-token, nemotron's and moonshot's
+             1900-token prefills), each port
              kernel's device ms and launches in the trace held to its
              wrapper's calls; then chunked prefill with the prefix cache:
              qwen3-8b on the paged engine at full depth and on the dense
@@ -247,6 +257,70 @@ def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
     emit(rec)
     require(ok, f"chunked_causal_attention disagrees with the plain "
                 f"attention: {rec}")
+    return rec
+
+
+def check_flash_band(torch, fa, B, H, KV, S, hd, window, dtype, seed=0):
+    """B2 as a sliding-window model calls it (h2o-danube-3-4b): q, k, v
+    [B,n,S,hd] at a head dim B2 is not built for, zero-padded to the next
+    built one, the unpadded scale passed, the output's first hd columns
+    against the plain version on the unpadded tensors; two calls bit for
+    bit. Timed: the kernel on the padded tensors, the plain version, and
+    SDPA with a boolean band mask on the unpadded ones. The bound counts
+    the band's pairs at hd."""
+    import math
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
+    P = next(d for d in fa.HEAD_DIMS if d >= hd)
+    qp, kp, vp = (F.pad(t, (0, P - hd)).contiguous() for t in (q, k, v))
+    scale = 1.0 / math.sqrt(hd)
+
+    def kernel():
+        return fa.flash_attention(qp, kp, vp, window=window, scale=scale)
+    out = kernel()[..., :hd]
+    again = kernel()[..., :hd]
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                   window=window)
+    name = str(dtype).split(".")[-1]
+    err = float((out.float() - ref).abs().max())
+    tol = TOL[name]
+    repeats = bool(torch.equal(out, again))
+    ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
+        and repeats and bool(torch.equal(kernel()[..., hd:],
+                                         torch.zeros_like(qp[..., hd:])))
+    pairs = sum(min(i + 1, window) for i in range(S))
+    b_ms, b_by = bound(q.element_size() * (2 * q.numel() + k.numel()
+                                           + v.numel()),
+                       4.0 * hd * B * H * pairs, name)
+    pos = torch.arange(S, device="cuda")
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
+    rec = {"phase": "kernels", "kernel": "flash_attention",
+           "route": "zero-padded head dim, sliding window",
+           "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+                     "hd_padded": P, "window": window}, "dtype": name,
+           "max_err": err, "tol": tol, "bit_equal_repeat": repeats,
+           "ok": ok, "bound_ms": b_ms, "bound_by": b_by,
+           "library_max_abs_err": float((library().float() - ref)
+                                        .abs().max()),
+           "kernel_ms": time_ms(kernel, torch),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+               q, k, v, window=window), torch),
+           "library_ms": time_ms(library, torch),
+           "library": "scaled_dot_product_attention, boolean band mask"}
+    rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+    emit(rec)
+    require(ok, f"flash_attention (band) disagrees with its plain "
+                f"version: {rec}")
     return rec
 
 
@@ -715,6 +789,25 @@ def phase_kernels(torch):
     for key, T, C in (("prefill", 1900 * 2, 297), ("decode", 4 * 2, 4)):
         main[("moe_dispatch_jamba", key)] = check_moe_dispatch(
             torch, md, T, 4096, 16, C, bf16)
+    # h2o-danube-3-4b's: H 32, KV 8, hd 120 through the padding to 128, a
+    # window of 4096, on prompts past it (the serve phase's 4500 and 7000)
+    for S in (4500, 7000):
+        main[("flash_danube", S)] = check_flash_band(torch, fa, 1, 32, 8, S,
+                                                     120, 4096, bf16)
+    # nemotron-4-15b's: G = 6 (H 48, KV 8), hd 128; musicgen-large's: no
+    # grouping (H = KV = 32) at hd 64
+    for dtype in (f32, bf16):
+        check_flash(torch, fa, 2, 48, 8, 333, 128, dtype, timed=False)
+        check_flash(torch, fa, 2, 32, 32, 333, 64, dtype, timed=False)
+        for H, KV, hd in ((48, 8, 128), (32, 32, 64)):
+            check_paged(torch, pa, 7, H, KV, hd, 80, 16, 32, dtype,
+                        timed=False, lengths=[0, 1, 16, 256, 257, 512, 600])
+    main[("flash_nemotron", 1900)] = check_flash(torch, fa, 1, 48, 8, 1900,
+                                                 128, bf16)
+    main[("paged_nemotron", 128)] = check_paged(torch, pa, 4, 48, 8, 128,
+                                                640, 16, 128, bf16)
+    main[("paged_musicgen", 128)] = check_paged(torch, pa, 4, 32, 32, 64,
+                                                640, 16, 128, bf16)
     return main
 
 
@@ -1017,6 +1110,13 @@ def check_prefill_chunks(torch, cfg, runs, prompt, cache_len, tol,
 # --------------------------------------------------------------------------
 
 PROMPT_LENS = (37, 200, 333, 517, 1000, 1024, 1531, 1900)
+# h2o-danube-3-4b (window 4096): 4080 + 32 new tokens wraps the ring in
+# mid-span, 4096 fills it exactly, the last three prefill through B2's
+# band and roll the ring
+DANUBE_PROMPT_LENS = (37, 1000, 3000, 4080, 4096, 4500, 6000, 7000)
+# the configs of ROADMAP item A6, each in the model phase at 2 layers
+DENSE_FAMILY = ("qwen1.5-4b", "nemotron-4-15b", "h2o-danube-3-4b",
+                "chameleon-34b", "musicgen-large")
 
 
 def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
@@ -1967,9 +2067,13 @@ def kernel_line(main, serves):
              FLASH_REPLACES, (("flash", 200), ("flash", 1000),
                               ("flash_moonshot", 1000),
                               ("flash_moonshot", 1900),
-                              ("flash_jamba", 1900))),
+                              ("flash_jamba", 1900), ("flash_danube", 4500),
+                              ("flash_danube", 7000),
+                              ("flash_nemotron", 1900))),
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
-             PAGED_REPLACES, (("paged", 16), ("paged_moonshot", 128))),
+             PAGED_REPLACES, (("paged", 16), ("paged_moonshot", 128),
+                              ("paged_nemotron", 128),
+                              ("paged_musicgen", 128))),
             ("wkv6_chunked", ("wkv6_chunked", 1531), "wkv6.cu",
              WKV_CHUNKED_REPLACES, (("wkv6_chunked", 200),
                                     ("wkv6_chunked", 1000))),
@@ -2061,6 +2165,18 @@ def main() -> int:
         phase_model(torch, jcfg.scaled(n_layers=2, dtype="float32",
                                        layer_pattern=("attn", "mamba")))
         gc.collect()
+        # the rest of the dense family; h2o-danube-3-4b also on a prompt
+        # past its 4096-token window (B2's band, the rolled ring) and 8
+        # decode steps around the ring
+        dcfg = get_config("h2o-danube-3-4b")
+        ncfg = get_config("nemotron-4-15b")
+        for name in DENSE_FAMILY:
+            phase_model(torch, get_config(name).scaled(n_layers=2,
+                                                       dtype="float32"))
+            gc.collect()
+        phase_model(torch, dcfg.scaled(n_layers=2, dtype="float32"),
+                    n_prompt=4500, n_seq=1, steps=8)
+        gc.collect()
         serves = []
         # moonshot and jamba last, each alone on the card after the
         # others' weights are freed: moonshot's 56.7 GB of bf16 weights and
@@ -2068,22 +2184,29 @@ def main() -> int:
         # park (moonshot's largest request needs 121 pages, jamba's two
         # largest worst-case footprints 121 + 98 on the dense layout)
         # rwkv6's 1531-token prefill (B4) and moonshot's 1900-token one
-        # (B7) are traced as well
-        for c, layout, n_pages, park, traced in (
-                (cfg, "paged", 640, None, None),
-                (rcfg, "recurrent", 4, 3, 1531),
-                (mcfg, "paged", 640, 200, 1900),
-                (jcfg, "dense", 640, 200, None)):
+        # (B7) are traced as well. h2o-danube-3-4b serves prompts around
+        # and past its window at cache_len 8192 (4096-row ring slabs); its
+        # two largest worst-case footprints, 440 + 377 pages, do not fit
+        # 700 together, so that run parks; its 7000-token prefill and
+        # nemotron-4-15b's 1900-token one are traced (B2 in its band, B2
+        # at G 6)
+        for c, layout, n_pages, park, traced, cache_len, lens in (
+                (cfg, "paged", 640, None, None, 2048, PROMPT_LENS),
+                (rcfg, "recurrent", 4, 3, 1531, 2048, PROMPT_LENS),
+                (dcfg, "dense", 2048, 700, 7000, 8192, DANUBE_PROMPT_LENS),
+                (ncfg, "paged", 640, None, 1900, 2048, PROMPT_LENS),
+                (mcfg, "paged", 640, 200, 1900, 2048, PROMPT_LENS),
+                (jcfg, "dense", 640, 200, None, 2048, PROMPT_LENS)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            ecfg = EngineConfig(slots=4, cache_len=2048, page_size=16,
+            ecfg = EngineConfig(slots=4, cache_len=cache_len, page_size=16,
                                 n_pages=n_pages, decode_span=8, eos_token=-1,
                                 kv_layout=layout, prefill_chunk=0,
                                 prefix_cache_entries=0)
             serves.append(phase_serve(torch, c, ecfg,
                                       serve_path(c, layout),
-                                      park_pages=park,
+                                      prompt_lens=lens, park_pages=park,
                                       trace_prefill=traced))
         # chunked prefill and the prefix cache: qwen3-8b on paged at full
         # depth, and on dense at 8 of its 36 layers (for time)

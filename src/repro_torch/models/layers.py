@@ -1,4 +1,4 @@
-"""Common layer primitives: RMS norm, rotary embedding, the SwiGLU MLP."""
+"""Common layer primitives: RMS norm, rotary embedding, dense MLPs."""
 from __future__ import annotations
 
 import math
@@ -56,19 +56,55 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * sigmoid(x)
 
 
-def init_dense_mlp(normal, d_model: int, d_ff: int, dtype) -> dict:
-    """SwiGLU weights with the JAX ``init_dense_mlp`` shapes and scales;
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU written as ``jax.nn.gelu`` (its default,
+    ``approximate=True``) is: x * (0.5 * (1 + tanh(c1 * (x + c2 * x^3))))
+    with its constants rounded to the input dtype (0.796875 and
+    0.044677734375 in bf16) and each op rounding in the input dtype, so
+    bf16 results match the JAX model bit for bit (``F.gelu(approximate=
+    "tanh")`` rounds once and differs on ~43% of bf16 inputs). In fp32 the
+    two frameworks' ``tanh`` differ by an ulp on ~32% of inputs."""
+    def const(c):
+        return float(torch.tensor(c, dtype=x.dtype))
+    cube = const(0.044715) * (x * x * x)
+    inner = const(math.sqrt(2 / math.pi)) * (x + cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def sq_relu(x: torch.Tensor) -> torch.Tensor:
+    """square(relu(x)), as the reference's ``sq_relu`` (exact in every
+    dtype)."""
+    return torch.square(torch.relu(x))
+
+
+def activation(name: str):
+    """The elementwise activation of a two-matrix MLP, for the configs'
+    ``act`` values other than SwiGLU (built from its gate instead)."""
+    acts = {"sq_relu": sq_relu, "gelu": gelu}
+    if name not in acts:
+        raise ValueError(f"activation {name!r}: the configs' two-matrix "
+                         f"MLPs use {sorted(acts)}")
+    return acts[name]
+
+
+def init_dense_mlp(normal, d_model: int, d_ff: int, act: str,
+                   dtype) -> dict:
+    """Dense MLP weights with the JAX ``init_dense_mlp`` shapes and
+    scales: (w_up, w_down), and w_gate for SwiGLU only;
     ``normal(shape, scale, dtype)`` draws each one."""
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
-    return {"w_up": normal((d_model, d_ff), s_in, dtype),
-            "w_down": normal((d_ff, d_model), s_out, dtype),
-            "w_gate": normal((d_model, d_ff), s_in, dtype)}
+    p = {"w_up": normal((d_model, d_ff), s_in, dtype),
+         "w_down": normal((d_ff, d_model), s_out, dtype)}
+    if act == "swiglu":
+        p["w_gate"] = normal((d_model, d_ff), s_in, dtype)
+    return p
 
 
 def dense_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU FFN: (silu(x @ w_gate) * (x @ w_up)) @ w_down."""
-    if cfg.act != "swiglu":
-        raise ValueError(f"activation {cfg.act!r} is not ported yet "
-                         f"(ROADMAP queue A6); the port has swiglu only")
-    h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    """Dense FFN: SwiGLU (silu(x @ w_gate) * (x @ w_up)) @ w_down, any
+    other activation act(x @ w_up) @ w_down."""
+    if cfg.act == "swiglu":
+        h = silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = activation(cfg.act)(x @ p["w_up"])
     return h @ p["w_down"]

@@ -10,9 +10,12 @@ slabs of the ``dense`` layout, Mamba's and RWKV's carries); decode
 updates it in place.
 
 ``prefill_chunk`` extends dense caches by one prompt chunk (chunked
-prefill, plain attention stacks). Four families are served: plain attention with dense SwiGLU MLPs
-(qwen3-8b), the same attention with MoE MLPs after ``first_dense`` dense
-layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
+prefill, plain attention stacks). Four families are served: plain
+attention with dense MLPs (SwiGLU, squared ReLU or GELU; QKV biases,
+qk-norm and sliding-window ring caches as the config says: qwen3-8b,
+qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
+musicgen-large), the same attention with MoE MLPs after ``first_dense``
+dense layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
 (jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b). ``decode_span``
 and ``select_token`` pick tokens through a pluggable sampler with keys
 derived on the device (kernels/sampling.py).
@@ -99,7 +102,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         if mlp_kind == "moe":
             block["moe"] = moe.init_moe(cfg, normal, dtype)
         else:
-            block["mlp"] = init_dense_mlp(normal, d, ff, dtype)
+            block["mlp"] = init_dense_mlp(normal, d, ff, cfg.act, dtype)
         params["blocks"].append(block)
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
@@ -125,8 +128,10 @@ def prefill(params, tokens, cfg: ModelConfig,
             cache_len: Optional[int] = None):
     """Run `tokens` [B,S]; returns (last_logits [B,V], state). Attention
     layers' caches are K/V zero-padded to ``cache_len`` ([B, cache_len,
-    KV, hd]); Mamba layers' the final carry {conv, ssm}; RWKV layers' the
-    final carry {wkv, shift_tm, shift_cm}."""
+    KV, hd]), or with a sliding window W the ring slab of ``min(W,
+    cache_len)`` rows (``transformer.attn_forward``); Mamba layers' the
+    final carry {conv, ssm}; RWKV layers' the final carry {wkv, shift_tm,
+    shift_cm}."""
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
     ctx = {"mode": "prefill", "cache_len": cache_len or S}
@@ -272,13 +277,16 @@ def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
     (rows rewritten by the engine as the PagePool allocates)."""
     tf.check_supported(cfg)
     if not tf.paged_stack_supported(cfg):
+        # the reference's message: page indirection needs per-token cache
+        # blocks, which SWA rings and recurrent (mamba/rwkv) carries
+        # don't have
         kinds = sorted(set(cfg.layer_kinds()))
         raise ValueError(
             f"paged serving needs per-token cache blocks (plain attention "
-            f"KV); {cfg.name} (layer kinds {kinds}) has none: use the "
-            f"'dense' layout (per-slot slabs, every ported config) or the "
-            f"'recurrent' layout (constant-size state for pure RWKV "
-            f"configs)")
+            f"KV or an MLA latent cache, no SWA ring); {cfg.name} (layer "
+            f"kinds {kinds}, swa_window={cfg.swa_window}) has none — use "
+            f"the 'dense' layout (serves every config) or 'recurrent' "
+            f"(constant-size state for pure RWKV/Mamba configs)")
     device = resolve_device(device)
     dtype = param_dtype(cfg, dtype)
     i32 = dict(dtype=torch.int32, device=device)

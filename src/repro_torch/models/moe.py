@@ -47,7 +47,8 @@ def init_moe(cfg: ModelConfig, normal, dtype) -> dict:
          "w_up": normal((E, d, dE), s_in, dtype),
          "w_down": normal((E, dE, d), s_out, dtype)}
     if moe.n_shared:
-        p["shared"] = init_dense_mlp(normal, d, moe.n_shared * dE, dtype)
+        p["shared"] = init_dense_mlp(normal, d, moe.n_shared * dE, cfg.act,
+                                     dtype)
     return p
 
 

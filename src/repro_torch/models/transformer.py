@@ -6,16 +6,19 @@ eagerly, so the port holds one block per layer, in layer order: a params
 dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
 layer. ``plan_layers`` is kept to read the reference's grouped layout
 (models/convert.py). The port serves four families so far: plain
-attention layers with dense (SwiGLU) MLPs, the same layers with MoE MLPs
-(``models/moe.py``; layers before ``first_dense`` keep a dense MLP),
-hybrids that interleave such attention layers with Mamba layers
-(``models/mamba.py``, jamba), and pure RWKV-6 stacks (time- and
-channel-mix, no MLP). MLA and sliding-window caches raise until their
-slices (ROADMAP queue A).
+attention layers with dense MLPs (SwiGLU, squared ReLU or GELU), the same
+layers with MoE MLPs (``models/moe.py``; layers before ``first_dense``
+keep a dense MLP), hybrids that interleave such attention layers with
+Mamba layers (``models/mamba.py``, jamba), and pure RWKV-6 stacks (time-
+and channel-mix, no MLP). MLA raises until its slice (ROADMAP item A8).
 
 Attention decodes through a shared page pool (``paged`` layout) when the
 decode state carries a page table, else against per-slot slabs
-``[B, cache_len, KV, hd]`` (``dense`` layout). Mamba and RWKV layers
+``[B, cache_len, KV, hd]`` (``dense`` layout). With a sliding window W
+the slab is a ring of ``min(W, cache_len)`` rows, slot ``t % W`` holding
+token t, so the window is implicit in what the slab holds; such stacks
+serve on ``dense`` only, monolithically (``paged_stack_supported``,
+``chunked_prefill_supported``). Mamba and RWKV layers
 carry constant-size per-slot state. The ``prefill_chunk`` mode extends a
 dense cache by one prompt chunk (chunked prefill): plain attention
 stacks only (``chunked_prefill_supported``); the engine stages a paged
@@ -65,25 +68,13 @@ def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is plain attention or Mamba with a SwiGLU
-    MLP, dense or MoE, or every layer is RWKV-6; name the ROADMAP item of
-    any other."""
-    kinds = set(cfg.layer_kinds())
-    mlps = set(cfg.mlp_kinds())
-    if kinds == {"rwkv"}:
-        return
-    if (kinds <= {"attn", "mamba"} and mlps <= {"dense", "moe"}
-            and cfg.mla is None and not cfg.swa_window
-            and cfg.act == "swiglu"):
-        return
-    item = ("A8 (MLA)" if cfg.mla is not None
-            else "A6 (the rest of the dense family)")
-    raise ValueError(
-        f"{cfg.name}: the port serves stacks of plain attention and Mamba "
-        f"layers with SwiGLU dense or MoE MLPs, and pure RWKV-6 stacks, so "
-        f"far (layers {sorted(kinds)}, mlps {sorted(mlps)}, "
-        f"mla={cfg.mla is not None}, swa_window={cfg.swa_window}, "
-        f"act={cfg.act}); this family waits for ROADMAP item {item}")
+    """Raise for MLA attention, naming the ROADMAP item that waits for
+    it: every other config of the registry is served."""
+    if cfg.mla is not None:
+        raise ValueError(
+            f"{cfg.name}: the port serves plain (GQA, optionally sliding-"
+            f"window) attention, Mamba and RWKV-6 layers with dense or MoE "
+            f"MLPs so far; MLA attention waits for ROADMAP item A8 (MLA)")
 
 
 def paged_stack_supported(cfg: ModelConfig) -> bool:
@@ -131,7 +122,13 @@ def _qkv(x, p, cfg: ModelConfig):
 
 def attn_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
     """Prefill attention. x: [B,S,D]. The cache, when wanted, is K/V
-    zero-padded to ``ctx["cache_len"]`` ([B, cache_len, KV, hd])."""
+    zero-padded to ``ctx["cache_len"]`` ([B, cache_len, KV, hd]). With a
+    sliding window W it is the ring slab ``init_block_cache`` gives the
+    layer, ``min(W, cache_len)`` rows, slot ``t % W`` holding token t: for
+    S >= W the last W rows rolled by ``S % W`` (the reference's ring); for
+    S < W the rows zero-padded to the slab's length. The reference pads
+    those to ``cache_len`` instead, a cache its own dense slab cannot take
+    when ``cache_len > W`` (ROADMAP C3)."""
     B, S, _ = x.shape
     q, k, v = _qkv(x, p, cfg)
     angles = rope_angles(torch.arange(S, device=x.device), cfg.head_dim,
@@ -142,9 +139,14 @@ def attn_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
     out = out.reshape(B, S, -1) @ p["wo"]
     cache = None
     if want_cache:
-        pad = ctx.get("cache_len", S) - S
-        cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+        W = cfg.swa_window
+        if W and S >= W:
+            cache = {"k": torch.roll(k[:, -W:], S % W, dims=1),
+                     "v": torch.roll(v[:, -W:], S % W, dims=1)}
+        else:
+            pad = slab_len(cfg, ctx.get("cache_len", S)) - S
+            cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+                     "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
     return out, cache
 
 
@@ -197,13 +199,15 @@ def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
 def attn_decode(x, p, cfg: ModelConfig, ctx, cache):
     """Dense decode. x: [B,D]; cache {k,v: [B,Smax,KV,hd]} holds one slab
     per slot; ctx carries positions/lengths [B] and the optional
-    ``active`` mask. The new token's K/V goes into the slab at
-    ``min(positions, Smax - 1)`` IN PLACE and attention reads
-    ``min(lengths + 1, Smax)`` entries, as the reference's
-    ``attn_decode``. Every slot attends with its new row in place, as
-    there; then the rows of inactive slots get their old values back, so
-    a frozen slot's slab is left as it was (the reference's freeze). The
-    row indices are 1-d device tensors: nothing is read back."""
+    ``active`` mask. The new token's K/V goes into the slab IN PLACE at
+    ``min(positions, Smax - 1)``, or at ``positions % Smax`` in a
+    sliding-window ring, and attention reads ``min(lengths + 1, Smax)``
+    entries, as the reference's ``attn_decode``: once the ring is full
+    it holds exactly the window's tokens. Every slot attends with its new
+    row in place, as there; then the rows of inactive slots get their old
+    values back, so a frozen slot's slab is left as it was (the
+    reference's freeze). The row indices are 1-d device tensors: nothing
+    is read back."""
     B = x.shape[0]
     positions, lengths = ctx["positions"], ctx["lengths"]
     q, k_new, v_new = _qkv(x, p, cfg)                  # [B,H,hd],[B,KV,hd]
@@ -212,7 +216,8 @@ def attn_decode(x, p, cfg: ModelConfig, ctx, cache):
     k_new = apply_rope(k_new[:, None], ang[:, None])[:, 0]
     Smax = cache["k"].shape[1]
     rows = torch.arange(B, device=x.device)
-    slot = torch.clamp(positions, max=Smax - 1).long()
+    slot = (positions % Smax if cfg.swa_window
+            else torch.clamp(positions, max=Smax - 1)).long()
     active = ctx.get("active")
     new = {"k": k_new, "v": v_new}
     old = ({n: cache[n][rows, slot] for n in new} if active is not None
@@ -336,17 +341,25 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
 # caches and page-granular movement
 # --------------------------------------------------------------------------
 
+def slab_len(cfg: ModelConfig, cache_len: int) -> int:
+    """Rows of an attention layer's per-slot slab: ``cache_len``, or the
+    ring of ``min(W, cache_len)`` rows with a sliding window W."""
+    W = cfg.swa_window
+    return min(W, cache_len) if W else cache_len
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype, device) -> Dict[str, torch.Tensor]:
     """Per-slot state of one layer, as the reference's
-    ``init_block_cache``: attention slabs {k, v: [B, cache_len, KV, hd]}
-    in the model dtype (the dense layout); Mamba's conv window [B, K-1,
-    Di] in the model dtype and its SSM state [B, Di, N] fp32; RWKV's
-    [B,H,hd,hd] fp32 carry and its two token-shift rows [B,D] in the
-    model dtype."""
+    ``init_block_cache``: attention slabs {k, v: [B, slab_len, KV, hd]}
+    (``slab_len``) in the model dtype (the dense layout); Mamba's conv
+    window [B, K-1, Di] in the model dtype and its SSM state [B, Di, N]
+    fp32; RWKV's [B,H,hd,hd] fp32 carry and its two token-shift rows
+    [B,D] in the model dtype."""
     d = cfg.d_model
     if kind == "attn":
-        shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (batch, slab_len(cfg, cache_len), cfg.n_kv_heads,
+                 cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
     if kind == "mamba":

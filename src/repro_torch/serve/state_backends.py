@@ -2,11 +2,13 @@
 ``paged`` and ``recurrent``.
 
 - `DenseKV` ("dense") keeps per-slot `[slots, cache_len, KV, hd]`
-  attention slabs and per-slot Mamba/RWKV carries, with no indirection
+  attention slabs (with a sliding window W, rings of `min(W, cache_len)`
+  rows) and per-slot Mamba/RWKV carries, with no indirection
   tables: admission reserves a request's worst case, `min(len(prompt) +
   max_new_tokens, cache_len)` tokens, so capacity never runs out
   mid-decode, and park/unpark moves the slot's rows. It serves every
-  ported config, and is the only layout for hybrids such as jamba.
+  ported config, and is the only layout for hybrids such as jamba and
+  for sliding-window models such as h2o-danube-3-4b.
 - `PagedKV` ("paged") keeps a shared `[n_pages, page_size, KV, hd]` pool
   per layer behind per-slot page tables, the MTT made into the memory
   layout, with the `PagePool` doing the accounting. Admission charges the
@@ -18,7 +20,7 @@
   per-slot slabs: footprint 1, no growth, park/unpark moves the carry.
 
 `dense` and `paged` take chunked prefill and back the block prefix cache
-for plain attention stacks (`transformer.chunked_prefill_supported`):
+for full-attention stacks (`transformer.chunked_prefill_supported`):
 `slot_caches` stages a slot's rows as the dense cache a chunk extends,
 `store_chunk` writes the chunk's rows back, `block_payload` hands the
 prefix cache one page-aligned block (a page id on `paged`, pinned by
@@ -27,8 +29,7 @@ rows on `dense`) and `share_prefix` installs cached blocks in a slot.
 `recurrent` declines both.
 
 State tensors are written in place. The ``latent`` backend of the JAX
-package waits for its slice (ROADMAP A8), and sliding-window ring slabs
-for A6.
+package waits for its slice (ROADMAP A8).
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ the paged (qwen3-8b, moonshot-v1-16b-a3b), recurrent (rwkv6-1.6b) and
 dense (jamba-v0.1-52b) backends; chunked prefill against monolithic
 prefill, and a paged serve with prefix-cache hits; stochastic sampling
 on the card against its CPU path, and sampled streams across spans and
-parking.
+parking; B2 in a sliding window at h2o-danube-3-4b's padded head dim,
+B1 at nemotron-4-15b's and musicgen-large's head groupings, and a
+full-width danube across its ring's wrap.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -785,3 +787,107 @@ def test_stochastic_streams_across_spans_and_parking_on_card(cuda):
                                  st["parked"])
     assert runs[(8, 30)][1] > 0
     assert runs[(8, 160)][0] == runs[(1, 160)][0] == runs[(8, 30)][0]
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense family: B2 in a sliding window at a padded head
+# dim (h2o-danube-3-4b), B1 at G 6 (nemotron-4-15b) and G 1, hd 64
+# (musicgen-large), a full-width danube across its ring's wrap
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_through_padded_head_dim(cuda, dtype, window):
+    """danube's head dim 120 (GQA 4:1) through the model's zero-padding
+    to 128, a sliding window over S 1500: one B2 launch, the plain
+    masked softmax on the unpadded tensors, two calls bit for bit."""
+    from repro_torch.models.attention import chunked_causal_attention
+    rng = np.random.default_rng(window)
+    q, k, v = [_randn(rng, *s).to(cuda, dtype)
+               for s in ((1, 1500, 8, 120), (1, 1500, 2, 120),
+                         (1, 1500, 2, 120))]
+    n = fa.flash_attention.launches
+    out = chunked_causal_attention(q, k, v, window=window)
+    assert fa.flash_attention.launches == n + 1
+    assert torch.equal(out, chunked_causal_attention(q, k, v,
+                                                     window=window))
+    expected = fa.flash_attention_plain(
+        *(t.float().transpose(1, 2) for t in (q, k, v)), window=window)
+    torch.testing.assert_close(out.float(), expected.transpose(1, 2),
+                               atol=_TOL[dtype], rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("H,KV,hd", [(48, 8, 128), (32, 32, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_dense_family_groups(cuda, dtype, H, KV, hd):
+    """B1 at nemotron's G = 6 (three blocks of two heads per KV head) and
+    musicgen's G = 1 at hd 64, on lengths around a page and a partition:
+    the plain version and the plain split algorithm, two calls bit for
+    bit, length 0 exactly 0."""
+    page, MP = 16, 32
+    pp = pa.partition_pages(MP, page)
+    lengths = [0, 1, 16, pp * page, pp * page + 1, MP * page, 600]
+    rng = np.random.default_rng(H + hd)
+    q = _randn(rng, len(lengths), H, hd).to(cuda, dtype)
+    kp, vp = [_randn(rng, 80, page, KV, hd).to(cuda, dtype)
+              for _ in range(2)]
+    table = torch.from_numpy(rng.integers(0, 80, (len(lengths), MP)).astype(
+        np.int32)).to(cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = pa.paged_decode_attention(q, kp, vp, table, lens)
+    assert torch.equal(out, pa.paged_decode_attention(q, kp, vp, table,
+                                                      lens))
+    assert not out[0].float().any()
+    for expected in (pa.paged_decode_plain(q.float(), kp.float(),
+                                           vp.float(), table, lens),
+                     pa.paged_decode_split_plain(q.float(), kp.float(),
+                                                 vp.float(), table, lens,
+                                                 partition_pages=pp)):
+        torch.testing.assert_close(out.float(), expected, atol=_TOL[dtype],
+                                   rtol=_TOL[dtype])
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_danube_full_width_on_card_across_the_ring_wrap(cuda):
+    """2-layer h2o-danube-3-4b at full width (hd 120, GQA 4:1), fp32, its
+    window cut to 512 so that a 700-token prompt prefills through B2's
+    band into a rolled ring and 16 decode steps of a 500-token prompt run
+    on past its wrap: the card's logits and ring slabs within 2e-3 of the
+    CPU's at every step (TF32 off, the default), the same greedy
+    tokens."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("h2o-danube-3-4b").scaled(n_layers=2, dtype="float32",
+                                               swa_window=512)
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    sides = {"cpu": (torch.device("cpu"), p_cpu),
+             "card": (cuda, _to(p_cpu, cuda))}
+    rng = np.random.default_rng(0)
+    for n, steps in ((700, 8), (500, 16)):
+        toks = rng.integers(1, cfg.vocab_size, size=(1, n))
+        runs = {name: lm.prefill(params, torch.as_tensor(toks, device=dev),
+                                 cfg, cache_len=1024)
+                for name, (dev, params) in sides.items()}
+        for i in range(steps + 1):
+            (lc, sc), (lg, sg) = runs["cpu"], runs["card"]
+            torch.testing.assert_close(lg.cpu(), lc, atol=2e-3, rtol=2e-3)
+            for a, b in zip(sg["caches"], sc["caches"]):
+                assert a["k"].shape[1] == 512
+                for key in ("k", "v"):
+                    torch.testing.assert_close(a[key].cpu(), b[key],
+                                               atol=2e-3, rtol=2e-3)
+            nxt = torch.argmax(lc, -1).to(torch.int32)
+            assert torch.equal(torch.argmax(lg, -1).cpu().to(torch.int32),
+                               nxt)
+            if i < steps:
+                runs = {name: lm.decode_step(params, nxt.to(dev),
+                                             runs[name][1], cfg)
+                        for name, (dev, params) in sides.items()}
+        assert n + steps > 512
