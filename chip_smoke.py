@@ -18,15 +18,20 @@ Phases, each printing one JSON object per line:
              B2 also at h2o-danube-3-4b's shape (hd 120 padded to 128, a
              window of 4096, S 4500 and 7000, against SDPA with a band
              mask) and nemotron-4-15b's (G 6), B1 at nemotron's G 6 and
-             musicgen-large's G 1 at hd 64;
+             musicgen-large's G 1 at hd 64; B2's (192, 128) instance (q/k
+             192, v 128: MLA at full width) on its edge sweep and at
+             deepseek-v2-lite-16b's prefill shape (H = KV = 16, S 1000 and
+             1900) in fp32 and bf16, against SDPA at the same shape;
 4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b, jamba-v0.1-52b,
-             qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b and
-             musicgen-large at full width, 2 layers (jamba's an attention
+             qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
+             musicgen-large and deepseek-v2-lite-16b (decoding through its
+             latent pools) at full width, 2 layers (jamba's an attention
              layer with a dense MLP and a Mamba layer with an MoE one),
              fp32 (TF32 off): prefill and decode on the card (kernels)
              against the CPU (plain path) on the same weights, danube also
              on a 4500-token prompt past its window and 8 decode steps
-             around its ring slabs; for the MoE models, any
+             around its ring slabs, and on an 8100-token one (the rotary
+             angles' bits at long positions); for the MoE models, any
              token whose top-k expert set differs between the two is
              reported with its router gap; for qwen3 and moonshot also a
              300-token prompt chained through ``prefill_chunk`` in 64-token
@@ -35,16 +40,19 @@ Phases, each printing one JSON object per line:
 5. serve   — qwen3-8b, nemotron-4-15b and moonshot-v1-16b-a3b through
              the paged engine, rwkv6-1.6b through the recurrent engine,
              h2o-danube-3-4b through the dense engine (prompts of 37-7000
-             tokens around its window, cache_len 8192), each at full width
-             and depth, and jamba-v0.1-52b through the dense engine at
+             tokens around its window, cache_len 8192), deepseek-v2-lite-16b
+             through the latent engine (B2's (192, 128) instance in every
+             prefill), each at full width and depth, and jamba-v0.1-52b
+             through the dense engine at
              full width and 16 of its 32 layers (its 103 GB of bf16
              weights do not fit one card), all in bf16: 8 requests,
              launch counts of the path's kernels, a second run that must
              give identical streams (for rwkv6, danube, moonshot and jamba
-             a third with fewer pages, which parks and must agree too),
+             a third with fewer pages, which parks and must agree too;
+             for deepseek as well),
              and one decode span traced with torch.profiler (and rwkv6's
-             1531-token, danube's 7000-token, nemotron's and moonshot's
-             1900-token prefills), each port
+             1531-token, danube's 7000-token, nemotron's, moonshot's and
+             deepseek's 1900-token prefills), each port
              kernel's device ms and launches in the trace held to its
              wrapper's calls; then chunked prefill with the prefix cache:
              qwen3-8b on the paged engine at full depth and on the dense
@@ -106,12 +114,15 @@ MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
 SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
 SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
 # the __global__ functions of src/repro_torch/kernels/csrc/: B1's split and
-# reduce passes, B2's tensor-core (bf16) and FMA (fp32) kernels, B4's three
-# passes (chunk states, the scan of the carry, chunk outputs), B3, B5-B7
+# reduce passes, B2's tensor-core (bf16) kernel, its (192, 128) instance
+# named apart (MLA's q/k 192 with v 128), and its FMA (fp32) kernel, B4's
+# three passes (chunk states, the scan of the carry, chunk outputs), B3,
+# B5-B7
 WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
                        "wkv6_chunk_output_kernel")
+FLASH_MLA_KERNEL = "flash_fwd_bf16_kernel<192, 128>"
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
-                "flash_fwd_bf16_kernel", "flash_fwd_kernel",
+                FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel", "flash_fwd_kernel",
                 *WKV_CHUNKED_KERNELS, "wkv6_decode_kernel",
                 "moe_dispatch_kernel", "linear_scan_kernel",
                 "ssm_decode_kernel")
@@ -180,15 +191,36 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def sdpa_split_backends(torch, q, k, v):
+    """SDPA's fused backends that take these q, k, v (a v head dim of its
+    own): each tried alone; the ones that refuse raise."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    takes = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               enable_gqa=True)
+            torch.cuda.synchronize()
+            takes.append(backend.name)
+        except RuntimeError:
+            pass
+    return takes
+
+
 def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
-                timed=True):
+                timed=True, hd_v=None):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(seed)
+    hd_v = hd_v or hd
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    q, k, v = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd)
+    q, k, v = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd_v)
     out = fa.flash_attention(q, k, v, window=window)
     again = fa.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
@@ -200,14 +232,17 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
     repeats = bool(torch.equal(out, again))
     ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
         and repeats
+    ok = ok and out.shape == (B, H, S, hd_v)
     pairs = sum(min(i + 1, window) if window > 0 else i + 1
                 for i in range(S))
-    esize = q.element_size()
-    b_ms, b_by = bound(esize * (2 * q.numel() + k.numel() + v.numel()),
-                       4.0 * hd * B * H * pairs, name)
+    b_ms, b_by = bound(q.element_size() * (q.numel() + out.numel()
+                                           + k.numel() + v.numel()),
+                       2.0 * (hd + hd_v) * B * H * pairs, name)
+    shape = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window}
+    if hd_v != hd:
+        shape["hd_v"] = hd_v
     rec = {"phase": "kernels", "kernel": "flash_attention",
-           "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
-                     "window": window}, "dtype": name,
+           "shape": shape, "dtype": name,
            "max_err": err, "tol": tol, "bit_equal_repeat": repeats,
            "ok": ok, "bound_ms": b_ms, "bound_by": b_by}
     if timed:
@@ -221,6 +256,12 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
             if window == 0 else None)
         if rec["library_ms"]:
             rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+        if hd_v != hd:
+            takes = sdpa_split_backends(torch, q, k, v)
+            rec["library"] = (
+                f"scaled_dot_product_attention; fused backends that take "
+                f"q/k {hd} with v {hd_v}: "
+                f"{', '.join(takes) if takes else 'none (the math path)'}")
     emit(rec)
     require(ok, f"flash_attention disagrees with its plain version: {rec}")
     return rec
@@ -228,9 +269,10 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
 
 def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
     """B2 through the model's ``chunked_causal_attention`` at head dims
-    it is not built for (q/k ``hd``, v ``hd_v``): zero-padded to the next
-    built head dim, the output sliced back; against the plain masked
-    softmax on the unpadded tensors."""
+    (q/k ``hd``, v ``hd_v``) it has no instance for, zero-padded to the
+    next built head dim and the output sliced back, or at the (192, 128)
+    instance, unpadded; against the plain masked softmax on the unpadded
+    tensors."""
     from repro_torch.models.attention import chunked_causal_attention
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -250,7 +292,9 @@ def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
     ok = (out.shape == (B, S, H, hd_v) and launched == 1
           and bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)))
     rec = {"phase": "kernels", "kernel": "flash_attention",
-           "route": "chunked_causal_attention (zero-padded head dims)",
+           "route": ("chunked_causal_attention (the (192, 128) instance)"
+                     if (hd, hd_v) in fa.INSTANCES else
+                     "chunked_causal_attention (zero-padded head dims)"),
            "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
                      "hd_v": hd_v}, "dtype": name, "max_err": err,
            "tol": tol, "ok": ok}
@@ -690,6 +734,13 @@ def phase_kernels(torch):
                 check_flash(torch, fa, B, H, KV, S, hd, bf16, timed=False)
     check_flash(torch, fa, 1, 8, 2, 1531, 128, bf16, window=96,
                 timed=False)
+    # the (192, 128) instance (MLA: q/k 192 in three 64-column blocks, v
+    # 128) on the same lengths, in both dtypes (fp32 on the FMA kernel)
+    for dtype in (bf16, f32):
+        for S in (1, 63, 64, 65, 200, 1531):
+            for B, H, KV in ((2, 4, 4), (1, 8, 2)):
+                check_flash(torch, fa, B, H, KV, S, 192, dtype, hd_v=128,
+                            seed=S, timed=False)
     # B1's split edges: MP 32 at page 16 cuts a slot into partitions of 4
     # pages (64 tokens); lengths 0, 1, a page, a partition, a partition + 1,
     # MP * page and past it (clamped); MP 1 is one partition of one page;
@@ -743,10 +794,12 @@ def phase_kernels(torch):
         # B2 through the model at head dims it is not built for: 120
         # (h2o-danube-3-4b, GQA 4:1) and q/k 48 with v 32 (MLA at SMOKE
         # size), zero-padded to 128 and 64
+        # and through it at the (192, 128) instance, unpadded
         for B, H, KV, S, hd, hd_v in ((1, 8, 2, 300, 120, 120),
                                       (2, 4, 1, 65, 120, 120),
                                       (1, 4, 4, 257, 48, 32),
-                                      (2, 8, 8, 64, 48, 32)):
+                                      (2, 8, 8, 64, 48, 32),
+                                      (1, 16, 16, 300, 192, 128)):
             check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype)
     # the serving path's shapes (qwen3-8b: H 32, KV 8, hd 128)
     main = {}
@@ -808,6 +861,13 @@ def phase_kernels(torch):
                                                 640, 16, 128, bf16)
     main[("paged_musicgen", 128)] = check_paged(torch, pa, 4, 32, 32, 64,
                                                 640, 16, 128, bf16)
+    # deepseek-v2-lite-16b's MLA prefill: H = KV = 16, q/k 192, v 128, in
+    # both dtypes; the served path is bf16
+    for S in (1000, 1900):
+        main[("flash_mla", S)] = check_flash(torch, fa, 1, 16, 16, S, 192,
+                                             bf16, hd_v=128)
+        main[("flash_mla_fp32", S)] = check_flash(torch, fa, 1, 16, 16, S,
+                                                  192, f32, hd_v=128)
     return main
 
 
@@ -951,10 +1011,12 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
             if (f["call"], tuple(f["row"])) == (call, row):
                 f["logits_max_abs_err"] = float((a - b).abs().max())
 
-    # plain attention stacks decode through a page table; the others
-    # (RWKV, and jamba's attention + Mamba) from per-slot slabs and
-    # carries, compared layer by layer after prefill and each step
-    paged = tf.paged_stack_supported(cfg)
+    # plain attention stacks decode through a page table, MLA stacks
+    # through latent page pools; the others (RWKV, and jamba's attention +
+    # Mamba) from per-slot slabs and carries, compared layer by layer
+    # after prefill and each step
+    paged = (tf.paged_stack_supported(cfg)
+             or tf.latent_paged_stack_supported(cfg))
 
     def close_state(name):
         if paged:
@@ -1027,7 +1089,8 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
            "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
            "layers": [list(k) for k in zip(cfg.layer_kinds(),
                                            cfg.mlp_kinds())],
-           "state": ("page pools" if paged
+           "state": ("latent page pools" if cfg.mla is not None
+                     else "page pools" if paged
                      else "per-slot slabs and carries, compared"),
            "prompts": [n_prompt] * n_seq, "decode_steps": steps,
            "tol": tol, "max_abs_err": errs, "greedy_tokens": toks,
@@ -1168,7 +1231,8 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
 # the device kernels each wrapper launches per call: B1 a split and a
 # reduce pass, B2 one kernel of its dtype, B4 three passes, the rest one
 WRAPPER_KERNELS = {
-    "flash_attention": (("flash_fwd_bf16_kernel", "flash_fwd_kernel"), 1),
+    "flash_attention": ((FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel",
+                         "flash_fwd_kernel"), 1),
     "paged_decode_attention": (("paged_decode_split_kernel",
                                 "paged_decode_reduce_kernel"), 2),
     "wkv6_chunked": (WKV_CHUNKED_KERNELS, 3),
@@ -1179,7 +1243,8 @@ WRAPPER_KERNELS = {
 
 
 def _kernel_name(key):
-    """The port's __global__ name in a profiler row's key, or None."""
+    """The port's __global__ name (or named template instance) in a
+    profiler row's key, or None."""
     for name in PORT_KERNELS:
         if f"::{name}<" in key or f"::{name}(" in key:
             return name
@@ -1429,9 +1494,17 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     traced_prefill = (None if trace_prefill is None else profile_prefill(
         torch, cfg, params, ecfg, prompts[prompt_lens.index(trace_prefill)],
         device))
+    if cfg.mla is not None and traced_prefill is not None:
+        # every MLA layer's prefill attention ran the (192, 128) instance
+        mla_rows = traced_prefill["port_kernels"].get(FLASH_MLA_KERNEL, {})
+        require(mla_rows.get("launches") == cfg.layer_kinds().count("attn"),
+                f"serve: the traced {cfg.name} prefill launched "
+                f"{FLASH_MLA_KERNEL} {mla_rows.get('launches')} times, not "
+                f"once per MLA layer")
     decode_s = wall - prefill_s
     rec = {"phase": "serve", "arch": cfg.name,
            "label": f"{cfg.name} {ecfg.kv_layout}", "n_layers": n_layers,
+           "mla": cfg.mla is not None,
            "dtype": str(lm.param_dtype(cfg)).split(".")[-1],
            "engine": {k: getattr(ecfg, k) for k in (
                "slots", "cache_len", "page_size", "n_pages", "decode_span",
@@ -2056,11 +2129,34 @@ def ptxas_summary(log: str):
     return rows
 
 
+def _kernel_row(name, rec, src, replaces, by_path, main, more):
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/csrc/{src}",
+           "replaces": replaces, "launches": sum(by_path.values()),
+           "launches_by_path": by_path,
+           "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
+           "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+           "bound_by": rec["bound_by"],
+           "library_ms": rec["library_ms"],
+           "shape": rec["shape"], "checked": True}
+    if "library" in rec:
+        row["library"] = rec["library"]
+    if "x_library" in rec:
+        row["x_library"] = rec["x_library"]
+    if more:
+        row["also_at"] = [{k: main[m].get(k) for k in (
+            "shape", "dtype", "max_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "x_library")} for m in more]
+    return row
+
+
 def kernel_line(main, serves):
     """One row per kernel: its times at the main serving shape, its
     launches summed over the serve runs of the paths that run it (each
     path's own count in ``launches_by_path``). Every kernel must have run
-    on exactly the paths that declare it, and on at least one."""
+    on exactly the paths that declare it, and on at least one. B2's (192,
+    128) instance has a row of its own, at deepseek-v2-lite-16b's shape,
+    with the launches of the MLA paths."""
     rows = []
     for name, key, src, replaces, more in (
             ("flash_attention", ("flash", 1531), "flash_attention.cu",
@@ -2069,7 +2165,8 @@ def kernel_line(main, serves):
                               ("flash_moonshot", 1900),
                               ("flash_jamba", 1900), ("flash_danube", 4500),
                               ("flash_danube", 7000),
-                              ("flash_nemotron", 1900))),
+                              ("flash_nemotron", 1900), ("flash_mla", 1000),
+                              ("flash_mla", 1900))),
             ("paged_decode_attention", ("paged", 128), "paged_attention.cu",
              PAGED_REPLACES, (("paged", 16), ("paged_moonshot", 128),
                               ("paged_nemotron", 128),
@@ -2094,24 +2191,17 @@ def kernel_line(main, serves):
         require(by_path and set(by_path) == declared,
                 f"{name} ran on the paths {sorted(by_path)}, not on "
                 f"{sorted(declared)}")
-        row = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{src}",
-               "replaces": replaces, "launches": sum(by_path.values()),
-               "launches_by_path": by_path,
-               "max_abs_err": rec["max_err"], "ms": rec["kernel_ms"],
-               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-               "bound_by": rec["bound_by"],
-               "library_ms": rec["library_ms"],
-               "shape": rec["shape"], "checked": True}
-        if "library" in rec:
-            row["library"] = rec["library"]
-        if "x_library" in rec:
-            row["x_library"] = rec["x_library"]
-        if more:
-            row["also_at"] = [{k: main[m].get(k) for k in (
-                "shape", "max_err", "kernel_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "x_library")} for m in more]
-        rows.append(row)
+        rows.append(_kernel_row(name, rec, src, replaces, by_path, main,
+                                more))
+    by_path = {s["label"]: s["launches"]["flash_attention"] for s in serves
+               if s.get("mla")}
+    require(by_path and all(by_path.values()),
+            f"{FLASH_MLA_KERNEL} ran on no MLA serve path: {by_path}")
+    rows.append(_kernel_row(
+        FLASH_MLA_KERNEL, main[("flash_mla", 1900)], "flash_attention.cu",
+        FLASH_REPLACES, by_path, main, (("flash_mla", 1000),
+                                        ("flash_mla_fp32", 1000),
+                                        ("flash_mla_fp32", 1900))))
     return {"kernels": rows}
 
 
@@ -2177,6 +2267,18 @@ def main() -> int:
         phase_model(torch, dcfg.scaled(n_layers=2, dtype="float32"),
                     n_prompt=4500, n_seq=1, steps=8)
         gc.collect()
+        # the rotary angles at long positions: since the frequencies carry
+        # the reference's bits, the card's K slab stays within 2e-3 of the
+        # CPU's at 8100 tokens
+        phase_model(torch, dcfg.scaled(n_layers=2, dtype="float32"),
+                    n_prompt=8100, n_seq=1, steps=8)
+        gc.collect()
+        # deepseek-v2-lite-16b: its dense first layer and an MoE layer, MLA
+        # prefill through B2's (192, 128) instance, decode through the
+        # latent pools
+        scfg = get_config("deepseek-v2-lite-16b")
+        phase_model(torch, scfg.scaled(n_layers=2, dtype="float32"))
+        gc.collect()
         serves = []
         # moonshot and jamba last, each alone on the card after the
         # others' weights are freed: moonshot's 56.7 GB of bf16 weights and
@@ -2189,13 +2291,16 @@ def main() -> int:
         # two largest worst-case footprints, 440 + 377 pages, do not fit
         # 700 together, so that run parks; its 7000-token prefill and
         # nemotron-4-15b's 1900-token one are traced (B2 in its band, B2
-        # at G 6)
+        # at G 6). deepseek-v2-lite-16b (27 layers, 31.4 GB) serves on the
+        # latent layout; 200 pages make it park; its 1900-token prefill is
+        # traced (B2's (192, 128) instance in each of the 27 layers)
         for c, layout, n_pages, park, traced, cache_len, lens in (
                 (cfg, "paged", 640, None, None, 2048, PROMPT_LENS),
                 (rcfg, "recurrent", 4, 3, 1531, 2048, PROMPT_LENS),
                 (dcfg, "dense", 2048, 700, 7000, 8192, DANUBE_PROMPT_LENS),
                 (ncfg, "paged", 640, None, 1900, 2048, PROMPT_LENS),
                 (mcfg, "paged", 640, 200, 1900, 2048, PROMPT_LENS),
+                (scfg, "latent", 640, 200, 1900, 2048, PROMPT_LENS),
                 (jcfg, "dense", 640, 200, None, 2048, PROMPT_LENS)):
             gc.collect()
             torch.cuda.empty_cache()

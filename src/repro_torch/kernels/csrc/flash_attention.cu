@@ -3,11 +3,14 @@
 //
 // Replaces: the Pallas TPU kernel `flash_attention` / `_fa_kernel`
 // (src/repro/kernels/flash_attention.py). Same function: q [B,H,S,hd],
-// k/v [B,KV,S,hd] -> [B,H,S,hd], head h reads KV head h / (H/KV), mask
-// kpos <= qpos (and kpos > qpos - window when window > 0), fp32 online
-// softmax, masked scores -1e30, a row with no valid key returns 0. In the
-// port it takes the role of the prefill attention that the JAX model
-// computes with the jnp pair-list scan (models/attention.py).
+// k [B,KV,S,hd], v [B,KV,S,hd_v] -> [B,H,S,hd_v], head h reads KV head
+// h / (H/KV), mask kpos <= qpos (and kpos > qpos - window when window >
+// 0), fp32 online softmax, masked scores -1e30, a row with no valid key
+// returns 0. In the port it takes the role of the prefill attention that
+// the JAX model computes with the jnp pair-list scan (models/attention.py),
+// which takes a v head dim of its own: MLA (deepseek-v2-lite-16b) attends
+// with q/k of 192 (128 + 64 rotary) and v of 128. The TPU kernel uses one
+// hd for all.
 //
 // What bounds it on this card: operations, from S ~ 200 up. Causal
 // attention does about 2*S^2*hd*H flops on (4*S*hd*H) * 2 bytes: at hd 128
@@ -15,11 +18,13 @@
 // 989 TFLOP/s bf16 tensor-core rate, not the 3.35 TB/s of device memory,
 // becomes the limit.
 //
-// What the design does about it (bf16, `flash_fwd_bf16_kernel<HD>`, HD 16,
-// 32, 64 or 128):
+// What the design does about it (bf16, `flash_fwd_bf16_kernel<HD, HDV>`,
+// (HD, HDV) = (16, 16), (32, 32), (64, 64), (128, 128) or (192, 128)):
 // - QK^T and PV run on the tensor cores as Hopper warpgroup products
-//   (`wgmma.mma_async` m64n64k16 for the scores, m64nHDk16 for the
-//   output, bf16 in, fp32 accumulate). A block is one warpgroup and one
+//   (`wgmma.mma_async` m64n64k16 for the scores, HD / 16 of them a tile,
+//   m64nHDVk16 for the output, bf16 in, fp32 accumulate). V keeps its own
+//   width: at (192, 128) it is not padded to 192, which would add a third
+//   to the PV products. A block is one warpgroup and one
 //   64-row query tile. Q and K are read from shared memory (K-major); P
 //   goes from the score accumulators to the PV product in registers,
 //   rounded to bf16 there, where the plain version (and the JAX pair-list
@@ -31,6 +36,8 @@
 //   They arrive by 16-byte `cp.async` copies into two stages: the next K/V
 //   tile is in flight while the current one is multiplied, with one
 //   `__syncthreads` per tile. Rows past S are zero-filled by the copy.
+//   At (192, 128) a block holds q 24 KB, k 2 x 24 KB and v 2 x 16 KB
+//   (105 KB with the alignment), so two blocks still fit an SM's 227 KB.
 // - The online softmax runs on the fp32 accumulators in registers (quad
 //   shuffles for the row max; the row sum stays per thread until the
 //   end). Masks are computed only on the diagonal tile and the sliding
@@ -44,9 +51,10 @@
 // next tile's products, a persistent grid.
 //
 // fp32 inputs take `flash_fwd_kernel`, the FMA kernel on the CUDA cores
-// (a 64-row query tile, an 8 x 4 score block and an 8 x hd/16 output
-// block per thread, fp32 tiles in shared memory): the tests and the fp32
-// model check hold it to 2e-5, which bf16 tensor-core products would not.
+// (a 64-row query tile, an 8 x 4 score block and an 8 x hd_v/16 output
+// block per thread, fp32 tiles in shared memory; hd up to 192, hd_v up to
+// 128): the tests and the fp32 model check hold it to 2e-5, which bf16
+// tensor-core products would not.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,7 +74,8 @@ constexpr int BK = 64;       // keys per tile
 constexpr int THREADS = 128; // 8 row groups x 16 column lanes
 constexpr int RPT = 8;       // rows per thread
 constexpr int CPT = 4;       // score columns per thread (BK / 16)
-constexpr int MAX_OCOL = 8;  // output columns per thread (hd / 16 <= 8)
+constexpr int MAX_OCOL = 8;  // output columns per thread (hd_v / 16 <= 8)
+constexpr int MAX_HD = 192;  // q/k head dim
 
 __device__ __forceinline__ float reduce16_max(float v) {
 #pragma unroll
@@ -83,12 +92,13 @@ __device__ __forceinline__ float reduce16_sum(float v) {
 }
 
 // grid (ceil(S / BQ), H, B); block THREADS; dynamic shared memory:
-//   q_s [BQ][hd + 1] | k_s [BK][hd + 1] | v_s [BK][hd] | p_s [BQ][BK + 1]
+//   q_s [BQ][hd + 1] | k_s [BK][hd + 1] | v_s [BK][hdv] | p_s [BQ][BK + 1]
 __global__ void flash_fwd_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
                                  float* __restrict__ out, int H, int KV,
-                                 int S, int hd, int window, float scale) {
+                                 int S, int hd, int hdv, int window,
+                                 float scale) {
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -96,19 +106,19 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // row group: rows ty*RPT .. ty*RPT+RPT-1
   const int tx = tid % 16;  // column lane: columns tx + 16*j
-  const int ncol = hd / 16;
+  const int ncol = hdv / 16;
   const int qst = hd + 1, kst = hd + 1, pst = BK + 1;
 
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + BQ * qst;
   float* v_s = k_s + BK * kst;
-  float* p_s = v_s + BK * hd;
+  float* p_s = v_s + BK * hdv;
 
   const int q_lo = qt * BQ;
   const float* q_bh = q + ((size_t)b * H + h) * (size_t)S * hd;
   const float* k_bh = k + ((size_t)b * KV + kvh) * (size_t)S * hd;
-  const float* v_bh = v + ((size_t)b * KV + kvh) * (size_t)S * hd;
+  const float* v_bh = v + ((size_t)b * KV + kvh) * (size_t)S * hdv;
 
   for (int i = tid; i < BQ * hd; i += THREADS) {
     const int r = i / hd, d = i % hd;
@@ -133,9 +143,12 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
     for (int i = tid; i < BK * hd; i += THREADS) {
       const int c = i / hd, d = i % hd;
       const int kpos = k_lo + c;
-      const bool in = kpos < S;
-      k_s[c * kst + d] = in ? k_bh[(size_t)kpos * hd + d] : 0.f;
-      v_s[c * hd + d] = in ? v_bh[(size_t)kpos * hd + d] : 0.f;
+      k_s[c * kst + d] = kpos < S ? k_bh[(size_t)kpos * hd + d] : 0.f;
+    }
+    for (int i = tid; i < BK * hdv; i += THREADS) {
+      const int c = i / hdv, d = i % hdv;
+      const int kpos = k_lo + c;
+      v_s[c * hdv + d] = kpos < S ? v_bh[(size_t)kpos * hdv + d] : 0.f;
     }
     __syncthreads();
 
@@ -189,7 +202,7 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
       float vv[MAX_OCOL];
 #pragma unroll
       for (int j = 0; j < MAX_OCOL; ++j)
-        vv[j] = j < ncol ? v_s[c * hd + tx + 16 * j] : 0.f;
+        vv[j] = j < ncol ? v_s[c * hdv + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const float pv = p_s[(ty * RPT + i) * pst + c];
@@ -199,7 +212,7 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
     }
   }
 
-  float* o_bh = out + ((size_t)b * H + h) * (size_t)S * hd;
+  float* o_bh = out + ((size_t)b * H + h) * (size_t)S * hdv;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int qpos = q_lo + ty * RPT + i;
@@ -207,17 +220,20 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
     for (int j = 0; j < MAX_OCOL; ++j)
-      if (j < ncol) o_bh[(size_t)qpos * hd + tx + 16 * j] = acc[i][j] * inv;
+      if (j < ncol) o_bh[(size_t)qpos * hdv + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int S, int hd, int window, float scale,
+               int H, int KV, int S, int hd, int hdv, int window, float scale,
                cudaStream_t stream) {
-  if (hd % 16 != 0 || hd > 16 * MAX_OCOL) return (int)cudaErrorInvalidValue;
+  if (hd % 16 != 0 || hd > MAX_HD || hdv % 16 != 0 || hdv == 0 ||
+      hdv > 16 * MAX_OCOL)
+    return (int)cudaErrorInvalidValue;
+  // 148 KB at hd 192, hd_v 128
   const size_t smem = sizeof(float) * ((size_t)BQ * (hd + 1) +
                                        (size_t)BK * (hd + 1) +
-                                       (size_t)BK * hd + (size_t)BQ * (BK + 1));
+                                       (size_t)BK * hdv + (size_t)BQ * (BK + 1));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -225,7 +241,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, H, KV,
-      S, hd, window, scale);
+      S, hd, hdv, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -492,20 +508,26 @@ __device__ __forceinline__ void load_tile_sw(unsigned char* dst,
   }
 }
 
+// 64-column blocks of one 64-row tile of head dim `hd`
+__host__ __device__ constexpr int sw_blocks(int hd) {
+  return hd >= 64 ? hd / 64 : 1;
+}
+
 // grid (H, B, ceil(S / 64)), the query tile reversed from blockIdx.z; one
 // warpgroup (TC_THREADS); dynamic shared memory, 1024-byte aligned:
-//   q [NB blocks] | k [2][NB] | v [2][NB], NB = max(1, HD / 64)
-template <int HD>
+//   q [NB blocks] | k [2][NB] | v [2][NBV], NB = sw_blocks(HD),
+//   NBV = sw_blocks(HDV)
+template <int HD, int HDV>
 __global__ void __launch_bounds__(TC_THREADS, 2)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ out, int H, int KV,
                           int S, int window, float scale_log2) {
-  constexpr int NB = HD >= 64 ? HD / 64 : 1;
-  constexpr int TILE = NB * SW_BLOCK;  // bytes of one 64-row tile
-  constexpr int ONT = HD / 8;
-  constexpr int CPR = HD / 8;
+  constexpr int TILE = sw_blocks(HD) * SW_BLOCK;    // bytes of a q/k tile
+  constexpr int VTILE = sw_blocks(HDV) * SW_BLOCK;  // bytes of a v tile
+  constexpr int ONT = HDV / 8;
+  constexpr int CPR = HDV / 8;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -524,7 +546,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 
   const __nv_bfloat16* q_bh = q + ((size_t)b * H + h) * (size_t)S * HD;
   const __nv_bfloat16* k_bh = k + ((size_t)b * KV + kvh) * (size_t)S * HD;
-  const __nv_bfloat16* v_bh = v + ((size_t)b * KV + kvh) * (size_t)S * HD;
+  const __nv_bfloat16* v_bh = v + ((size_t)b * KV + kvh) * (size_t)S * HDV;
 
   // key tiles of the band, diagonal first: kt_hi down to kt_lo
   const int kt_hi = qt;  // TC_BQ == TC_BK: the diagonal tile
@@ -534,16 +556,16 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 
   load_tile_sw<HD>(q_s, q_bh, q_lo, S, tid);
   load_tile_sw<HD>(k_s, k_bh, kt_hi * TC_BK, S, tid);
-  load_tile_sw<HD>(v_s, v_bh, kt_hi * TC_BK, S, tid);
+  load_tile_sw<HDV>(v_s, v_bh, kt_hi * TC_BK, S, tid);
   cp_async_commit();
 
   const int row0 = q_lo + warp * 16 + (lane >> 2);
   const int row1 = row0 + 8;
   const int col = (lane & 3) * 2;
 
-  float o[HD / 2];
+  float o[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -557,12 +579,12 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     if (it + 1 < n_tiles) {
       load_tile_sw<HD>(k_s + (buf ^ 1) * TILE, k_bh, (kt - 1) * TC_BK, S,
                        tid);
-      load_tile_sw<HD>(v_s + (buf ^ 1) * TILE, v_bh, (kt - 1) * TC_BK, S,
-                       tid);
+      load_tile_sw<HDV>(v_s + (buf ^ 1) * VTILE, v_bh, (kt - 1) * TC_BK, S,
+                        tid);
       cp_async_commit();
     }
     const unsigned char* kb = k_s + buf * TILE;
-    const unsigned char* vb = v_s + buf * TILE;
+    const unsigned char* vb = v_s + buf * VTILE;
 
     // S = Q K^T: 64 x 64, HD / 16 k-steps, 32 bytes apart in a swizzled
     // row, the next 64 columns one block further
@@ -600,7 +622,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<HD>(o, pf[kk], sw128_desc(vb + kk * 2048, SW_BLOCK, 1024));
+      wgmma_pv<HDV>(o, pf[kk], sw128_desc(vb + kk * 2048, SW_BLOCK, 1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -616,7 +638,7 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   // stage the 64 rows in the K buffers (free once every product is done)
   // with padded rows, then write them out as 16-byte rows
   __syncthreads();
-  constexpr int OST = HD + TC_PAD;
+  constexpr int OST = HDV + TC_PAD;
   __nv_bfloat16* os = reinterpret_cast<__nv_bfloat16*>(k_s) + warp * 16 * OST;
 #pragma unroll
   for (int j = 0; j < ONT; ++j) {
@@ -627,29 +649,31 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
         pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   __syncwarp();
-  __nv_bfloat16* o_bh = out + ((size_t)b * H + h) * (size_t)S * HD;
+  __nv_bfloat16* o_bh = out + ((size_t)b * H + h) * (size_t)S * HDV;
 #pragma unroll
   for (int i = lane; i < 16 * CPR; i += 32) {
     const int r = i / CPR, c = i % CPR;
     const int qpos = q_lo + warp * 16 + r;
     if (qpos < S)
-      *reinterpret_cast<uint4*>(o_bh + (size_t)qpos * HD + c * 8) =
+      *reinterpret_cast<uint4*>(o_bh + (size_t)qpos * HDV + c * 8) =
           *reinterpret_cast<const uint4*>(os + r * OST + c * 8);
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                  int B, int H, int KV, int S, int window, float scale,
                  cudaStream_t stream) {
-  constexpr int NB = HD >= 64 ? HD / 64 : 1;
-  const size_t smem = (size_t)5 * NB * SW_BLOCK + 1024;
+  // q, two k stages and two v stages, and the 1024-byte alignment:
+  // 107,520 bytes at (192, 128)
+  const size_t smem =
+      (size_t)(3 * sw_blocks(HD) + 2 * sw_blocks(HDV)) * SW_BLOCK + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_bf16_kernel<HD, HDV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (S + TC_BQ - 1) / TC_BQ);
-  flash_fwd_bf16_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+  flash_fwd_bf16_kernel<HD, HDV><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, KV, S, window,
       scale * LOG2E);
@@ -660,27 +684,34 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 extern "C" {
 
-// dtype: 0 = float32 (hd a multiple of 16, <= 128), 1 = bfloat16 (hd 16,
-// 32, 64 or 128; q, k, v 16-byte aligned). The wrapper checks both.
-// Returns a cudaError_t (0 = success).
+// q/k head dim hd, v and out head dim hd_v. dtype: 0 = float32 (hd a
+// multiple of 16 up to 192, hd_v one up to 128), 1 = bfloat16 ((hd, hd_v)
+// one of (16, 16), (32, 32), (64, 64), (128, 128), (192, 128); q, k, v
+// 16-byte aligned). The wrapper checks both. Returns a cudaError_t (0 =
+// success).
 int flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int KV, int S, int hd, int window, float scale,
+              int H, int KV, int S, int hd, int hd_v, int window, float scale,
               int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, KV, S, hd, window, scale, st);
+    return launch_f32(q, k, v, out, B, H, KV, S, hd, hd_v, window, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 16:
-      return launch_bf16<16>(q, k, v, out, B, H, KV, S, window, scale, st);
-    case 32:
-      return launch_bf16<32>(q, k, v, out, B, H, KV, S, window, scale, st);
-    case 64:
-      return launch_bf16<64>(q, k, v, out, B, H, KV, S, window, scale, st);
-    case 128:
-      return launch_bf16<128>(q, k, v, out, B, H, KV, S, window, scale, st);
+  const int pair = hd * 1000 + hd_v;
+  switch (pair) {
+    case 16016:
+      return launch_bf16<16, 16>(q, k, v, out, B, H, KV, S, window, scale, st);
+    case 32032:
+      return launch_bf16<32, 32>(q, k, v, out, B, H, KV, S, window, scale, st);
+    case 64064:
+      return launch_bf16<64, 64>(q, k, v, out, B, H, KV, S, window, scale, st);
+    case 128128:
+      return launch_bf16<128, 128>(q, k, v, out, B, H, KV, S, window, scale,
+                                   st);
+    case 192128:
+      return launch_bf16<192, 128>(q, k, v, out, B, H, KV, S, window, scale,
+                                   st);
     default:
       return (int)cudaErrorInvalidValue;
   }

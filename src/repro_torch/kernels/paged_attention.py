@@ -222,7 +222,9 @@ def paged_append(k_pages, v_pages, k_new, v_new, page_table, positions,
                  active: Optional[torch.Tensor] = None):
     """Write one token's K/V per slot into the shared pools, IN PLACE.
 
-    k_pages/v_pages: [NP, page, KV, hd]; k_new/v_new: [B, KV, hd];
+    k_pages/v_pages: [NP, page, ...] (K/V pools [NP, page, KV, hd], or
+    MLA's latent pools [NP, page, lora] and [NP, page, rope]); k_new/
+    v_new: [B, ...], one row of each pool's trailing shape per slot;
     page_table: [B, MP]; positions: [B] slot each token lands at.
     ``active`` [B] bool: inactive (parked, finished or free) slots' writes
     are dropped, so a frozen sequence never touches pages owned by another.
@@ -254,8 +256,9 @@ def paged_append(k_pages, v_pages, k_new, v_new, page_table, positions,
     tgt_off = torch.where(active, off, off[first])
     for pages, new in ((k_pages, k_new), (v_pages, v_new)):
         new = new.to(pages.dtype)
-        first_val = torch.where(active[first].reshape(1, 1, 1), new[first],
-                                pages[pid[first], off[first]])  # [1,KV,hd]
-        val = torch.where(active[:, None, None], new, first_val)
+        rows = (-1,) + (1,) * (new.dim() - 1)
+        first_val = torch.where(active[first].reshape(rows), new[first],
+                                pages[pid[first], off[first]])  # [1, ...]
+        val = torch.where(active.reshape(rows), new, first_val)
         pages[tgt_pid, tgt_off] = val
     return k_pages, v_pages

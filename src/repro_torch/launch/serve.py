@@ -12,6 +12,8 @@ each QoS class.
       --kv-layout recurrent
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --kv-layout dense --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v2-lite-16b --kv-layout latent --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
       --prefill-chunk 64 --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
@@ -24,13 +26,13 @@ each QoS class.
 runs on the first CUDA card with random weights; ``--smoke`` takes the
 reduced config and ``--device cpu`` the plain PyTorch path. The flags
 match ``repro.launch.serve`` for what the port serves: the dense layout
-(every ported config, the default, as in the reference), the paged
-layout (plain attention) and the recurrent layout (RWKV), greedy and
+(every config, the default, as in the reference), the paged layout
+(plain attention), the latent layout (MLA) and the recurrent layout
+(RWKV), greedy and
 stochastic sampling (a temperature above 0 picks ``stochastic``),
 monolithic or chunked prefill, the block prefix cache (the engine's
 default 32 entries; plain attention stacks on dense and paged) and live
-mode. The latent layout and crash snapshots wait for their slices
-(ROADMAP A8, A11). The full jamba-v0.1-52b needs 103 GB of bf16
+mode. Crash snapshots wait for their slice (ROADMAP A11). The full jamba-v0.1-52b needs 103 GB of bf16
 weights, more than one 80 GB card holds.
 """
 from __future__ import annotations
@@ -115,11 +117,12 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=160)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--kv-layout", choices=("dense", "paged", "recurrent"),
+    ap.add_argument("--kv-layout",
+                    choices=("dense", "paged", "latent", "recurrent"),
                     default="dense",
                     help="StateBackend name: dense serves every config; "
-                         "paged needs plain attention; recurrent needs "
-                         "pure RWKV (rwkv6-1.6b)")
+                         "paged needs plain attention; latent needs "
+                         "all-MLA; recurrent needs pure RWKV/Mamba")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=0,
                     help="device page budget; 0 derives it from "

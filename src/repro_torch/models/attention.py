@@ -26,26 +26,34 @@ NEG_INF = -1e30
 def chunked_causal_attention(q, k, v, *, window: int = 0,
                              scale: Optional[float] = None):
     """q: [B,S,H,hd], k: [B,S,KV,hd], v: [B,S,KV,hd_v] -> [B,S,H,hd_v]
-    (causal, +SWA), for any hd and hd_v up to B2's largest head dim.
+    (causal, +SWA), for any hd and hd_v B2 has an instance for or up to
+    its largest square head dim.
 
-    B2 is built for the head dims ``fa.HEAD_DIMS``; q, k and v are
-    zero-padded to the smallest of them that holds both hd and hd_v, with
-    the scale of the unpadded q passed explicitly. The zero columns add
-    nothing to the scores, and the output's padded columns are sliced
-    off. The CPU path takes the same route."""
+    B2 is built for the (hd, hd_v) pairs ``fa.INSTANCES``: the square
+    head dims ``fa.HEAD_DIMS`` and MLA's q/k 192 with v 128, which runs
+    as it is. Other head dims zero-pad q, k and v to the smallest square
+    head dim that holds both hd and hd_v, with the scale of the unpadded
+    q passed explicitly. The zero columns add nothing to the scores, and
+    the output's padded columns are sliced off. The CPU path takes the
+    same route."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     width = max(hd, hd_v)
-    if width > fa.HEAD_DIMS[-1]:
+    if (hd, hd_v) in fa.INSTANCES:
+        P = None
+    elif width <= fa.HEAD_DIMS[-1]:
+        P = next(d for d in fa.HEAD_DIMS if d >= width)
+    else:
         raise ValueError(
             f"chunked_causal_attention: head dims q/k {hd}, v {hd_v}; B2 "
-            f"takes at most {fa.HEAD_DIMS[-1]} (MLA's 192 needs an instance "
-            f"or a split of B2: ROADMAP item A8)")
-    P = next(d for d in fa.HEAD_DIMS if d >= width)
+            f"is built for (q/k, v) {fa.INSTANCES} and pads others up to "
+            f"{fa.HEAD_DIMS[-1]}")
 
-    def heads_first(t):                  # [B,S,n,d] -> [B,n,S,P]
-        return torch.nn.functional.pad(t.transpose(1, 2),
-                                       (0, P - t.shape[-1])).contiguous()
+    def heads_first(t):                  # [B,S,n,d] -> [B,n,S,P or d]
+        t = t.transpose(1, 2)
+        if P is not None:
+            t = torch.nn.functional.pad(t, (0, P - t.shape[-1]))
+        return t.contiguous()
 
     out = fa.flash_attention(heads_first(q), heads_first(k),
                              heads_first(v), window=window, scale=scale)

@@ -32,7 +32,6 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
                       dtype=torch.float32) -> dict:
     """{embed, stack: {prefix, groups}, final_norm[, head]} numpy tree ->
     {embed, blocks: [one dict per layer], final_norm[, head]} tensors."""
-    tf.check_supported(cfg)
     device = resolve_device(device)
 
     def tensor(a):

@@ -1,8 +1,10 @@
 """Common layer primitives: RMS norm, rotary embedding, dense MLPs."""
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -17,14 +19,52 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
 
 
+# the Cephes polynomial XLA's CPU backend emits for float32 exp
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def _fma32(a, b, c):
+    """float32 fused multiply-add: the float64 product of two float32
+    values is exact, and the sum rounds once to float32."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def exp_f32(x) -> np.ndarray:
+    """float32 exp with the bits of ``jnp.exp`` on XLA's CPU backend:
+    n = floor(x log2(e) + 1/2), r = x - n ln 2 in two fused steps, the
+    degree-5 polynomial in fused multiply-adds, times 2^n. ``torch.exp``
+    and ``np.exp`` differ from it by an ulp on some inputs, and an ulp of
+    a rotary frequency, times the position, grows along the sequence."""
+    x = np.asarray(x, np.float32)
+    n = np.floor(x * np.float32(1.44269504088896341) + np.float32(0.5))
+    r = _fma32(n, np.float32(-0.693359375), x)
+    r = _fma32(n, np.float32(2.12194440e-4), r)
+    y = np.full_like(x, np.float32(_EXP_POLY[0]))
+    for c in _EXP_POLY[1:]:
+        y = _fma32(y, r, np.float32(c))
+    y = _fma32(y, r * r, r) + np.float32(1)
+    return np.ldexp(y, n.astype(np.int32)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_freqs(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """[dim//2] rotary frequencies exp(-ln(theta) * 2i / dim), the
+    reference's bits (``exp_f32``), computed once on the host per (dim,
+    theta) and kept on each device they are asked for (read-only)."""
+    arg = (np.float32(-math.log(theta))
+           * np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim))
+    return torch.from_numpy(exp_f32(arg)).to(device)
+
+
 def rope_angles(positions: torch.Tensor, dim: int,
                 theta: float) -> torch.Tensor:
-    """[..., dim//2] rotary angles for integer positions."""
-    freqs = torch.exp(
-        -math.log(theta)
-        * torch.arange(0, dim, 2, dtype=torch.float32,
-                       device=positions.device) / dim)
-    return positions.float()[..., None] * freqs
+    """[..., dim//2] rotary angles for integer positions: the float32
+    product of each position and frequency, which rounds alike on every
+    device, so the angles are the reference's bit for bit."""
+    return positions.float()[..., None] * rope_freqs(dim, theta,
+                                                     positions.device)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

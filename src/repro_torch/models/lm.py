@@ -10,13 +10,15 @@ slabs of the ``dense`` layout, Mamba's and RWKV's carries); decode
 updates it in place.
 
 ``prefill_chunk`` extends dense caches by one prompt chunk (chunked
-prefill, plain attention stacks). Four families are served: plain
-attention with dense MLPs (SwiGLU, squared ReLU or GELU; QKV biases,
-qk-norm and sliding-window ring caches as the config says: qwen3-8b,
-qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
+prefill, plain attention stacks). Every family of the registry is
+served: plain attention with dense MLPs (SwiGLU, squared ReLU or GELU;
+QKV biases, qk-norm and sliding-window ring caches as the config says:
+qwen3-8b, qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
 musicgen-large), the same attention with MoE MLPs after ``first_dense``
-dense layers (moonshot-v1-16b-a3b), the Mamba + attention + MoE hybrid
-(jamba-v0.1-52b), and pure RWKV-6 stacks (rwkv6-1.6b). ``decode_span``
+dense layers (moonshot-v1-16b-a3b), MLA attention with MoE MLPs
+(deepseek-v2-lite-16b; latent caches, on per-slot slabs or shared
+latent page pools), the Mamba + attention + MoE hybrid (jamba-v0.1-52b),
+and pure RWKV-6 stacks (rwkv6-1.6b). ``decode_span``
 and ``select_token`` pick tokens through a pluggable sampler with keys
 derived on the device (kernels/sampling.py).
 """
@@ -30,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import sampling as ksamp
-from repro_torch.models import mamba, moe, rwkv
+from repro_torch.models import mamba, mla, moe, rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_dense_mlp, rms_norm
 
@@ -46,14 +48,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     """Random weights with the shapes and scales of the JAX
     ``lm.init_params``: normal draws from ``generator``, made on the
     generator's device and moved to ``device`` (``cuda`` unless given).
-    Attention layers hold ``{"attn": ...}``, Mamba layers ``{"mamba":
+    Attention layers hold ``{"attn": ...}`` (MLA's weights for an MLA
+    config, ``models/mla.py``), Mamba layers ``{"mamba":
     ...}`` (``dt_bias``, ``A_log`` and ``D_skip`` in fp32), RWKV layers
     ``{"rwkv": ...}``; attention and Mamba layers whose MLP kind is "moe"
     hold ``{"moe": ...}`` (an fp32 router, experts and shared experts),
     the others ``{"mlp": ...}``.
     The two frameworks' generators differ, so the numbers do too; the
     weight bridge (models/convert.py) carries JAX weights across."""
-    tf.check_supported(cfg)
     device = resolve_device(device)
     dtype = param_dtype(cfg, dtype)
     d, V, hd, ff = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.d_ff
@@ -88,6 +90,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         if kind == "mamba":
             block["mamba"] = mamba.init_mamba(cfg, normal, uniform, dtype,
                                               device)
+        elif cfg.mla is not None:
+            block["attn"] = mla.init_mla(cfg, normal, dtype, device)
         else:
             block["attn"] = {
                 "wq": normal((d, H * hd), 1.0 / math.sqrt(d)),
@@ -260,7 +264,6 @@ def init_serve_state(cfg: ModelConfig, batch: int, cache_len: int,
                      dtype=None, device=None) -> dict:
     """Fresh per-slot decoding state (the reference's ``filled=False``):
     every layer's state zeroed, lengths and positions 0."""
-    tf.check_supported(cfg)
     device = resolve_device(device)
     dtype = param_dtype(cfg, dtype)
     i32 = dict(dtype=torch.int32, device=device)
@@ -274,9 +277,18 @@ def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
                            page_size: int, max_pages: int, dtype=None,
                            device=None) -> dict:
     """Paged decoding state: shared per-layer page pools + per-slot table
-    (rows rewritten by the engine as the PagePool allocates)."""
-    tf.check_supported(cfg)
-    if not tf.paged_stack_supported(cfg):
+    (rows rewritten by the engine as the PagePool allocates). The pools
+    are [n_pages, page_size, KV, hd] K and V (plain attention) or
+    [n_pages, page_size, lora|rope] latent pools (MLA)."""
+    device = resolve_device(device)
+    dtype = param_dtype(cfg, dtype)
+    if tf.paged_stack_supported(cfg):
+        caches = tf.init_paged_stack_caches(cfg, n_pages, page_size, dtype,
+                                            device)
+    elif tf.latent_paged_stack_supported(cfg):
+        caches = tf.init_latent_paged_stack_caches(cfg, n_pages, page_size,
+                                                   dtype, device)
+    else:
         # the reference's message: page indirection needs per-token cache
         # blocks, which SWA rings and recurrent (mamba/rwkv) carries
         # don't have
@@ -287,11 +299,8 @@ def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
             f"kinds {kinds}, swa_window={cfg.swa_window}) has none — use "
             f"the 'dense' layout (serves every config) or 'recurrent' "
             f"(constant-size state for pure RWKV/Mamba configs)")
-    device = resolve_device(device)
-    dtype = param_dtype(cfg, dtype)
     i32 = dict(dtype=torch.int32, device=device)
-    return {"caches": tf.init_paged_stack_caches(cfg, n_pages, page_size,
-                                                 dtype, device),
+    return {"caches": caches,
             "lengths": torch.zeros(batch, **i32),
             "positions": torch.zeros(batch, **i32),
             "page_table": torch.zeros(batch, max_pages, **i32)}

@@ -5,12 +5,13 @@ The JAX model stacks its repeating unit of blocks with a grouped
 eagerly, so the port holds one block per layer, in layer order: a params
 dict ``{"blocks": [block, ...]}`` and a cache list with one entry per
 layer. ``plan_layers`` is kept to read the reference's grouped layout
-(models/convert.py). The port serves four families so far: plain
-attention layers with dense MLPs (SwiGLU, squared ReLU or GELU), the same
-layers with MoE MLPs (``models/moe.py``; layers before ``first_dense``
-keep a dense MLP), hybrids that interleave such attention layers with
-Mamba layers (``models/mamba.py``, jamba), and pure RWKV-6 stacks (time-
-and channel-mix, no MLP). MLA raises until its slice (ROADMAP item A8).
+(models/convert.py). The port serves every family of the reference:
+plain attention layers with dense MLPs (SwiGLU, squared ReLU or GELU),
+the same layers with MoE MLPs (``models/moe.py``; layers before
+``first_dense`` keep a dense MLP), MLA attention layers
+(``models/mla.py``) with the same MLPs, hybrids that interleave plain
+attention layers with Mamba layers (``models/mamba.py``, jamba), and
+pure RWKV-6 stacks (time- and channel-mix, no MLP).
 
 Attention decodes through a shared page pool (``paged`` layout) when the
 decode state carries a page table, else against per-slot slabs
@@ -18,7 +19,10 @@ decode state carries a page table, else against per-slot slabs
 the slab is a ring of ``min(W, cache_len)`` rows, slot ``t % W`` holding
 token t, so the window is implicit in what the slab holds; such stacks
 serve on ``dense`` only, monolithically (``paged_stack_supported``,
-``chunked_prefill_supported``). Mamba and RWKV layers
+``chunked_prefill_supported``). MLA layers cache the latent ``{c_kv,
+k_rope}`` rows of each token: per-slot slabs on ``dense``, or shared
+latent page pools behind the page table (the ``latent`` layout,
+``latent_paged_stack_supported``), monolithically. Mamba and RWKV layers
 carry constant-size per-slot state. The ``prefill_chunk`` mode extends a
 dense cache by one prompt chunk (chunked prefill): plain attention
 stacks only (``chunked_prefill_supported``); the engine stages a paged
@@ -41,7 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
-from repro_torch.models import mamba, moe, rwkv
+from repro_torch.models import mamba, mla, moe, rwkv
 from repro_torch.models.attention import (chunk_prefix_attention,
                                           chunked_causal_attention,
                                           decode_attention,
@@ -67,21 +71,18 @@ def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
     return pairs, [], 0
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for MLA attention, naming the ROADMAP item that waits for
-    it: every other config of the registry is served."""
-    if cfg.mla is not None:
-        raise ValueError(
-            f"{cfg.name}: the port serves plain (GQA, optionally sliding-"
-            f"window) attention, Mamba and RWKV-6 layers with dense or MoE "
-            f"MLPs so far; MLA attention waits for ROADMAP item A8 (MLA)")
-
-
 def paged_stack_supported(cfg: ModelConfig) -> bool:
     """Paged KV needs every layer to be plain (non-MLA, non-SWA)
     attention."""
     return (all(k == "attn" for k in cfg.layer_kinds())
             and cfg.mla is None and cfg.swa_window == 0)
+
+
+def latent_paged_stack_supported(cfg: ModelConfig) -> bool:
+    """Latent pages need every layer to be MLA attention (no SWA
+    ring)."""
+    return (all(k == "attn" for k in cfg.layer_kinds())
+            and cfg.mla is not None and cfg.swa_window == 0)
 
 
 def chunked_prefill_supported(cfg: ModelConfig) -> bool:
@@ -147,6 +148,20 @@ def attn_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
             pad = slab_len(cfg, ctx.get("cache_len", S)) - S
             cache = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
                      "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    return out, cache
+
+
+def mla_forward(x, p, cfg: ModelConfig, ctx, want_cache: bool = False):
+    """MLA prefill. x: [B,S,D]. The cache, when wanted, is the latent
+    {c_kv, k_rope} rows zero-padded to ``ctx["cache_len"]``."""
+    S = x.shape[1]
+    angles = rope_angles(torch.arange(S, device=x.device),
+                         cfg.mla.qk_rope_dim, cfg.rope_theta)
+    out, cache = mla.mla_prefill(x, p, cfg, angles, want_cache=want_cache)
+    if cache is not None:
+        pad = ctx.get("cache_len", S) - S
+        cache = {n: torch.nn.functional.pad(t, (0, 0, 0, max(pad, 0)))
+                 for n, t in cache.items()}
     return out, cache
 
 
@@ -234,6 +249,54 @@ def attn_decode(x, p, cfg: ModelConfig, ctx, cache):
     return out.reshape(B, -1) @ p["wo"], cache
 
 
+def mla_decode_dense(x, p, cfg: ModelConfig, ctx, cache):
+    """MLA decode against per-slot latent slabs (the reference's
+    ``_mla_decode_wrap``). x: [B,D]; cache {c_kv: [B,Smax,lora], k_rope:
+    [B,Smax,rope]}. ``mla.mla_decode`` writes the new rows in place and
+    attends over ``min(lengths + 1, Smax)`` entries (with the new row);
+    then the rows of inactive slots get their old values back (the
+    reference's freeze)."""
+    positions = ctx["positions"]
+    Smax = cache["c_kv"].shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)
+    slot = torch.clamp(positions, max=Smax - 1).long()
+    active = ctx.get("active")
+    old = ({n: t[rows, slot] for n, t in cache.items()}
+           if active is not None else None)
+    out = mla.mla_decode(x, p, cfg, cache, positions,
+                         torch.clamp(ctx["lengths"] + 1, max=Smax))
+    if active is not None:
+        for n, t in cache.items():
+            t.index_put_((rows, slot), torch.where(active[:, None],
+                                                   t[rows, slot], old[n]))
+    return out, cache
+
+
+def mla_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
+    """MLA decode against shared latent pages (the ``latent`` layout; the
+    reference's ``_mla_decode_paged``). cache {c_kv: [NP,page,lora],
+    k_rope: [NP,page,rope]} is the pool shared by every slot; ctx carries
+    positions/lengths [B], page_table [B,MP] and the optional ``active``
+    mask. Each slot's latent rows are gathered through the table into
+    token order (a copy), the absorbed math runs on that dense view as on
+    the dense layout, and only the new token's row goes back into its
+    page, inactive slots' writes dropped (``paged_append``)."""
+    table = ctx["page_table"]
+    positions = ctx["positions"]
+    B, MP = table.shape
+    L = MP * cache["c_kv"].shape[1]
+    view = {n: t[table.long()].reshape(B, L, t.shape[-1])
+            for n, t in cache.items()}
+    out = mla.mla_decode(x, p, cfg, view, positions,
+                         torch.clamp(ctx["lengths"] + 1, max=L))
+    rows = torch.arange(B, device=x.device)
+    slot = torch.clamp(positions, max=L - 1).long()
+    paged_append(cache["c_kv"], cache["k_rope"], view["c_kv"][rows, slot],
+                 view["k_rope"][rows, slot], table, positions,
+                 active=ctx.get("active"))
+    return out, cache
+
+
 def commit_slots(cache, new, active=None):
     """Write a decode step's new per-slot state into ``cache`` IN PLACE.
     Slots where ``active`` is False (parked, finished or free) keep their
@@ -297,11 +360,17 @@ def _mixer(h, kind: str, p, cfg: ModelConfig, ctx, cache,
         if kind == "mamba":
             return mamba.mamba_forward(h, p["mamba"], cfg, state=cache,
                                        want_state=want_cache)
+        if cfg.mla is not None:
+            return mla_forward(h, p["attn"], cfg, ctx, want_cache)
         return attn_forward(h, p["attn"], cfg, ctx, want_cache=want_cache)
     if kind == "mamba":
         a, new = mamba.mamba_decode(h, p["mamba"], cfg, cache)
         return a, commit_slots(cache, new, ctx.get("active"))
-    if ctx.get("page_table") is not None:
+    paged = ctx.get("page_table") is not None
+    if cfg.mla is not None:
+        return (mla_decode_paged if paged else mla_decode_dense)(
+            h, p["attn"], cfg, ctx, cache)
+    if paged:
         return attn_decode_paged(h, p["attn"], cfg, ctx, cache)
     return attn_decode(h, p["attn"], cfg, ctx, cache)
 
@@ -352,11 +421,18 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
                      cache_len: int, dtype, device) -> Dict[str, torch.Tensor]:
     """Per-slot state of one layer, as the reference's
     ``init_block_cache``: attention slabs {k, v: [B, slab_len, KV, hd]}
-    (``slab_len``) in the model dtype (the dense layout); Mamba's conv
+    (``slab_len``), or MLA's {c_kv: [B, cache_len, lora], k_rope: [B,
+    cache_len, rope]}, in the model dtype (the dense layout); Mamba's conv
     window [B, K-1, Di] in the model dtype and its SSM state [B, Di, N]
     fp32; RWKV's [B,H,hd,hd] fp32 carry and its two token-shift rows
     [B,D] in the model dtype."""
     d = cfg.d_model
+    if kind == "attn" and cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": torch.zeros(batch, cache_len, m.kv_lora_rank,
+                                    dtype=dtype, device=device),
+                "k_rope": torch.zeros(batch, cache_len, m.qk_rope_dim,
+                                      dtype=dtype, device=device)}
     if kind == "attn":
         shape = (batch, slab_len(cfg, cache_len), cfg.n_kv_heads,
                  cfg.head_dim)
@@ -396,9 +472,24 @@ def init_paged_stack_caches(cfg: ModelConfig, n_pages: int, page_size: int,
             for _ in range(cfg.n_layers)]
 
 
+def init_latent_paged_stack_caches(cfg: ModelConfig, n_pages: int,
+                                   page_size: int, dtype,
+                                   device) -> List[Dict[str, torch.Tensor]]:
+    """Shared latent pools: every MLA layer holds [NP, page, lora] and
+    [NP, page, rope] pools, the absorbed decode's cache behind the same
+    page table as ``init_paged_stack_caches``, at lora + rope values per
+    token instead of 2 KV hd."""
+    m = cfg.mla
+    return [{"c_kv": torch.zeros(n_pages, page_size, m.kv_lora_rank,
+                                 dtype=dtype, device=device),
+             "k_rope": torch.zeros(n_pages, page_size, m.qk_rope_dim,
+                                   dtype=dtype, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
 def dense_to_pages(dense_caches, n_pages: int, page_size: int):
     """Chunk a batch-1 dense cache list into page-granular data: leaves
-    [1, L, KV, hd] -> [n_pages, page, KV, hd] (L >= n_pages * page; the
+    [1, L, ...] -> [n_pages, page, ...] (L >= n_pages * page; the
     prefill pads to cache_len, so tail pages past the length are zeros,
     masked by ``lengths`` at attention time)."""
     def one(d):
@@ -421,11 +512,15 @@ def pages_to_dense(page_caches, cache_len: int, page_size: int):
     return [{k: one(v) for k, v in layer.items()} for layer in page_caches]
 
 
+def _device(pool_caches) -> torch.device:
+    return next(iter(pool_caches[0].values())).device
+
+
 def gather_pages(pool_caches, page_ids):
     """Pull the listed pages out of every pool (copies, on the pools'
     device)."""
     ids = torch.as_tensor(page_ids, dtype=torch.long,
-                          device=pool_caches[0]["k"].device)
+                          device=_device(pool_caches))
     return [{k: pool[ids] for k, pool in layer.items()}
             for layer in pool_caches]
 
@@ -433,7 +528,7 @@ def gather_pages(pool_caches, page_ids):
 def scatter_pages(pool_caches, page_data, page_ids):
     """Write page-granular data into the listed pool pages, IN PLACE.
     Returns the same pool list."""
-    dev = pool_caches[0]["k"].device
+    dev = _device(pool_caches)
     ids = torch.as_tensor(page_ids, dtype=torch.long, device=dev)
     for layer, data in zip(pool_caches, page_data):
         for k, pool in layer.items():

@@ -7,8 +7,8 @@ drives subsystems behind protocols, selected by name from
   Scheduler        <- Queue Subsystem: admission order over QoS classes
   StateBackend     <- Resource Subsystem: page accounting + the decode
                       state layout (per-slot dense slabs, the paged KV
-                      pool behind page tables, or per-slot recurrent
-                      carries)
+                      pool behind page tables, MLA latent pages, or
+                      per-slot recurrent carries)
   ParkingTransport <- Transport Subsystem: host-tier park/restore moves
   Sampler          <- per-token selection on the device
   Frontend         <- the client side: continuous arrivals, per-token
@@ -17,10 +17,9 @@ drives subsystems behind protocols, selected by name from
 The port keeps its own registries, so its parts never collide with the
 JAX package's names. The protocols list what the port implements: crash
 snapshots (and the front end's ``reattach``) join them with their slice
-(ROADMAP queue A). ``EngineConfig`` refuses the settings that are not
-ported yet, naming the slice that brings each. ``make_engine`` wires an
-engine from an ``EngineConfig`` and ``make_frontend`` a front end over
-it.
+(ROADMAP queue A). ``EngineConfig`` refuses a layout other than the
+four built-ins. ``make_engine`` wires an engine from an
+``EngineConfig`` and ``make_frontend`` a front end over it.
 """
 from __future__ import annotations
 
@@ -117,12 +116,11 @@ class EngineConfig:
                                   # this instead of queued at full length
 
     def __post_init__(self):
-        if self.kv_layout not in ("dense", "paged", "recurrent"):
+        if self.kv_layout not in ("dense", "paged", "latent", "recurrent"):
             raise ValueError(
                 f"kv_layout {self.kv_layout!r} is not ported yet: the port "
-                f"serves 'dense' (every ported config), 'paged' (plain "
-                f"attention) and 'recurrent' (RWKV); the 'latent' backend "
-                f"waits for ROADMAP item A8")
+                f"serves 'dense' (every config), 'paged' (plain attention), "
+                f"'latent' (all-MLA) and 'recurrent' (RWKV)")
 
 
 class ParkMeta(NamedTuple):

@@ -1,5 +1,5 @@
 """Built-in StateBackends of the port (Resource Subsystem): ``dense``,
-``paged`` and ``recurrent``.
+``paged``, ``latent`` and ``recurrent``, the reference's four.
 
 - `DenseKV` ("dense") keeps per-slot `[slots, cache_len, KV, hd]`
   attention slabs (with a sliding window W, rings of `min(W, cache_len)`
@@ -15,6 +15,9 @@
   prompt footprint only, growth happens at page boundaries, park moves
   exactly a sequence's pages to host tensors, and `sync` re-exports the
   tables into the decode state only when park/admit/growth dirtied them.
+- `LatentPagedKV` ("latent") is a `PagedKV` over MLA's latent pools,
+  `[n_pages, page_size, kv_lora_rank]` and `[n_pages, page_size,
+  qk_rope_dim]` per layer, for all-MLA stacks (deepseek-v2-lite-16b).
 - `RecurrentState` ("recurrent") holds pure RWKV stacks' constant-size
   carries (`[H, hd, hd]` wkv state + two token-shift rows per layer) in
   per-slot slabs: footprint 1, no growth, park/unpark moves the carry.
@@ -26,10 +29,9 @@ for full-attention stacks (`transformer.chunked_prefill_supported`):
 prefix cache one page-aligned block (a page id on `paged`, pinned by
 refcount through `cache_retain`/`cache_release`; a copy of the block's
 rows on `dense`) and `share_prefix` installs cached blocks in a slot.
-`recurrent` declines both.
+`latent` and `recurrent` decline both.
 
-State tensors are written in place. The ``latent`` backend of the JAX
-package waits for its slice (ROADMAP A8).
+State tensors are written in place.
 """
 from __future__ import annotations
 
@@ -200,6 +202,35 @@ class PagedKV(_PooledKV):
                 device=self.device)
             self._dirty = False
         return state
+
+
+@register_state_backend("latent")
+class LatentPagedKV(PagedKV):
+    """MLA's latent cache behind the paged page table.
+
+    The pool mechanics of `PagedKV` (page tables, alloc-on-append growth,
+    page-granular park/unpark), with pool leaves that hold the absorbed
+    decode's cache of `models/mla.py`: `[n_pages, page, kv_lora_rank]` and
+    `[n_pages, page, qk_rope_dim]` per layer. Decode runs the absorbed
+    path through the table (`transformer.mla_decode_paged`).
+
+    Chunked prefill and prefix sharing are declined, as in the reference:
+    MLA prefill is monolithic (no per-chunk latent extension), and the
+    capability flags, not a config sniff, tell the engine.
+    """
+
+    def __init__(self, cfg, ecfg: EngineConfig, device):
+        if not tf.latent_paged_stack_supported(cfg):
+            kinds = sorted(set(cfg.layer_kinds()))
+            raise ValueError(
+                f"latent-paged serving needs every layer to be MLA "
+                f"attention (cfg.mla set, no SWA ring); {cfg.name} has "
+                f"layer kinds {kinds} with mla={cfg.mla is not None}, "
+                f"swa_window={cfg.swa_window} — use 'dense' (any config) "
+                f"or 'paged' (plain-attention configs)")
+        super().__init__(cfg, ecfg, device)
+        self.supports_chunked_prefill = False
+        self.supports_prefix_share = False
 
 
 # -- per-slot slabs: insert / extract / restore ------------------------

@@ -6,7 +6,9 @@ prefill, and a paged serve with prefix-cache hits; stochastic sampling
 on the card against its CPU path, and sampled streams across spans and
 parking; B2 in a sliding window at h2o-danube-3-4b's padded head dim,
 B1 at nemotron-4-15b's and musicgen-large's head groupings, and a
-full-width danube across its ring's wrap.
+full-width danube across its ring's wrap; B2's (192, 128) instance, the
+MLA engine (deepseek-v2-lite-16b) on the latent and dense backends
+against the CPU, and an MLA decode span with no sync.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -134,6 +136,31 @@ def test_flash_kernel_through_padded_head_dims(cuda, dtype, B, H, KV, S, hd,
                                           for t in (q, k, v)))
     torch.testing.assert_close(out.float(), expected.transpose(1, 2),
                                atol=_TOL[dtype], rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,KV", [(2, 4, 4), (1, 8, 2)])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1531])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_mla_head_dims(cuda, dtype, S, B, H, KV):
+    """The (192, 128) instance (q/k 192, v 128, MLA's full width) in both
+    dtypes on lengths at and around its 64-row tiles, G = 1 and 4: the
+    output takes v's width, two calls agree bit for bit, and the model's
+    ``chunked_causal_attention`` hands it the tensors unpadded."""
+    from repro_torch.models.attention import chunked_causal_attention
+    rng = np.random.default_rng(S + H)
+    q, k, v = [_randn(rng, *s).to(cuda, dtype)
+               for s in ((B, H, S, 192), (B, KV, S, 192), (B, KV, S, 128))]
+    out = fa.flash_attention(q, k, v)
+    assert out.shape == (B, H, S, 128)
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+    expected = fa.flash_attention_plain(q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), expected, atol=_TOL[dtype],
+                               rtol=_TOL[dtype])
+    n = fa.flash_attention.launches
+    via_model = chunked_causal_attention(
+        *(t.transpose(1, 2) for t in (q, k, v)))
+    assert fa.flash_attention.launches == n + 1
+    assert torch.equal(via_model.transpose(1, 2), out)
 
 
 @pytest.mark.parametrize("MP", [1, 32])
@@ -522,6 +549,74 @@ def test_moe_engine_on_card_matches_cpu(cuda):
     assert (pa.paged_decode_attention.launches - before[2]
             == cfg.n_layers * st["decode_steps"])
     assert streams["cuda"] == streams["cpu"]
+
+
+@pytest.mark.parametrize("layout", ["latent", "dense"])
+def test_mla_engine_on_card_matches_cpu(cuda, layout):
+    """fp32 SMOKE deepseek-v2-lite-16b with page pressure that parks: the
+    card's streams (B2 through C1's padding, B7; the absorbed decode in
+    plain PyTorch) equal the CPU's, B2 and B7 ran once per layer of their
+    kind and count, B1 never, and the pool is empty after."""
+    cfg = SMOKE_CONFIGS["deepseek-v2-lite-16b"].scaled(dtype="float32")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (31, 26, 23, 13)]
+    streams, stats = {}, {}
+    n_moe = cfg.mlp_kinds().count("moe")
+    before = (md.moe_dispatch.launches, fa.flash_attention.launches,
+              pa.paged_decode_attention.launches)
+    for dev in ("cpu", "cuda"):
+        p = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev)
+        eng = ServingEngine(cfg, p, api.EngineConfig(
+            slots=3, cache_len=64, page_size=8, n_pages=10, eos_token=-1,
+            decode_span=8, kv_layout=layout, prefix_cache_entries=0),
+            device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(api.Request(i, pr, max_new_tokens=12))
+        streams[dev] = {r.req_id: r.tokens_out
+                        for r in eng.run_until_done()}
+        stats[dev] = eng.stats
+        assert eng.pool.n_free == eng.pool.n_pages
+    st = stats["cuda"]
+    assert st["parked"] > 0 and st["unparked"] == st["parked"]
+    assert st["host_syncs"] == st["prefills"] + st["decode_spans"]
+    assert (md.moe_dispatch.launches - before[0]
+            == n_moe * (st["prefills"] + st["decode_steps"]))
+    assert (fa.flash_attention.launches - before[1]
+            == cfg.n_layers * st["prefills"])
+    assert pa.paged_decode_attention.launches == before[2]
+    assert streams["cuda"] == streams["cpu"]
+
+
+def test_mla_decode_span_never_syncs_on_card(cuda):
+    """No host synchronisation inside a decode span through the latent
+    pools (the gather through the table, the absorbed attention, the
+    dropped write of an inactive slot) on the card."""
+    cfg = SMOKE_CONFIGS["deepseek-v2-lite-16b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    state = lm.init_paged_serve_state(cfg, 3, 16, 8, 4, device=cuda)
+    state["page_table"] = torch.arange(12, dtype=torch.int32,
+                                       device=cuda).reshape(3, 4)
+    state["lengths"][:] = torch.tensor([5, 9, 0], dtype=torch.int32)
+    state["positions"].copy_(state["lengths"])
+    pools = [t.clone() for t in state["caches"][0].values()]
+    args = (torch.tensor([3, 4, 5], dtype=torch.int32, device=cuda),)
+    active = torch.tensor([True, True, False], device=cuda)
+    budgets = torch.tensor([8, 3, 8], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, emit, state = lm.decode_span(
+            params, *args, state, cfg, active, budgets, span=8,
+            eos_token=-1, cache_len=32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert emit.sum(0).tolist() == [8, 3, 0]
+    assert state["positions"].tolist() == [13, 12, 0]
+    for old, new in zip(pools, state["caches"][0].values()):
+        assert torch.equal(old[8:12], new[8:12])      # slot 2's pages
 
 
 def test_moe_decode_span_never_syncs_on_card(cuda):

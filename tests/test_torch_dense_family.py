@@ -41,7 +41,6 @@ from repro_torch.configs.registry import (ARCH_NAMES, CONFIGS,  # noqa: E402
                                           SMOKE_CONFIGS)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
-from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.layers import activation  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
@@ -123,16 +122,17 @@ def test_configs_are_the_reference_configs(arch):
 
 
 def test_registry_lists_every_config_but_mla():
-    """Nine archs in the reference's order; deepseek-v2-lite-16b (MLA)
-    waits for A8, and ``check_supported`` raises for it alone."""
-    assert ARCH_NAMES == tuple(n for n in J_CONFIGS
-                               if n != "deepseek-v2-lite-16b")
+    """All ten archs in the reference's order, deepseek-v2-lite-16b (MLA)
+    now among them, each config field for field the reference's, and
+    each SMOKE config's params made on the CPU."""
+    assert ARCH_NAMES == tuple(J_CONFIGS)
+    assert "deepseek-v2-lite-16b" in ARCH_NAMES
     for name, cfg in J_CONFIGS.items():
-        if name in CONFIGS:
-            tf.check_supported(CONFIGS[name])
-            continue
-        with pytest.raises(ValueError, match="A8"):
-            tf.check_supported(cfg)
+        assert dataclasses.asdict(CONFIGS[name]) == dataclasses.asdict(cfg)
+        params = lm.init_params(SMOKE_CONFIGS[name],
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+        assert len(params["blocks"]) == SMOKE_CONFIGS[name].n_layers
 
 
 # ---------------------------------------------------------------------------

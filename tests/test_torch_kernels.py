@@ -38,10 +38,10 @@ def _close(t_out, j_out, tol):
                                atol=tol, rtol=tol)
 
 
-def _flash_inputs(B, H, KV, S, hd, seed):
+def _flash_inputs(B, H, KV, S, hd, seed, hd_v=None):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd))]
+            for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd_v or hd))]
 
 
 # ---------------------------------------------------------------------------
@@ -51,14 +51,17 @@ def _flash_inputs(B, H, KV, S, hd, seed):
 @pytest.mark.parametrize("B,H,KV,S,hd", [
     (2, 4, 2, 256, 64), (1, 4, 4, 200, 32), (2, 8, 2, 192, 64),
     (1, 2, 1, 128, 16),
+    (1, 4, 4, 130, 192),            # MLA: q/k 192 with v 128, no grouping
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_ref(B, H, KV, S, hd, dtype):
-    xs = _flash_inputs(B, H, KV, S, hd, seed=B * S + H)
-    jq, jk, jv = [jnp.asarray(x) for x in xs]
+    """Every instance's v head dim is its own (``fa.INSTANCES``): hd for
+    the square ones, 128 for q/k 192."""
+    hd_v = dict(fa.INSTANCES)[hd]
+    xs = _flash_inputs(B, H, KV, S, hd, seed=B * S + H, hd_v=hd_v)
     tq, tk, tv = [_pair(x, dtype)[1] for x in xs]
     out = fa.flash_attention(tq, tk, tv)
-    assert out.dtype == _TDT[dtype] and out.shape == (B, H, S, hd)
+    assert out.dtype == _TDT[dtype] and out.shape == (B, H, S, hd_v)
     # like test_kernels.py: the oracle runs on the fp32 values the
     # low-precision inputs were rounded to
     expected = ref.flash_attention_ref(jnp.asarray(tq.float().numpy()),

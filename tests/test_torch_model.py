@@ -229,9 +229,12 @@ def test_chunked_attention_pads_head_dims_like_reference(B, S, H, KV, hd,
 
 
 def test_chunked_attention_past_b2_head_dims_names_a8():
-    """MLA's full q/k head dim of 192 is past every head dim B2 is built
-    for: it raises and names the ROADMAP item that waits for it."""
+    """Past B2's instances (q/k 192 with v 128, MLA's full width, and the
+    square head dims up to 128) it raises and names what is built."""
     from repro_torch.models import attention
-    q = torch.zeros(1, 4, 2, 192)
-    with pytest.raises(ValueError, match="A8"):
+    q = torch.zeros(1, 4, 2, 256)
+    with pytest.raises(ValueError, match="built for"):
         attention.chunked_causal_attention(q, q, torch.zeros(1, 4, 2, 128))
+    q = torch.zeros(1, 4, 2, 192)
+    with pytest.raises(ValueError, match="built for"):
+        attention.chunked_causal_attention(q, q, q)

@@ -525,7 +525,8 @@ def test_dense_layout_refused(arch):
     ``min(len(prompt) + max_new_tokens, cache_len)``, exceeds the whole
     page budget is refused at submit, for attention and RWKV configs
     alike, while one that fits completes; the config still refuses the
-    'latent' layout (ROADMAP A8), and the registry any unknown name."""
+    'latent' layout with the backend's message, and the registry any
+    unknown name."""
     cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
     p = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     eng = ServingEngine(cfg, p, api.EngineConfig(
@@ -538,7 +539,8 @@ def test_dense_layout_refused(arch):
     assert eng.try_submit(api.Request(1, big[:20], max_new_tokens=12))
     done = eng.run_until_done()
     assert [len(r.tokens_out) for r in done] == [12]
-    with pytest.raises(ValueError, match="A8"):
-        api.EngineConfig(kv_layout="latent")
+    with pytest.raises(ValueError, match="needs every layer to be MLA"):
+        api.make_state_backend("latent", cfg,
+                               api.EngineConfig(kv_layout="latent"), "cpu")
     with pytest.raises(ValueError, match="unknown kv layout"):
         api.make_state_backend("ring", cfg, api.EngineConfig(), "cpu")

@@ -156,8 +156,12 @@ def test_parking_under_page_pressure_matches_reference(model,
 @pytest.mark.parametrize("setting", [
     {"kv_layout": "latent"}, {"kv_layout": "no-such-layout"}])
 def test_unsupported_settings_raise(setting):
+    """An unknown layout is refused by the config; 'latent' is refused
+    for qwen3-8b, which has no MLA layer, by the backend."""
     with pytest.raises(ValueError):
-        api.EngineConfig(**setting)
+        ecfg = api.EngineConfig(**setting)
+        api.make_state_backend(ecfg.kv_layout, SMOKE_CONFIGS["qwen3-8b"],
+                               ecfg, "cpu")
 
 
 def test_non_greedy_request_rejected_at_submit(model):
