@@ -77,10 +77,33 @@ Phases, each printing one JSON object per line:
    frontend — ``LocalFrontend`` over a poisson ``make_trace`` on the same
              engine with a VirtualClock: terminal outcomes, streams equal
              to ``tokens_out``, class 1 alone shed or rejected, two runs
-             identical, per-class TTFT and TPOT; each of the three prints
-             its seconds on a line of its own;
-7. the kernels line, the total wall time, the nvidia-smi line, and the
+             identical, per-class TTFT and TPOT;
+7. crash   — crash and restore, each run built as
+             ``repro_torch.ft.chaos.drive`` builds it (``ft.build_stack``,
+             a ServingFaultInjector and a CrashInjector on the front end's
+             step hooks): the front end's trace on qwen3-8b paged (36
+             layers) with a snapshot every step and crashes at three
+             boundaries (one on a park storm's, whose parked payloads must
+             be in the snapshot restored there), then with a snapshot
+             every 4 steps, a stale restore and class 1 replayed from
+             zero: outcomes and streams equal the clean front-end run's
+             (stamps too, with fresh snapshots); once through the
+             Checkpointer's files onto a fresh engine; then rwkv6-1.6b
+             recurrent and deepseek-v2-lite-16b latent, crashed on the
+             first boundary after one request completed (its empty slot
+             then decodes over restored state), and h2o-danube-3-4b dense
+             (ring slabs; 700 pages, so the clean run must park and
+             unpark) crashed on a boundary at which a request is parked,
+             with the payload in the restored snapshot, at full width and
+             depth, a clean and a crashed drive each with the same
+             streams; every drive's launches held to (layers of its kind)
+             x its counters summed over the engines it went through;
+             snapshot bytes and the seconds to snapshot, restore, save and
+             load;
+8. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
+
+Every phase call prints its wall seconds on a line of its own.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository, and on any failed check.
@@ -155,6 +178,16 @@ def require(cond: bool, what: str) -> None:
 # --------------------------------------------------------------------------
 # timing
 # --------------------------------------------------------------------------
+
+def seconds(phase: str, label: str, fn, *args, **kw):
+    """Run one phase call and print its wall seconds on a line of its
+    own."""
+    from repro_torch.core.timing import Timer
+    t = Timer()
+    out = fn(*args, **kw)
+    emit({"phase": phase, "label": label, "seconds": t.elapsed()})
+    return out
+
 
 def time_ms(fn, torch, n: int = 20, warmup: int = 3) -> float:
     """Median of `n` CUDA-event-timed calls after warm-up. The 50 MB L2 is
@@ -1251,17 +1284,18 @@ def _kernel_name(key):
     return None
 
 
-def _traced(torch, prof, wall, calls):
-    """A profiler window's device-side rows (kernels, copies, memsets; an
-    op's row repeats the device time of the kernels it launched): summed
-    device time and busy share, the top ten rows, and per port kernel its
-    device ms, launches and µs a launch. Each wrapper called in the window
-    (``calls``) must show exactly its device kernels per call: that the
-    trace saw every launch, and that B7 runs as one kernel, B4 as
-    three."""
+def _traced(torch, win):
+    """A profiler window's (``_profile``) device-side rows (kernels,
+    copies, memsets; an op's row repeats the device time of the kernels
+    it launched): summed device time and busy share, the top ten rows,
+    and per port kernel its device ms, launches and µs a launch. Each
+    wrapper called in the window must show exactly its device kernels per
+    call: that the trace saw every launch, and that B7 runs as one
+    kernel, B4 as three."""
     from torch.autograd import DeviceType
+    wall, calls = win["wall_s"], win["calls"]
     events = [(e.key, e.self_device_time_total / 1e3, e.count)
-              for e in prof.key_averages()
+              for e in win["rows"]
               if e.device_type != DeviceType.CPU
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e[1])
@@ -1289,28 +1323,69 @@ def _traced(torch, prof, wall, calls):
             "port_kernels": ours,
             "memsets": [[k[:80], ms, n] for k, ms, n in events
                         if k.startswith("Memset")],
-            "wrapper_calls": calls}
+            "wrapper_calls": calls, "pad_dropped": win["pad_dropped"]}
+
+
+# torch.profiler loses the kernel records of the first launches of a
+# session, as a rule more with every session the process has opened (on
+# the H100: none in the first, 21 in the 40th; scripts/
+# trace_completeness.py), once 443 in the sixth. Each window therefore
+# opens with PAD_LAUNCHES empty kernels, ahead of the WORK annotation
+# from whose start on the window is read.
+PAD_LAUNCHES = 4096
+WORK = "chip_smoke.work"
 
 
 def _profile(torch, device, fn):
-    """Run ``fn`` under torch.profiler (CPU and CUDA) and return the
-    profile, its wall time and each wrapper's calls in the window."""
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``fn`` under torch.profiler (CPU and CUDA): the window's rows
+    (the events from ``fn``'s start on, summed by key and device, as
+    ``key_averages`` sums them), its wall
+    time, each wrapper's calls in it and, on the card, how many of the
+    PAD_LAUNCHES empty kernels launched ahead of it the trace lost. At
+    least one must show: the lost records are the session's first, so
+    then none of ``fn``'s is lost."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.core.timing import Timer
     wrappers = _wrappers()
     before = {n: w.launches for n, w in wrappers.items()}
+    cuda = torch.device(device).type == "cuda"
     acts = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     sync(torch, device)
     with profile(activities=acts) as prof:
-        t = Timer()
-        fn()
-        sync(torch, device)
-        wall = t.elapsed()
+        if cuda:
+            for _ in range(PAD_LAUNCHES):
+                torch.cuda._sleep(0)
+            sync(torch, device)
+        with record_function(WORK):
+            t = Timer()
+            fn()
+            sync(torch, device)
+            wall = t.elapsed()
     calls = {n: w.launches - before[n] for n, w in wrappers.items()
              if w.launches > before[n]}
-    return prof, wall, calls
+    events = prof.events()
+    start = min(e.time_range.start for e in events if e.name == WORK)
+    pad = sum(1 for e in events if e.device_type != DeviceType.CPU
+              and "spin_kernel" in e.name)
+    dropped = PAD_LAUNCHES - pad if cuda else 0
+    require(dropped < PAD_LAUNCHES,
+            f"trace: the profiler lost all {PAD_LAUNCHES} empty kernels "
+            f"ahead of the window, so it may have lost the window's own")
+    rows = {}
+    for e in events:
+        if e.name != WORK and e.time_range.start >= start:
+            row = rows.setdefault((e.key, e.device_type), SimpleNamespace(
+                key=e.key, device_type=e.device_type, count=0,
+                self_device_time_total=0.0, self_cpu_time_total=0.0))
+            row.count += 1
+            row.self_device_time_total += e.self_device_time_total
+            row.self_cpu_time_total += e.self_cpu_time_total
+    return {"rows": list(rows.values()), "wall_s": wall, "calls": calls,
+            "pad_dropped": dropped}
 
 
 def streams_digest(streams) -> str:
@@ -1336,9 +1411,9 @@ def profile_decode_span(torch, cfg, params, ecfg, prompts, device,
         eng.submit(Request(i, p.copy(), max_new_tokens=1 << 20, **kw))
     eng.step()
     steps = eng.stats["decode_steps"]
-    prof, wall, calls = _profile(torch, device, eng.step)
+    win = _profile(torch, device, eng.step)
     return {"decode_steps": eng.stats["decode_steps"] - steps,
-            **_traced(torch, prof, wall, calls)}
+            **_traced(torch, win)}
 
 
 def profile_prefill(torch, cfg, params, ecfg, prompt, device):
@@ -1349,10 +1424,10 @@ def profile_prefill(torch, cfg, params, ecfg, prompt, device):
     from repro_torch.serve.engine import ServingEngine
     eng = ServingEngine(cfg, params, ecfg, device=device)
     eng.submit(Request(0, prompt.copy(), max_new_tokens=1 << 20))
-    prof, wall, calls = _profile(torch, device, eng._admit)
+    win = _profile(torch, device, eng._admit)
     require(eng.stats["prefills"] == 1,
             f"traced prefill: {eng.stats['prefills']} prefills, not 1")
-    return {"prompt_len": len(prompt), **_traced(torch, prof, wall, calls)}
+    return {"prompt_len": len(prompt), **_traced(torch, win)}
 
 
 def _wrappers():
@@ -1636,15 +1711,14 @@ def phase_serve_prefix(torch, cfg, layout, max_new=32, seed=0,
     eng = ServingEngine(cfg, params, ecfg, device=device)
     eng.submit(Request(0, prompts[-1].copy(), max_new_tokens=max_new))
     eng.step()
-    prof, twall, calls = _profile(torch, device, eng._prefill_step)
+    win = _profile(torch, device, eng._prefill_step)
     require(eng.stats["prefill_chunks"] == 2,
             f"traced chunk: {eng.stats['prefill_chunks']} chunks, not 2")
     from torch.autograd import DeviceType
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in win["rows"]
                    if e.device_type == DeviceType.CPU), key=lambda e: -e[1])
-    traced = {"start": chunk, "width": chunk,
-              **_traced(torch, prof, twall, calls),
+    traced = {"start": chunk, "width": chunk, **_traced(torch, win),
               "host_self_ms": sum(ms for _, ms, _ in host),
               "top_host_ops_ms": [[k[:80], ms, n] for k, ms, n in host[:12]]}
     del eng
@@ -1816,14 +1890,12 @@ def phase_sampling(torch, V=151936, device="cuda"):
     out["derive_keys_us"] = 1e3 * time_ms(
         lambda: ks.derive_keys(xd["seeds"], xd["req_ids"], xd["indices"]),
         torch)
-    prof, wall, _ = _profile(torch, device, lambda: ks.sample_logits(
-        xd["logits"], keys, *flt))
-    tr = _traced(torch, prof, wall, {})
+    tr = _traced(torch, _profile(torch, device, lambda: ks.sample_logits(
+        xd["logits"], keys, *flt)))
     out["sample_logits_traced"] = {k: tr[k] for k in (
         "wall_s", "device_kernel_s", "device_ops", "top_kernels_ms")}
-    prof, wall, _ = _profile(torch, device, lambda: ks.derive_keys(
-        xd["seeds"], xd["req_ids"], xd["indices"]))
-    tr = _traced(torch, prof, wall, {})
+    tr = _traced(torch, _profile(torch, device, lambda: ks.derive_keys(
+        xd["seeds"], xd["req_ids"], xd["indices"])))
     out["derive_keys_traced"] = {k: tr[k] for k in (
         "wall_s", "device_kernel_s", "device_ops")}
     out["seconds"] = t0.elapsed()
@@ -2011,47 +2083,77 @@ def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
     return rec, params
 
 
-def phase_frontend(torch, cfg, params, n_req=24, max_new=16, seed=0,
-                   rate=4.0, device="cuda"):
-    """``LocalFrontend`` over ``make_trace`` on the 36-layer paged engine
-    with a VirtualClock (one engine step = 1 time unit): 24 poisson
-    arrivals at 4 a unit, prompts of 64-512 tokens, 16 new tokens, two
-    QoS classes under strict priority, mixed sampling, a wait pool of 4
-    so that class 1 is shed or rejected (outcomes follow the step count
-    alone: eos_token is -1). Checks: every request ends
-    completed, rejected or shed; every completed stream equals its
-    tokens_out; class 0 always completes and every drop is class 1 (a
-    capacity drop only ever displaces a lower class than its arrival's);
-    two runs give the same outcomes, streams and stamps; host_syncs ==
-    prefills + decode_spans (streaming adds no sync)."""
-    from repro_torch.core.timing import Timer
+# the front end's engine (qwen3-8b paged, 36 layers): strict priority over
+# two classes, a wait pool of 4, monolithic prefill, no prefix cache
+FRONTEND_ECFG = dict(
+    slots=4, cache_len=2048, page_size=16, n_pages=640, decode_span=8,
+    eos_token=-1, kv_layout="paged", prefill_chunk=0,
+    prefix_cache_entries=0, sampler="stochastic", scheduler="priority",
+    qos_classes=2, admit_capacity=4, feed_depth=2)
+
+
+def _frontend_trace(cfg, n_req=24, max_new=16, seed=0, rate=4.0):
+    """(spec, events()): the front-end trace, 24 poisson arrivals at 4 a
+    unit, prompts of 64-512 tokens, 16 new tokens, two QoS classes and
+    mixed sampling; ``events(streamed)`` makes fresh ``(t, Request,
+    on_token)`` events whose callbacks record (index, token) per request
+    in ``streamed``."""
     from repro_torch.serve import api
-    from repro_torch.serve.frontend import VirtualClock
     from repro_torch.serve.loadgen import TraceSpec, make_trace
-    t0 = Timer()
     spec = TraceSpec(arrival="poisson", rate=rate,
                      prompt_lens=((0.7, 64, 256), (0.3, 256, 512)),
                      output_lens=((1.0, max_new, max_new),),
                      qos_weights=(1.0, 1.0), seed=seed)
 
+    def events(streamed):
+        out = []
+        for (t, r), s in zip(make_trace(spec, n_req, cfg.vocab_size),
+                             _mixed_sampling(api, n_req)):
+            r.sampling = s
+            out.append((t, r, lambda tok, idx, i=r.req_id:
+                        streamed.setdefault(i, []).append((idx, tok))))
+        return out
+    return spec, events
+
+
+def _handle_rows(handles):
+    """What a front-end run must reproduce, per request: class, outcome,
+    stream and stamps."""
+    return [(h.req.req_id, h.req.qos, h.outcome, tuple(h.streamed),
+             h.submitted_at, h.first_token_at, h.finished_at)
+            for h in handles]
+
+
+def phase_frontend(torch, cfg, params, n_req=24, max_new=16, seed=0,
+                   rate=4.0, device="cuda"):
+    """``LocalFrontend`` over ``make_trace`` on the 36-layer paged engine
+    with a VirtualClock (one engine step = 1 time unit):
+    ``_frontend_trace`` through ``FRONTEND_ECFG``, so that class 1 is
+    shed or rejected (outcomes follow the step count alone: eos_token is
+    -1). Checks: every request ends
+    completed, rejected or shed; every completed stream equals its
+    tokens_out; class 0 always completes and every drop is class 1 (a
+    capacity drop only ever displaces a lower class than its arrival's);
+    two runs give the same outcomes, streams and stamps; host_syncs ==
+    prefills + decode_spans (streaming adds no sync). Returns the record
+    with the run's rows (``_handle_rows``)."""
+    from repro_torch.core.timing import Timer
+    from repro_torch.serve import api
+    from repro_torch.serve.frontend import VirtualClock
+    t0 = Timer()
+    spec, make_events = _frontend_trace(cfg, n_req, max_new, seed, rate)
+
     def run():
         clock = VirtualClock()
-        ecfg = api.EngineConfig(
-            slots=4, cache_len=2048, page_size=16, n_pages=640,
-            decode_span=8, eos_token=-1, kv_layout="paged",
-            prefill_chunk=0, prefix_cache_entries=0, sampler="stochastic",
-            scheduler="priority", qos_classes=2, admit_capacity=4,
-            feed_depth=2, clock=clock)
+        ecfg = api.EngineConfig(clock=clock, **FRONTEND_ECFG)
         eng = api.make_engine(cfg, params, ecfg, device=device)
         fe = api.make_frontend("local", eng, step_dt=1.0)
-        trace = make_trace(spec, n_req, cfg.vocab_size)
-        sp = _mixed_sampling(api, n_req)
+        # measurement only: the classes on slots at each step boundary
+        occupancy = {}
+        fe.step_hooks.append(lambda step: occupancy.__setitem__(
+            step, sorted(int(r.qos) for r in eng.slot_req if r is not None)))
         streamed = {}
-        events = []
-        for (t, r), s in zip(trace, sp):
-            r.sampling = s
-            events.append((t, r, lambda tok, idx, i=r.req_id:
-                           streamed.setdefault(i, []).append((idx, tok))))
+        events = make_events(streamed)
         wall = Timer()
         handles = fe.run(events)
         sync(torch, device)
@@ -2077,13 +2179,10 @@ def phase_frontend(torch, cfg, params, n_req=24, max_new=16, seed=0,
                 f"frontend: a drop cut upward: {fe.shed_log}")
         require(any(not h.ok for h in handles),
                 "frontend: nothing was shed or rejected at this load")
-        rows = [(h.req.req_id, h.req.qos, h.outcome, tuple(h.streamed),
-                 h.submitted_at, h.first_token_at, h.finished_at)
-                for h in handles]
-        return fe, eng, handles, rows, wall_s
+        return fe, eng, handles, _handle_rows(handles), wall_s, occupancy
 
-    fe, eng, handles, rows, wall_s = run()
-    fe2, eng2, _, rows2, wall_s2 = run()
+    fe, eng, handles, rows, wall_s, occupancy = run()
+    fe2, eng2, _, rows2, wall_s2, _ = run()
     require(rows2 == rows and fe2.stats == fe.stats,
             "frontend: a second run gave other outcomes or streams")
     per_class = {}
@@ -2108,7 +2207,345 @@ def phase_frontend(torch, cfg, params, n_req=24, max_new=16, seed=0,
     rec["seconds"] = t0.elapsed()
     emit(rec)
     emit({"phase": "frontend", "seconds": rec["seconds"]})
+    rec["rows"], rec["occupancy"] = rows, occupancy
     return rec
+
+
+# --------------------------------------------------------------------------
+# crash and restore
+
+# the engine counters the kernels' launches follow, summed over a run's
+# incarnations (a crash discards the dying engine's stats, and a stale
+# snapshot re-executes steps the launch counters already counted)
+WORK_KEYS = ("prefills", "prefill_chunks", "decode_steps", "decode_spans")
+
+
+def _drive_counted(torch, cfg, params, kw, events, path, label, device,
+                   crash_at=(), snapshot_every=0, policy=(),
+                   park_storm_at=(), watch=None):
+    """One run of ``events`` built as ``ft.chaos.drive`` builds it: a
+    stack from ``ft.build_stack``, a ServingFaultInjector for
+    ``park_storm_at`` and a CrashInjector on the front end's step hooks
+    (``watch(step, engine)``, when given, is a hook ahead of both). Every
+    kernel count is set to 0 just before the run and read just after:
+    each kernel of ``path`` launched (layers of its kind) x its counters
+    summed over the run's engines, each counted from what it restored.
+    Returns (handles, serve record); the record's ``tier_restored`` is,
+    per crash, the parked payloads in the snapshot the successor
+    restored."""
+    from repro_torch import ft
+    from repro_torch.checkpoint.checkpointer import pack_tree
+    from repro_torch.core.timing import Timer
+    fe, rebuild = ft.build_stack(cfg, params, kw, device=device)
+    engines = [(fe.engine, dict.fromkeys(WORK_KEYS, 0))]
+    tier_restored = []
+    crash = None
+
+    def successor():                          # measurement only
+        eng = rebuild()
+        snap = crash.snap
+        engines.append((eng, {k: int(snap["stats"][k]) if snap else 0
+                              for k in WORK_KEYS}))
+        tier_restored.append(len(snap["transport"]["tier"]) if snap else 0)
+        return eng
+
+    if watch is not None:
+        fe.step_hooks.append(lambda step: watch(step, fe.engine))
+    storm = (ft.ServingFaultInjector(fe.engine, park_storm_at=park_storm_at)
+             .attach(fe) if park_storm_at else None)
+    if crash_at or snapshot_every:
+        crash = ft.CrashInjector(fe, successor, crash_at=crash_at,
+                                 snapshot_every=snapshot_every,
+                                 policy=policy).attach()
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sync(torch, device)
+    t = Timer()
+    handles = fe.run(events, max_steps=5000)
+    sync(torch, device)
+    wall = t.elapsed()
+    launches = {n: w.launches for n, w in wrappers.items()}
+    st = fe.engine.stats
+    require(st["host_syncs"] == st["prefills"] + st["decode_spans"],
+            f"crash ({label}): host_syncs off the contract: {st}")
+    require(all(h.done for h in handles),
+            f"crash ({label}): requests stranded without an outcome")
+    require(st["prefix_hits"] == 0 and kw.get("prefill_chunk", 0) == 0,
+            "crash: a drive prefilled other than monolithically")
+    crash_log = list(crash.log) if crash else []
+    work = {k: sum(int(e.stats[k]) - start[k] for e, start in engines)
+            for k in WORK_KEYS}
+    for k in ("prefills", "decode_spans"):
+        logged = st[k] + sum(c["work_at_crash"][k] - c["work_restored"][k]
+                             for c in crash_log)
+        require(work[k] == logged,
+                f"crash ({label}): {k} over {len(engines)} engines "
+                f"{work[k]} != the crash log's {logged}")
+    check_launches(cfg, path, launches,
+                   dict(work, full_prefills=work["prefills"]))
+    nbytes = 0
+    if crash is not None and crash.snap is not None:
+        leaves, _ = pack_tree(crash.snap)
+        nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    rec = {"label": label, "launches": launches, "launch_path": path,
+           "mla": cfg.mla is not None, "work": work, "wall_s": wall,
+           "steps": fe.steps, "engine_stats": dict(st),
+           "crash_log": crash_log,
+           "fault_log": list(storm.log) if storm else [],
+           "tier_restored": tier_restored, "snapshot_bytes": nbytes,
+           "incarnations": len(engines)}
+    return handles, rec
+
+
+def _snapshot_round_trip(torch, fe, rebuild, device, ckpt=None):
+    """Snapshot the front end's engine where it stands and restore it onto
+    a fresh engine (through ``ckpt``'s files when given), timed with the
+    card synchronized; the front end goes on with the successor. Returns
+    the timings and the snapshot's tensor bytes."""
+    from repro_torch.checkpoint.checkpointer import pack_tree
+    from repro_torch.core.timing import Timer
+    eng = fe.engine
+    sync(torch, device)
+    t = Timer()
+    snap = eng.snapshot()
+    snap_s = t.elapsed()
+    leaves, _ = pack_tree(snap)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    eng2 = rebuild()
+    sync(torch, device)
+    t = Timer()
+    eng2.restore(snap)
+    sync(torch, device)
+    out = {"snapshot_s": snap_s, "restore_s": t.elapsed(),
+           "snapshot_bytes": nbytes,
+           "step": fe.steps}
+    if ckpt is not None:
+        del eng2
+        t = Timer()
+        eng.save_snapshot(ckpt, fe.steps, blocking=True)
+        out["save_s"] = t.elapsed()
+        eng2 = rebuild()
+        t = Timer()
+        eng2.load_snapshot(ckpt)
+        sync(torch, device)
+        out["load_restore_s"] = t.elapsed()
+    fe.reattach(eng2)
+    return out
+
+
+def phase_crash_frontend(torch, cfg, params, clean, device="cuda"):
+    """Crash and restore on the front end's run (qwen3-8b paged, 36
+    layers, full width): the same trace through ``ft.chaos.drive`` with
+    (a) a snapshot every step and crashes at three boundaries, one after
+    the first prefills, one mid-decode and one on a park storm's boundary
+    (the storm's hook runs before the snapshot's, so parked payloads are
+    in the snapshot the successor restores), and (b) a snapshot every 4
+    steps (stale at the crash), one crash, and class 1 replayed from zero
+    (``policy=("snapshot", "replay")``). Both keep every outcome and
+    stream of the clean front-end run ``clean``; (a) its stamps too ((b)
+    re-executes the steps after its stale snapshot, which moves its
+    stamps later in virtual time by design). Then once through the disk:
+    mid-run, the engine is snapshotted, restored in memory onto a fresh
+    engine (timed), saved through the Checkpointer and loaded onto
+    another, which finishes the run with the clean rows."""
+    import shutil
+    from repro_torch import ft
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.timing import Timer
+    t0 = Timer()
+    _, make_events = _frontend_trace(cfg)
+    path = serve_path(cfg, "paged")
+    rows = clean["rows"]
+    n = clean["steps"]
+    early, mid, storm = 1, n // 2, (3 * n) // 4
+    # (b)'s snapshot boundary: the last multiple of 4 before 3n/4 at which
+    # the clean run had a class-1 request on a slot, so that the policy
+    # replays one; the crash lands two steps later
+    base = max((s for s, qos in clean["occupancy"].items()
+                if s % 4 == 0 and 0 < s <= (3 * n) // 4 and 1 in qos),
+               default=None)
+    require(base is not None,
+            "crash: no class-1 request held a slot at a boundary of 4")
+    stale = base + 2
+    recs = []
+
+    def check(handles, label, stamps):
+        got = _handle_rows(handles)
+        require(len(got) == len(rows),
+                f"crash ({label}): {len(got)} handles for {len(rows)}")
+        for a, b in zip(got, rows):
+            require((a if stamps else a[:4]) == (b if stamps else b[:4]),
+                    f"crash ({label}): request {b[0]} differs from the "
+                    f"clean run: {a} vs {b}")
+
+    kw = dict(FRONTEND_ECFG)
+    handles, rec = _drive_counted(
+        torch, cfg, params, kw, make_events({}), path,
+        f"{cfg.name} paged crash (a)", device,
+        crash_at=(early, mid, storm), snapshot_every=1,
+        park_storm_at=(storm,))
+    check(handles, "a", stamps=True)
+    require([c["step"] for c in rec["crash_log"]] == [early, mid, storm],
+            f"crash (a): crashes landed at "
+            f"{[c['step'] for c in rec['crash_log']]}")
+    parked = [e for e in rec["fault_log"] if e["fault"] == "park_storm"]
+    require(parked and parked[0]["slots"]
+            and rec["tier_restored"][-1] >= len(parked[0]["slots"]),
+            f"crash (a): the park storm at {storm} parked "
+            f"{parked and parked[0]['slots']}, and the snapshot restored "
+            f"at it held {rec['tier_restored'][-1]} parked payloads")
+    recs.append(rec)
+
+    handles, rec = _drive_counted(
+        torch, cfg, params, kw, make_events({}), path,
+        f"{cfg.name} paged crash (b)", device, crash_at=(stale,),
+        snapshot_every=4, policy=("snapshot", "replay"))
+    check(handles, "b", stamps=False)
+    entry = rec["crash_log"][0]
+    qos = {h.req.req_id: h.req.qos for h in handles}
+    require(entry["restored_from"] == base and entry["replayed"]
+            and all(qos[r] == 1 for r in entry["replayed"]),
+            f"crash (b): {entry}")
+    recs.append(rec)
+
+    # the disk round trip, through the package's Checkpointer, in a
+    # directory of the checkout that git ignores
+    snap_dir = ROOT / "build" / "crash_snapshots"
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    fe, rebuild = ft.build_stack(cfg, params, kw, device=device)
+    handles = fe.run(make_events({}), drain=False)
+    disk = _snapshot_round_trip(torch, fe, rebuild, device,
+                                Checkpointer(snap_dir))
+    fe.run()
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    st = fe.engine.stats
+    require(st["host_syncs"] == st["prefills"] + st["decode_spans"],
+            f"crash (disk): host_syncs off the contract: {st}")
+    check(handles, "disk", stamps=True)
+    out = {"phase": "crash", "arch": cfg.name, "layout": "paged",
+           "n_layers": cfg.n_layers, "clean_steps": n,
+           "runs": recs, "disk": disk, "seconds": t0.elapsed()}
+    emit(out)
+    emit({"phase": "crash", "seconds": out["seconds"]})
+    return recs
+
+
+# the other layouts' crash runs: four of the serve prompts each, spans of
+# 4 (so a run has several boundaries), no prefix cache. rwkv6 and deepseek
+# finish request 1 after 8 tokens and crash on the first boundary after it
+# completed: its slot's empty row then decodes over restored state (on
+# latent, through the page a free slot's table row gives, and through the
+# MoE layers' expert capacity). danube crashes on a boundary at which a
+# request is parked: 700 pages, where 7000 + 16 and 6000 + 16 tokens (439 +
+# 376 pages of the dense worst case) do not fit together
+CRASH_LAYOUTS = (
+    ("rwkv6-1.6b", "recurrent", 4, 2048, (200, 1000, 1531, 1900),
+     (16, 8, 16, 16), "completed"),
+    ("deepseek-v2-lite-16b", "latent", 640, 2048, (200, 1000, 1531, 1900),
+     (16, 8, 16, 16), "completed"),
+    ("h2o-danube-3-4b", "dense", 700, 8192, (37, 4500, 6000, 7000),
+     (16, 16, 16, 16), "parked"))
+
+
+def phase_crash_layout(torch, cfg, layout, n_pages, cache_len, lens,
+                       max_new, crash_on, seed=0, device="cuda"):
+    """A clean drive and one crashed (a snapshot every step) of four
+    prompts (request i with ``max_new[i]`` new tokens) on ``layout``, at
+    full width and the depth ``cfg`` gives: the same streams and
+    outcomes, launches held to the counters over the engines. The crash
+    lands on a boundary of the clean run picked by ``crash_on``:
+    ``"completed"``, the first at which a request has completed and
+    another still holds a slot; ``"parked"``, the middle one of those at
+    which the host tier holds a parked request (the clean run must park
+    and unpark, and the restored snapshot must hold the payload). Then
+    the engine snapshotted two steps in and restored onto a fresh one,
+    timed, and finished with the clean streams."""
+    import numpy as np
+    from repro_torch import ft
+    from repro_torch.core.timing import Timer
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Request
+    t0 = Timer()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = lm.init_params(cfg, gen, device=device)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in lens]
+
+    def events():
+        return [(0.0, Request(i, p.copy(), max_new_tokens=m))
+                for i, (p, m) in enumerate(zip(prompts, max_new))]
+
+    def streams(handles):
+        return {h.req.req_id: tuple(h.streamed) for h in handles}
+
+    kw = dict(slots=4, cache_len=cache_len, page_size=16, n_pages=n_pages,
+              decode_span=4, eos_token=-1, kv_layout=layout,
+              prefill_chunk=0, prefix_cache_entries=0)
+    path = serve_path(cfg, layout)
+    seen = {}                                   # step -> (done, held, tier)
+
+    def watch(step, eng):                       # measurement only
+        seen[step] = (len(eng.completed),
+                      sum(r is not None for r in eng.slot_req),
+                      eng.transport.in_flight)
+
+    handles, rec_clean = _drive_counted(
+        torch, cfg, params, kw, events(), path,
+        f"{cfg.name} {layout} crash clean", device, watch=watch)
+    clean = streams(handles)
+    outcomes = [h.outcome for h in handles]
+    require(all(o == "completed" for o in outcomes)
+            and [len(clean[i]) for i in range(len(lens))] == list(max_new),
+            f"crash ({cfg.name}): the clean drive did not complete: "
+            f"{outcomes}, {[len(v) for v in clean.values()]}")
+    st = rec_clean["engine_stats"]
+    if crash_on == "parked":
+        require(st["parked"] > 0 and st["unparked"] == st["parked"],
+                f"crash ({cfg.name}): the clean drive did not park and "
+                f"unpark: {st['parked']} parked, {st['unparked']} unparked")
+        bounds = [s for s, (_, _, tier) in sorted(seen.items()) if tier]
+        at = bounds[len(bounds) // 2] if bounds else None
+    else:
+        at = min((s for s, (done, held, _) in seen.items()
+                  if done and held), default=None)
+    require(at is not None,
+            f"crash ({cfg.name}): no boundary of the clean run is "
+            f"{crash_on}: {seen}")
+    handles, rec = _drive_counted(
+        torch, cfg, params, kw, events(), path,
+        f"{cfg.name} {layout} crash at {at}", device, crash_at=(at,),
+        snapshot_every=1)
+    require(streams(handles) == clean
+            and [h.outcome for h in handles] == outcomes,
+            f"crash ({cfg.name} {layout}): a crash at {at} changed a "
+            f"stream or an outcome")
+    require(crash_on != "parked" or rec["tier_restored"][0] > 0,
+            f"crash ({cfg.name}): the snapshot restored at {at} held no "
+            f"parked payload")
+    fe, rebuild = ft.build_stack(cfg, params, kw, device=device)
+    handles = fe.run(events(), drain=False)
+    for _ in range(2):
+        fe.step()
+    timing = _snapshot_round_trip(torch, fe, rebuild, device)
+    fe.run()
+    require(streams(handles) == clean,
+            f"crash ({cfg.name} {layout}): the timed restore changed a "
+            f"stream")
+    out = {"phase": "crash", "arch": cfg.name, "layout": layout,
+           "n_layers": cfg.n_layers, "prompt_lens": list(lens),
+           "n_pages": n_pages, "max_new": list(max_new),
+           "clean_steps": rec_clean["steps"], "crash_on": crash_on,
+           "crash_at": at, "parked": st["parked"],
+           "tier_restored": rec["tier_restored"],
+           "streams_sha256": streams_digest(clean),
+           "runs": [rec_clean, rec], "round_trip": timing,
+           "seconds": t0.elapsed()}
+    emit(out)
+    emit({"phase": "crash", "arch": cfg.name, "seconds": out["seconds"]})
+    del params
+    return [rec_clean, rec]
 
 
 # --------------------------------------------------------------------------
@@ -2237,7 +2674,7 @@ def main() -> int:
         emit({"phase": "build", "seconds": t.elapsed(),
               "dir": str(_build.build_dir().relative_to(ROOT)),
               "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
-        main_shapes = phase_kernels(torch)
+        main_shapes = seconds("kernels", "all", phase_kernels, torch)
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
         mcfg = get_config("moonshot-v1-16b-a3b")
@@ -2247,13 +2684,15 @@ def main() -> int:
         # not fit one 80 GB card
         jcfg = get_config("jamba-v0.1-52b").scaled(n_layers=16)
         for c in (cfg, rcfg, mcfg):
-            phase_model(torch, c.scaled(n_layers=2, dtype="float32"))
+            seconds("model", c.name, phase_model, torch,
+                    c.scaled(n_layers=2, dtype="float32"))
             gc.collect()
         # jamba's first two layers are both Mamba: the 2-layer model takes
         # an attention layer (dense MLP, first_dense) and a Mamba layer
         # (MoE MLP), ~14.5 GB of fp32 weights on each side
-        phase_model(torch, jcfg.scaled(n_layers=2, dtype="float32",
-                                       layer_pattern=("attn", "mamba")))
+        seconds("model", jcfg.name, phase_model, torch,
+                jcfg.scaled(n_layers=2, dtype="float32",
+                            layer_pattern=("attn", "mamba")))
         gc.collect()
         # the rest of the dense family; h2o-danube-3-4b also on a prompt
         # past its 4096-token window (B2's band, the rolled ring) and 8
@@ -2261,23 +2700,26 @@ def main() -> int:
         dcfg = get_config("h2o-danube-3-4b")
         ncfg = get_config("nemotron-4-15b")
         for name in DENSE_FAMILY:
-            phase_model(torch, get_config(name).scaled(n_layers=2,
-                                                       dtype="float32"))
+            seconds("model", name, phase_model, torch,
+                    get_config(name).scaled(n_layers=2, dtype="float32"))
             gc.collect()
-        phase_model(torch, dcfg.scaled(n_layers=2, dtype="float32"),
-                    n_prompt=4500, n_seq=1, steps=8)
+        seconds("model", f"{dcfg.name} 4500", phase_model, torch,
+                dcfg.scaled(n_layers=2, dtype="float32"), n_prompt=4500,
+                n_seq=1, steps=8)
         gc.collect()
         # the rotary angles at long positions: since the frequencies carry
         # the reference's bits, the card's K slab stays within 2e-3 of the
         # CPU's at 8100 tokens
-        phase_model(torch, dcfg.scaled(n_layers=2, dtype="float32"),
-                    n_prompt=8100, n_seq=1, steps=8)
+        seconds("model", f"{dcfg.name} 8100", phase_model, torch,
+                dcfg.scaled(n_layers=2, dtype="float32"), n_prompt=8100,
+                n_seq=1, steps=8)
         gc.collect()
         # deepseek-v2-lite-16b: its dense first layer and an MoE layer, MLA
         # prefill through B2's (192, 128) instance, decode through the
         # latent pools
         scfg = get_config("deepseek-v2-lite-16b")
-        phase_model(torch, scfg.scaled(n_layers=2, dtype="float32"))
+        seconds("model", scfg.name, phase_model, torch,
+                scfg.scaled(n_layers=2, dtype="float32"))
         gc.collect()
         serves = []
         # moonshot and jamba last, each alone on the card after the
@@ -2309,17 +2751,18 @@ def main() -> int:
                                 n_pages=n_pages, decode_span=8, eos_token=-1,
                                 kv_layout=layout, prefill_chunk=0,
                                 prefix_cache_entries=0)
-            serves.append(phase_serve(torch, c, ecfg,
-                                      serve_path(c, layout),
-                                      prompt_lens=lens, park_pages=park,
-                                      trace_prefill=traced))
+            serves.append(seconds(
+                "serve", f"{c.name} {layout}", phase_serve, torch, c, ecfg,
+                serve_path(c, layout), prompt_lens=lens, park_pages=park,
+                trace_prefill=traced))
         # chunked prefill and the prefix cache: qwen3-8b on paged at full
         # depth, and on dense at 8 of its 36 layers (for time)
         for c, layout in ((cfg, "paged"), (cfg.scaled(n_layers=8), "dense")):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            serves.append(phase_serve_prefix(torch, c, layout))
+            serves.append(seconds("serve_prefix", f"{c.name} {layout}",
+                                  phase_serve_prefix, torch, c, layout))
         # stochastic sampling, then sampled serving and the live front
         # end on qwen3-8b paged at full depth
         gc.collect()
@@ -2329,8 +2772,16 @@ def main() -> int:
         sampled, params = phase_serve_sampled(
             torch, cfg, serves[0]["streams_sha256"])
         serves.append(sampled)
-        phase_frontend(torch, cfg, params)
+        fe_rec = phase_frontend(torch, cfg, params)
+        # crash and restore: the front end's run on qwen3-8b paged, then
+        # the other three layouts at full width, each alone on the card
+        serves += phase_crash_frontend(torch, cfg, params, fe_rec)
         del params
+        for name, layout, *rest in CRASH_LAYOUTS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            serves += phase_crash_layout(torch, get_config(name), layout,
+                                         *rest)
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

@@ -65,6 +65,16 @@ class HostMultiQueue:
         self._len[q] -= 1
         return item
 
+    def items(self, q: int) -> List[Any]:
+        """Queue q's payloads in pop order, without disturbing it (the
+        snapshot read path walks the links and leaves the pool intact)."""
+        out: List[Any] = []
+        slot = int(self._head[q])
+        while slot >= 0:
+            out.append(self._payload[slot])
+            slot = int(self._next[slot])
+        return out
+
     # -- QoS pop helpers (paper Fig 9: class queues share one pool) -----
     @property
     def total_len(self) -> int:

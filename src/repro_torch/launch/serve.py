@@ -31,9 +31,20 @@ match ``repro.launch.serve`` for what the port serves: the dense layout
 (RWKV), greedy and
 stochastic sampling (a temperature above 0 picks ``stochastic``),
 monolithic or chunked prefill, the block prefix cache (the engine's
-default 32 entries; plain attention stacks on dense and paged) and live
-mode. Crash snapshots wait for their slice (ROADMAP A11). The full jamba-v0.1-52b needs 103 GB of bf16
-weights, more than one 80 GB card holds.
+default 32 entries; plain attention stacks on dense and paged), live
+mode and crash snapshots: ``--snapshot-dir D --snapshot-every N``
+persists the engine every N steps (and once at the end), ``--resume``
+restores the latest snapshot from D before serving:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+      --arrival-rate 0.3 --snapshot-dir snaps --snapshot-every 4 \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+      --arrival-rate 0.3 --snapshot-dir snaps --resume --smoke \
+      --device cpu
+
+The full jamba-v0.1-52b needs 103 GB of bf16 weights, more than one
+80 GB card holds.
 """
 from __future__ import annotations
 
@@ -57,18 +68,70 @@ def _pct(xs, q):
     return float(np.percentile(xs, q)) if xs else float("nan")
 
 
+class _SnapshotHook:
+    """Persist the engine every N front-end steps (async writes; the
+    Checkpointer serializes them). Carries `.engine`, so a front end's
+    reattach after crash recovery rebinds it."""
+
+    def __init__(self, engine, ckpt, every: int):
+        self.engine = engine
+        self.ckpt = ckpt
+        self.every = int(every)
+
+    def __call__(self, step: int) -> None:
+        if self.every > 0 and step and step % self.every == 0:
+            self.engine.save_snapshot(self.ckpt, step, blocking=False)
+
+
+def _make_ckpt(args):
+    if not args.snapshot_dir:
+        if args.resume or args.snapshot_every:
+            raise SystemExit("--resume/--snapshot-every need "
+                             "--snapshot-dir")
+        return None
+    from repro_torch.checkpoint import Checkpointer
+    return Checkpointer(args.snapshot_dir)
+
+
+def _maybe_resume(eng, ckpt, args) -> int:
+    """Restore the latest persisted snapshot; returns the next free
+    req_id so newly submitted requests never collide with restored
+    ones."""
+    if not args.resume:
+        return 0
+    from repro_torch.checkpoint import latest_step
+    if latest_step(args.snapshot_dir) is None:
+        print(f"# no snapshot in {args.snapshot_dir}; starting fresh")
+        return 0
+    snap = eng.load_snapshot(ckpt)
+    live = eng.live_requests()
+    done_ids = [r.req_id for r in eng.completed]
+    print(f"# resumed from step {ckpt.last_saved_step or 'latest'}: "
+          f"{len(live)} live + {len(done_ids)} completed requests "
+          f"(snapshot t={snap['clock_t']:.1f})")
+    return max([*live, *done_ids], default=-1) + 1
+
+
 def _run_live(cfg, params, ecfg, sp, args, device):
     """Live mode: timed trace -> front end -> per-class report."""
     eng = make_engine(cfg, params, ecfg, device=device)
     fe = make_frontend(ecfg.frontend, eng,
                        step_dt=0.0 if args.real_time else args.step_dt)
+    ckpt = _make_ckpt(args)
+    base_id = 0
+    if ckpt is not None:
+        base_id = _maybe_resume(eng, ckpt, args)
+        if args.snapshot_every:
+            fe.step_hooks.append(
+                _SnapshotHook(eng, ckpt, args.snapshot_every))
     spec = TraceSpec(
         arrival=args.arrival, rate=args.arrival_rate, burst=args.burst,
         prompt_lens=((0.7, 8, 32), (0.3, 32, 48)),
         output_lens=((1.0, min(4, args.max_new), args.max_new),),
         qos_weights=tuple([1.0] * args.qos_classes),
         sampling=sp, seed=args.seed)
-    trace = make_trace(spec, args.requests, cfg.vocab_size)
+    trace = make_trace(spec, args.requests, cfg.vocab_size,
+                       start_id=base_id)
     if args.stream:
         trace = [(t, r, lambda tok, idx, r=r:
                   print(f"  req {r.req_id} (qos {r.qos}) "
@@ -107,6 +170,10 @@ def _run_live(cfg, params, ecfg, sp, args, device):
         raise RuntimeError(f"host syncs off the contract: {eng.stats}")
     if not all(h.streamed == h.req.tokens_out for h in handles if h.ok):
         raise RuntimeError("a client stream differs from its tokens_out")
+    if ckpt is not None and args.snapshot_every:
+        eng.save_snapshot(ckpt, fe.steps, blocking=True)  # final state
+        print(f"# snapshot saved to {args.snapshot_dir} "
+              f"(step {fe.steps})")
 
 
 def main(argv=None):
@@ -181,6 +248,18 @@ def main(argv=None):
                     help="virtual time units consumed per engine step")
     ap.add_argument("--real-time", action="store_true",
                     help="wall clock instead of the virtual clock")
+    # crash recovery
+    ap.add_argument("--snapshot-dir", default="",
+                    help="directory for persisted engine snapshots "
+                         "(Checkpointer manifest format)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="persist an engine snapshot every N steps "
+                         "(async; 0 = off); a final snapshot is written "
+                         "on completion")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest snapshot from "
+                         "--snapshot-dir before serving; new requests "
+                         "get ids after the restored ones")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
@@ -209,14 +288,28 @@ def main(argv=None):
     if live:
         return _run_live(cfg, params, ecfg, sp, args, device)
     eng = make_engine(cfg, params, ecfg, device=device)
+    ckpt = _make_ckpt(args)
+    base_id = _maybe_resume(eng, ckpt, args) if ckpt is not None else 0
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         n = int(rng.integers(8, 48))
-        eng.submit(Request(i, rng.integers(1, cfg.vocab_size, size=n)
-                           .astype(np.int32), max_new_tokens=args.max_new,
-                           qos=i % args.qos_classes, sampling=sp))
+        eng.submit(Request(base_id + i, rng.integers(
+            1, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=args.max_new, qos=i % args.qos_classes,
+            sampling=sp))
     timer = Timer()
-    done = eng.run_until_done()
+    if ckpt is not None and args.snapshot_every:
+        step = 0
+        while (eng.active.any() or eng.sched.pending
+               or eng.transport.in_flight):
+            eng.step()
+            step += 1
+            if step % args.snapshot_every == 0:
+                eng.save_snapshot(ckpt, step, blocking=False)
+        done = eng.completed
+        eng.save_snapshot(ckpt, step, blocking=True)   # final state
+    else:
+        done = eng.run_until_done()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = timer.elapsed()

@@ -15,10 +15,11 @@ drives subsystems behind protocols, selected by name from
                       streaming, SLO-graded admission
 
 The port keeps its own registries, so its parts never collide with the
-JAX package's names. The protocols list what the port implements: crash
-snapshots (and the front end's ``reattach``) join them with their slice
-(ROADMAP queue A). ``EngineConfig`` refuses a layout other than the
-four built-ins. ``make_engine`` wires an engine from an
+JAX package's names. The protocols carry the crash-recovery members
+(`export`/`import_`, `export_state`/`import_state`, the payload codec,
+`reattach`), and `request_to_state`/`request_from_state` are the
+requests' snapshot codec. ``EngineConfig`` refuses a layout other than
+the four built-ins. ``make_engine`` wires an engine from an
 ``EngineConfig`` and ``make_frontend`` a front end over it.
 """
 from __future__ import annotations
@@ -131,6 +132,47 @@ class ParkMeta(NamedTuple):
     n_pages: int
 
 
+def request_to_state(req: Request) -> dict:
+    """JSON-able snapshot of a Request.
+
+    The streaming hooks are dropped: they are process-local callables
+    that `Frontend.reattach` re-wires after a restore. The anchors of the
+    key derivation, `sampling.seed` and `len(tokens_out)` (the emitted
+    index folded into each key), are carried verbatim, so a restored
+    request re-derives its key stream exactly.
+    """
+    s = req.sampling
+    return {
+        "req_id": int(req.req_id),
+        "prompt": [int(t) for t in np.asarray(req.prompt).reshape(-1)],
+        "max_new_tokens": int(req.max_new_tokens),
+        "qos": int(req.qos),
+        "arrived_at": float(req.arrived_at),
+        "tokens_out": [int(t) for t in req.tokens_out],
+        "finished_at": (None if req.finished_at is None
+                        else float(req.finished_at)),
+        "sampling": [float(s.temperature), int(s.top_k), float(s.top_p),
+                     int(s.seed), bool(s.logprobs)],
+        "logprobs_out": [float(x) for x in req.logprobs_out],
+    }
+
+
+def request_from_state(d: dict) -> Request:
+    temp, top_k, top_p, seed, logprobs = d["sampling"]
+    return Request(
+        req_id=int(d["req_id"]),
+        prompt=np.asarray(d["prompt"], dtype=np.int32),
+        max_new_tokens=int(d["max_new_tokens"]),
+        qos=int(d["qos"]),
+        arrived_at=float(d["arrived_at"]),
+        tokens_out=[int(t) for t in d["tokens_out"]],
+        finished_at=(None if d["finished_at"] is None
+                     else float(d["finished_at"])),
+        sampling=SamplingParams(float(temp), int(top_k), float(top_p),
+                                int(seed), bool(logprobs)),
+        logprobs_out=[float(x) for x in d["logprobs_out"]])
+
+
 # --------------------------------------------------------------------------
 # protocols
 # --------------------------------------------------------------------------
@@ -138,13 +180,18 @@ class ParkMeta(NamedTuple):
 @runtime_checkable
 class Scheduler(Protocol):
     """Admission order over QoS class queues; `requeue` keeps a
-    request's class."""
+    request's class. `export` returns the queued work without disturbing
+    it, as (per-class request lists in pop order, JSON-able aux state
+    such as a round-robin cursor); `import_` loads that into a fresh
+    scheduler, preserving pop order exactly."""
     n_classes: int
 
     def class_of(self, req: Request) -> int: ...
     def submit(self, req: Request) -> bool: ...
     def next(self) -> Optional[Request]: ...
     def requeue(self, req: Request) -> bool: ...
+    def export(self) -> Tuple[List[List[Request]], dict]: ...
+    def import_(self, queues: List[List[Request]], aux: dict) -> None: ...
     @property
     def pending(self) -> int: ...
     @property
@@ -165,7 +212,12 @@ class StateBackend(Protocol):
     prefix cache takes one page-aligned block of a slot
     (`block_payload`), pins and unpins it (`cache_retain`,
     `cache_release`) and installs cached blocks in a new slot
-    (`share_prefix`)."""
+    (`share_prefix`). For crash recovery, `export_state` captures the
+    pool bookkeeping and the device state as host tensors and JSON-able
+    scalars, `import_state` writes such a snapshot back into a fresh
+    decode state, and `snapshot_payload`/`restore_payload` are the
+    layout's codec for prefix-cache payloads (page ids on `paged`, host
+    copies of K/V rows on `dense`)."""
     needs_growth: bool            # True if capacity can run out mid-decode
     supports_chunked_prefill: bool  # slot state extends a chunk at a time
     supports_prefix_share: bool   # per-token blocks can back a PrefixCache
@@ -196,6 +248,10 @@ class StateBackend(Protocol):
     def mark_dirty(self) -> None: ...
     def sync(self, state: dict,
              slot_req_ids: List[Optional[int]]) -> dict: ...
+    def export_state(self, state: dict) -> dict: ...
+    def import_state(self, snap: dict) -> dict: ...
+    def snapshot_payload(self, payload: Any) -> Any: ...
+    def restore_payload(self, data: Any) -> Any: ...
 
 
 @runtime_checkable
@@ -218,25 +274,33 @@ class Frontend(Protocol):
     engine steps too), applies SLO-graded admission over bounded
     per-class wait queues and returns a handle that streams tokens and
     ends in an explicit outcome (completed | rejected | shed); `step`
-    pumps one engine step; `run` drives a timed arrival trace."""
+    pumps one engine step; `run` drives a timed arrival trace;
+    `reattach` rebinds live handles to an engine restored from a
+    snapshot (requests the snapshot lost replay from zero, and handles
+    dedupe by emitted index, so client streams stay byte-identical)."""
 
     def submit(self, req: Request,
                on_token: Optional[Callable] = None) -> Any: ...
     def step(self) -> None: ...
     def run(self, arrivals=None, max_steps: int = 100_000,
             drain: bool = True) -> List[Any]: ...
+    def reattach(self, engine) -> None: ...
     @property
     def live(self) -> bool: ...
 
 
 @runtime_checkable
 class ParkingTransport(Protocol):
-    """The host-tier move/restore channel for parked slot state."""
+    """The host-tier move/restore channel for parked slot state. Parked
+    payloads are engine state too: `export_state`/`import_state` carry
+    them across a crash, since a parked payload is the only copy."""
 
     def begin(self, req_id: int, caches, meta: ParkMeta) -> None: ...
     def ready(self, now: Optional[float] = None) -> List[int]: ...
     def peek(self, req_id: int) -> Tuple[Any, ParkMeta]: ...
     def complete(self, req_id: int) -> None: ...
+    def export_state(self) -> dict: ...
+    def import_state(self, snap: dict) -> None: ...
     @property
     def in_flight(self) -> int: ...
 

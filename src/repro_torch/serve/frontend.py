@@ -23,8 +23,9 @@
   in an explicit terminal outcome: completed | rejected | shed. No
   silent drops.
 
-Rebinding live handles to a restored engine (`reattach`) waits for crash
-and restore (ROADMAP A11).
+`step_hooks` are fired with the step count before each engine step (the
+fault and crash injectors of ``repro_torch.ft`` ride them), and
+`reattach` rebinds live handles to an engine restored from a snapshot.
 """
 from __future__ import annotations
 
@@ -164,6 +165,7 @@ class LocalFrontend:
         self._wait: List[Deque[RequestHandle]] = [deque() for _ in range(n)]
         self._handles = {}                # req_id -> handle, fed to engine
         self.steps = 0
+        self.step_hooks: List[Callable[[int], None]] = []   # ft injectors
         self.stats = {"submitted": 0, "admitted": 0, "completed": 0,
                       "rejected": 0, "shed_capacity": 0, "shed_slo": 0,
                       "degraded": 0}
@@ -284,13 +286,53 @@ class LocalFrontend:
         h._finish(OUTCOME_COMPLETED)
         self.stats["completed"] += 1
 
+    # -- crash recovery ------------------------------------------------
+    def reattach(self, engine) -> None:
+        """Rebind live streaming handles to a restored engine.
+
+        A snapshot serializes Requests without their process-local
+        callbacks, and a crash may strike AFTER a handle's request was
+        fed but BEFORE any snapshot recorded it. Both cases converge
+        here: handles whose request the restored engine still owns are
+        re-wired onto the restored object; the rest replay from zero
+        through the admission path. Either way the client stream stays
+        byte-identical: `_feed` dedupes by emitted index and the
+        sampler's keys replay from `len(tokens_out)`."""
+        self.engine = engine
+        self.clock = engine.clock
+        live = engine.live_requests()
+        lost: List[RequestHandle] = []
+        for rid, h in list(self._handles.items()):
+            req = live.get(rid)
+            if req is not None:
+                h.req = req
+                req.on_tokens = h._feed
+                req.on_done = self._on_done
+            else:
+                del self._handles[rid]
+                h.req.on_tokens = None
+                h.req.on_done = None
+                h.req.tokens_out.clear()
+                h.req.logprobs_out.clear()
+                lost.append(h)
+        # back to the FRONT of each class queue in admission order: work
+        # the engine had already accepted outranks waiters behind it
+        for h in reversed(lost):
+            self._wait[self._class_of(h.req)].appendleft(h)
+        for hook in self.step_hooks:
+            if hasattr(hook, "engine"):
+                hook.engine = engine
+
     # -- drive loop ----------------------------------------------------
     def step(self) -> None:
         """One frontend pump + engine step: expire SLO-dead waiters,
-        feed the scheduler, step the engine (token callbacks and
-        completions fire inside), advance a virtual clock."""
+        feed the scheduler, fire the step hooks, step the engine (token
+        callbacks and completions fire inside), advance a virtual
+        clock."""
         self._expire()
         self._pump()
+        for hook in self.step_hooks:
+            hook(self.steps)
         # a step consumes step_dt of virtual time BEFORE its tokens
         # appear, so emissions/completions are stamped strictly after
         # the arrivals that preceded the step (TTFT is never zero)

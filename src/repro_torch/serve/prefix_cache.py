@@ -1,11 +1,12 @@
 """Prefix cache: a longest-prefix block cache over page-aligned prompt
 blocks, keyed by a hash chain, with LRU eviction.
 
-Copied from ``repro.serve.prefix_cache`` (without its crash-snapshot
-codec). Payloads are the state backend's: page ids pinned by the
-``PagePool``'s refcounts on ``paged`` (N sharers hold one physical
-copy), copies of each block's K/V rows on ``dense``. Under page
-pressure its `evict_one` is the first of the engine's reclaim valves.
+Copied from ``repro.serve.prefix_cache``. Payloads are the state
+backend's: page ids pinned by the ``PagePool``'s refcounts on ``paged``
+(N sharers hold one physical copy), copies of each block's K/V rows on
+``dense``. Under page pressure its `evict_one` is the first of the
+engine's reclaim valves. `export_state` and `import_state` carry the
+entries across a crash through the backend's payload codec.
 """
 from __future__ import annotations
 
@@ -175,6 +176,34 @@ class PrefixCache:
         """Release every cached block (drops all payload references)."""
         while self.evict_one():
             pass
+
+    # -- crash recovery --------------------------------------------------
+    def export_state(self, encode: Callable[[Any], Any] = lambda p: p
+                     ) -> dict:
+        """Entries in LRU order (OrderedDict iteration order) plus hit
+        accounting; `encode` is the backend's payload codec
+        (`StateBackend.snapshot_payload`)."""
+        return {
+            "entries": [[key, entry.parent or "", encode(entry.payload)]
+                        for key, entry in self._d.items()],
+            "stats": [int(self.hits), int(self.misses),
+                      int(self.hash_ops), int(self.tokens_reused)],
+        }
+
+    def import_state(self, snap: dict,
+                     decode: Callable[[Any], Any] = lambda p: p) -> None:
+        """Rebuild chains in recorded LRU order WITHOUT the retain hook:
+        pool refcounts come back whole through
+        `StateBackend.import_state`, so retaining here would double-count
+        every cached page."""
+        self._d.clear()
+        for key, parent, data in snap["entries"]:
+            self._d[key] = _Entry(decode(data), parent or None)
+        for key, entry in self._d.items():
+            if entry.parent is not None and entry.parent in self._d:
+                self._d[entry.parent].children.add(key)
+        self.hits, self.misses, self.hash_ops, self.tokens_reused = \
+            [int(x) for x in snap["stats"]]
 
     @property
     def hit_rate(self) -> float:

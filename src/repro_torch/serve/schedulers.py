@@ -3,11 +3,12 @@
 Each scheduler is a thin policy over an N-queue `HostMultiQueue`:
 `submit` pushes a request onto its QoS class queue, `next` pops by
 policy. `requeue` routes through `class_of`, so work bounced back by
-admission or preempt-restart keeps its class.
+admission or preempt-restart keeps its class. `export` and `import_`
+carry the queued work (and a round-robin cursor) across a crash.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 from repro_torch.core.multiqueue import HostMultiQueue
 from repro_torch.serve.api import Request, register_scheduler
@@ -28,6 +29,21 @@ class _MultiQueueScheduler:
 
     # a requeued request is not a new arrival: same class, tail of queue
     requeue = submit
+
+    # -- crash recovery ---------------------------------------------------
+    def export(self) -> Tuple[List[List[Request]], dict]:
+        """Queued work per class in pop order, without disturbing it."""
+        return [self.mq.items(q) for q in range(self.n_classes)], {}
+
+    def import_(self, queues: List[List[Request]], aux: dict) -> None:
+        """Load exported queues into this (fresh) scheduler verbatim:
+        requests go back to their recorded class, not through
+        `class_of`."""
+        for q, reqs in enumerate(queues):
+            for req in reqs:
+                if not self.mq.push(q, req):
+                    raise RuntimeError(
+                        f"scheduler import overflow at class {q}")
 
     @property
     def pending(self) -> int:
@@ -72,3 +88,12 @@ class RoundRobinScheduler(_MultiQueueScheduler):
         if item is not None:
             self._cursor = (q + 1) % self.n_classes
         return item
+
+    def export(self) -> Tuple[List[List[Request]], dict]:
+        queues, aux = super().export()
+        aux["cursor"] = int(self._cursor)
+        return queues, aux
+
+    def import_(self, queues: List[List[Request]], aux: dict) -> None:
+        super().import_(queues, aux)
+        self._cursor = int(aux.get("cursor", 0))

@@ -31,7 +31,12 @@ refcount through `cache_retain`/`cache_release`; a copy of the block's
 rows on `dense`) and `share_prefix` installs cached blocks in a slot.
 `latent` and `recurrent` decline both.
 
-State tensors are written in place.
+State tensors are written in place, by a restore too: `export_state`
+copies a backend's state to host tensors and JSON-able pairs (the whole
+slabs on `dense` and `recurrent`, only the referenced pages on `paged`
+and `latent`), and `import_state` writes them back into the engine's own
+device tensors, pages at the same ids. `snapshot_payload` and
+`restore_payload` are the layouts' codec for prefix-cache payloads.
 """
 from __future__ import annotations
 
@@ -93,6 +98,62 @@ class _PooledKV:
 
     def cache_release(self, payload) -> None:
         pass
+
+    # -- crash recovery ---------------------------------------------------
+    # Pool bookkeeping travels as JSON-able pairs, never as int-keyed
+    # dicts: a JSON round trip through the Checkpointer manifest would
+    # turn int keys into strings.
+    def _export_pool(self) -> dict:
+        p = self.pool
+        return {
+            "free": [int(x) for x in p.free],
+            "tables": [[int(r), [int(x) for x in pages]]
+                       for r, pages in p.tables.items()],
+            "refcnt": [[int(g), int(c)] for g, c in p.refcnt.items()],
+            "peak": int(p.peak),
+        }
+
+    def _import_pool(self, snap: dict) -> None:
+        p = self.pool
+        p.free = [int(x) for x in snap["free"]]
+        p.tables = {int(r): [int(x) for x in pages]
+                    for r, pages in snap["tables"]}
+        p.refcnt = {int(g): int(c) for g, c in snap["refcnt"]}
+        p.peak = int(snap["peak"])
+
+    def _export_counters(self, state: dict) -> dict:
+        return {"pool": self._export_pool(),
+                "lengths": _to_host(state["lengths"]),
+                "positions": _to_host(state["positions"])}
+
+    def _import_counters(self, snap: dict, state: Optional[dict]) -> dict:
+        """The pool bookkeeping, and `lengths`/`positions` written into
+        `state` (a fresh `init_state()` when None)."""
+        self._import_pool(snap["pool"])
+        if state is None:
+            state = self.init_state()
+        for k in ("lengths", "positions"):
+            state[k].copy_(snap[k])
+        return state
+
+    # Default payload codec: payloads are device K/V trees (the dense
+    # layout), copied to host tensors and back. Layouts with pool
+    # indirection override it with their handle type.
+    def snapshot_payload(self, payload):
+        return _tree_to_host(payload)
+
+    def restore_payload(self, data):
+        return [{k: torch.as_tensor(t).to(self.device) for k, t in
+                 layer.items()} for layer in data]
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy (on the CPU too, where `.cpu()` would alias)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _tree_to_host(tree):
+    return [{k: _to_host(t) for k, t in layer.items()} for layer in tree]
 
 
 @register_state_backend("paged")
@@ -201,6 +262,42 @@ class PagedKV(_PooledKV):
                 self.pool.table_matrix(slot_req_ids, width),
                 device=self.device)
             self._dirty = False
+        return state
+
+    # -- crash recovery ---------------------------------------------------
+    # Prefix-cache payloads are pool page ids: a plain int round-trips.
+    def snapshot_payload(self, payload):
+        return int(payload)
+
+    def restore_payload(self, data):
+        return int(data)
+
+    def export_state(self, state: dict) -> dict:
+        """Only the referenced pages (tables and cache-held), in sorted-id
+        order: free pages hold stale bytes that no table reaches."""
+        used = sorted(int(g) for g in self.pool.refcnt)
+        snap = self._export_counters(state)
+        snap["page_ids"] = used
+        snap["pages"] = (_tree_to_host(tf.gather_pages(state["caches"],
+                                                       used))
+                         if used else None)
+        return snap
+
+    def import_state(self, snap: dict,
+                     state: Optional[dict] = None) -> dict:
+        """The pool contents back at the SAME page ids, into `state`'s
+        own pools (zeroed first, as a fresh pool is); tables, refcounts
+        and the free stack verbatim, so allocation after the restore
+        (and so every table) follows the crashed process exactly. The
+        tables are re-exported at the next `sync`."""
+        state = self._import_counters(snap, state)
+        for layer in state["caches"]:
+            for pool in layer.values():
+                pool.zero_()
+        page_ids = [int(g) for g in snap["page_ids"]]
+        if page_ids:
+            tf.scatter_pages(state["caches"], snap["pages"], page_ids)
+        self._dirty = True
         return state
 
 
@@ -377,6 +474,21 @@ class DenseKV(_PooledKV):
 
     def sync(self, state: dict,
              slot_req_ids: List[Optional[int]]) -> dict:
+        return state
+
+    # -- crash recovery ---------------------------------------------------
+    def export_state(self, state: dict) -> dict:
+        """The whole slabs (ring slabs and recurrent carries included)."""
+        snap = self._export_counters(state)
+        snap["caches"] = _tree_to_host(state["caches"])
+        return snap
+
+    def import_state(self, snap: dict,
+                     state: Optional[dict] = None) -> dict:
+        state = self._import_counters(snap, state)
+        for d_layer, s_layer in zip(state["caches"], snap["caches"]):
+            for k, d in d_layer.items():
+                d.copy_(s_layer[k])
         return state
 
 

@@ -8,7 +8,10 @@ parking; B2 in a sliding window at h2o-danube-3-4b's padded head dim,
 B1 at nemotron-4-15b's and musicgen-large's head groupings, and a
 full-width danube across its ring's wrap; B2's (192, 128) instance, the
 MLA engine (deepseek-v2-lite-16b) on the latent and dense backends
-against the CPU, and an MLA decode span with no sync.
+against the CPU, and an MLA decode span with no sync; crash and restore
+on the card (SMOKE configs crashed at step boundaries on all four
+layouts keep the card's clean streams) and bf16 pools bit for bit
+through a snapshot, the Checkpointer's files and a restore.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -986,3 +989,86 @@ def test_danube_full_width_on_card_across_the_ring_wrap(cuda):
                                              runs[name][1], cfg)
                         for name, (dev, params) in sides.items()}
         assert n + steps > 512
+
+
+# ---------------------------------------------------------------------------
+# crash and restore on the card
+# ---------------------------------------------------------------------------
+
+_CRASH_SPEC = dict(arrival="bursty", rate=0.5, burst=4.0, seed=3,
+                   prompt_lens=((1.0, 5, 14),), output_lens=((1.0, 5, 10),))
+
+
+def _crash_trace(cfg, n=4):
+    from repro_torch.serve.loadgen import TraceSpec, make_trace
+    return lambda: make_trace(TraceSpec(**_CRASH_SPEC), n, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch,layout,every", [
+    ("qwen3-8b", "paged", True), ("qwen3-8b", "dense", True),
+    ("rwkv6-1.6b", "recurrent", False),
+    ("deepseek-v2-lite-16b", "latent", False)])
+def test_crash_restore_on_card_keeps_streams(cuda, arch, layout, every):
+    """SMOKE configs (bf16 pools and slabs) crashed at every step boundary
+    (paged, dense) or at boundaries 1-3 (recurrent, latent) on the card
+    give the card's clean streams and outcomes; `drive` holds
+    host_syncs == prefills + decode_spans over the restored stats."""
+    from repro_torch.ft import crash_anywhere_sweep
+    cfg = SMOKE_CONFIGS[arch]
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    kw = dict(slots=2, cache_len=64, page_size=8, n_pages=24,
+              kv_layout=layout, decode_span=4, eos_token=-1)
+    clean, reports = crash_anywhere_sweep(
+        cfg, params, kw, _crash_trace(cfg),
+        boundaries=None if every else (1, 2, 3), device=cuda)
+    assert clean.steps >= 3
+    assert len(reports) == (clean.steps if every else 3)
+    for r in reports:
+        assert len(r.crash_log) == 1
+        s = r.engine_stats
+        assert s["host_syncs"] == s["prefills"] + s["decode_spans"]
+
+
+def test_bf16_pools_survive_snapshot_and_disk_on_card(cuda, tmp_path):
+    """A snapshot of bf16 pools on the card, through pack_tree, the
+    Checkpointer's files and unpack_tree, restores onto a fresh engine on
+    the card bit for bit, into that engine's own tensors."""
+    from repro_torch.checkpoint import Checkpointer, pack_tree, unpack_tree
+    from repro_torch.ft import build_stack
+    cfg = SMOKE_CONFIGS["qwen3-8b"]
+    params = lm.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+    kw = dict(slots=2, cache_len=64, page_size=8, n_pages=24,
+              kv_layout="paged", decode_span=4, eos_token=-1)
+    fe, rebuild = build_stack(cfg, params, kw, device=cuda)
+    handles = [fe.submit(r) for _, r in _crash_trace(cfg)()]
+    for _ in range(3):
+        fe.step()
+    eng = fe.engine
+    pool = eng.state["caches"][0]["k"]
+    assert pool.dtype == torch.bfloat16 and pool.is_cuda
+    snap = eng.snapshot()
+    leaves, meta = pack_tree(snap)
+    ckpt = Checkpointer(tmp_path / "snaps")
+    ckpt.save(3, leaves, extra={"engine_snapshot": meta}, blocking=True)
+    disk_meta, disk_leaves = ckpt.load()
+    back = unpack_tree(disk_meta["extra"]["engine_snapshot"], disk_leaves)
+    eng2 = rebuild()
+    ptrs = [t.data_ptr() for layer in eng2.state["caches"]
+            for t in layer.values()]
+    eng2.restore(back)
+    ids = snap["kv"]["page_ids"]
+    assert ids
+    for a, b in zip(eng.state["caches"], eng2.state["caches"]):
+        for k in a:
+            assert b[k].is_cuda and b[k].dtype == torch.bfloat16
+            assert torch.equal(a[k][ids].view(torch.int16),
+                               b[k][ids].view(torch.int16))
+    assert ptrs == [t.data_ptr() for layer in eng2.state["caches"]
+                    for t in layer.values()]
+    fe.reattach(eng2)
+    fe.run()
+    s = eng2.stats
+    assert s["host_syncs"] == s["prefills"] + s["decode_spans"]
+    assert all(h.ok and h.streamed == h.req.tokens_out for h in handles)

@@ -9,8 +9,8 @@ streams, shed logs and counters. The reference's dense streams differ
 between span 1 and 8 and between chunked and monolithic prefill in its
 own test (``test_stream_invariant_to_span_and_chunking[dense]``), so the
 port is held to the reference's stream at each (span, chunk), and to the
-invariance only where the reference holds it. Crash reattach waits for
-ROADMAP A11.
+invariance only where the reference holds it. Crash reattach is held in
+tests/test_torch_crash.py.
 """
 import numpy as np
 import pytest

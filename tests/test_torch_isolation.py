@@ -139,3 +139,50 @@ def test_jamba_entry_points_need_cuda_unless_asked_for_cpu():
     eng.submit(Request(0, np.arange(1, 9, dtype=np.int32), max_new_tokens=3))
     done = eng.run_until_done()
     assert len(done) == 1 and len(done[0].tokens_out) == 3
+
+
+def test_crash_recovery_imports_without_jax_or_repro():
+    """The checkpointer and the ft package (fault and crash injectors,
+    the chaos harness) stand alone too."""
+    code = ("import sys\n"
+            "import repro_torch.checkpoint, repro_torch.ft\n"
+            "import repro_torch.checkpoint.checkpointer\n"
+            "import repro_torch.ft.chaos, repro_torch.ft.crash\n"
+            "import repro_torch.ft.faults\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert (PORT / "checkpoint" / "checkpointer.py").exists()
+    assert sorted(p.name for p in (PORT / "ft").glob("*.py")) == [
+        "__init__.py", "chaos.py", "crash.py", "faults.py"]
+
+
+def test_chaos_drive_needs_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    import numpy as np
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    from repro_torch.ft import build_stack, drive
+    from repro_torch.models import lm
+    from repro_torch.serve.api import Request
+    cfg = SMOKE_CONFIGS["qwen3-8b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    kw = dict(slots=2, cache_len=64, page_size=8, n_pages=16,
+              kv_layout="paged", eos_token=-1, decode_span=1)
+
+    def trace():
+        return [(0.0, Request(0, np.arange(1, 9, dtype=np.int32),
+                              max_new_tokens=3))]
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drive(cfg, params, kw, trace())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_stack(cfg, params, kw)
+    r = drive(cfg, params, kw, trace(), crash_at=(1,), device="cpu")
+    assert r.outcomes == {0: "completed"} and len(r.streams[0]) == 3
+    assert r.crash_log[0]["step"] == 1
