@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only train [--train-layers N]
+
+The second builds the kernels and runs only B2-bwd at qwen3-8b's train
+shape and the training phases (8 below), printing no result line.
 
 Phases, each printing one JSON object per line:
 
@@ -22,15 +26,21 @@ Phases, each printing one JSON object per line:
              192, v 128: MLA at full width) on its edge sweep and at
              deepseek-v2-lite-16b's prefill shape (H = KV = 16, S 1000 and
              1900) in fp32 and bf16, against SDPA at the same shape;
+             B2's log-sum-exp and B2-bwd (training's backward) against
+             their plain versions on a sweep (hd 16-128; G 1, 4, 6; S 1,
+             63, 65, 200, 1000; window 0 and 48; fp32 and bf16), bit for
+             bit across calls, and at qwen3-8b's train shape: bf16
+             beside SDPA's backward, fp32 within 4e-5;
 4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b, jamba-v0.1-52b,
              qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
              musicgen-large and deepseek-v2-lite-16b (decoding through its
              latent pools) at full width, 2 layers (jamba's an attention
              layer with a dense MLP and a Mamba layer with an MoE one),
-             fp32 (TF32 off): prefill and decode on the card (kernels)
+             fp32 (TF32 off; nemotron and chameleon at 1 layer, for
+             time): prefill and decode on the card (kernels)
              against the CPU (plain path) on the same weights, danube also
-             on a 4500-token prompt past its window and 8 decode steps
-             around its ring slabs, and on an 8100-token one (the rotary
+             at 1 layer on a 4500-token prompt past its window and 8 decode
+             steps around its ring slabs, and on an 8100-token one (the rotary
              angles' bits at long positions); for the MoE models, any
              token whose top-k expert set differs between the two is
              reported with its router gap; for qwen3 and moonshot also a
@@ -42,8 +52,9 @@ Phases, each printing one JSON object per line:
              h2o-danube-3-4b through the dense engine (prompts of 37-7000
              tokens around its window, cache_len 8192), deepseek-v2-lite-16b
              through the latent engine (B2's (192, 128) instance in every
-             prefill), each at full width and depth, and jamba-v0.1-52b
-             through the dense engine at
+             prefill), each at full width, at full depth but moonshot (24
+             of 48 layers) and deepseek (14 of 27), for time, and
+             jamba-v0.1-52b through the dense engine at
              full width and 16 of its 32 layers (its 103 GB of bf16
              weights do not fit one card), all in bf16: 8 requests,
              launch counts of the path's kernels, a second run that must
@@ -55,8 +66,8 @@ Phases, each printing one JSON object per line:
              deepseek's 1900-token prefills), each port
              kernel's device ms and launches in the trace held to its
              wrapper's calls; then chunked prefill with the prefix cache:
-             qwen3-8b on the paged engine at full depth and on the dense
-             engine at 8 of its 36 layers, 8 chat requests under one
+             qwen3-8b on the paged engine at 18 and on the dense engine at
+             8 of its 36 layers, 8 chat requests under one
              512-token system prompt in 256-token chunks, twice (equal
              streams, >= 4 prefix hits of 512 tokens each, launches held to
              the counters, the pool empty after), beside the same prompts
@@ -100,7 +111,19 @@ Phases, each printing one JSON object per line:
              x its counters summed over the engines it went through;
              snapshot bytes and the seconds to snapshot, restore, save and
              load;
-8. the kernels line, the total wall time, the nvidia-smi line, and the
+8. model_grads — qwen3-8b at full width, 2 layers, fp32: the loss and
+             every gradient on the card against the CPU;
+   train   — qwen3-8b at full width and TRAIN_LAYERS of its 36 layers
+             in bf16 through ``repro_torch.launch.train`` (seq 4096,
+             batch 2 in 2 microbatches, remat): every step's loss, grad
+             norm, lr and seconds, tokens/s, peak memory, B2 and B2-bwd
+             launches held to layers x microbatches (x 2 for B2), the loss
+             falling on a repeated batch, one traced step; a run stopped
+             at its step-4 checkpoint and resumed against the
+             uninterrupted one (2 layers); the FaultTolerantTrainer's SR
+             and GBN recovery on the trainer demo against its no-failure
+             params;
+9. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
 Every phase call prints its wall seconds on a line of its own.
@@ -110,6 +133,7 @@ rest of the repository, and on any failed check.
 """
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import statistics
@@ -136,6 +160,9 @@ WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
 MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
 SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
 SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
+# B2-bwd has no Pallas kernel to replace: the reference differentiates its
+# training attention through the jnp custom VJP `_flash_bwd`
+FLASH_BWD_REPLACES = "src/repro/models/attention.py:119"
 # the __global__ functions of src/repro_torch/kernels/csrc/: B1's split and
 # reduce passes, B2's tensor-core (bf16) kernel, its (192, 128) instance
 # named apart (MLA's q/k 192 with v 128), and its FMA (fp32) kernel, B4's
@@ -144,8 +171,11 @@ SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
 WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
                        "wkv6_chunk_output_kernel")
 FLASH_MLA_KERNEL = "flash_fwd_bf16_kernel<192, 128>"
+# B2-bwd: a dk/dv pass and a dq pass a call
+FLASH_BWD_KERNELS = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
                 FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel", "flash_fwd_kernel",
+                *FLASH_BWD_KERNELS,
                 *WKV_CHUNKED_KERNELS, "wkv6_decode_kernel",
                 "moe_dispatch_kernel", "linear_scan_kernel",
                 "ssm_decode_kernel")
@@ -334,6 +364,96 @@ def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
     emit(rec)
     require(ok, f"chunked_causal_attention disagrees with the plain "
                 f"attention: {rec}")
+    return rec
+
+
+def _pairs(S, window):
+    """(query, key) pairs of the causal (+SWA) band."""
+    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
+
+
+def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
+                    timed=True, tol=None):
+    """B2's lse and B2-bwd against their plain versions on the same
+    inputs, each within ``tol`` (by default TOL of the dtype) of max(1,
+    |ref|); two calls give the same
+    bits; B2 with and without lse the same out. Timed: B2-bwd, the plain
+    backward, and as the library's, the backward of SDPA's forward +
+    backward (causal only); B2 with and without lse beside them."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd), \
+        rnd(B, H, S, hd)
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    plain_out = fa.flash_attention(q, k, v, window=window)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    _, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          window=window, return_lse=True)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float(),
+                                       window=window)
+    name = str(dtype).split(".")[-1]
+    tol = tol or TOL[name]
+
+    def rel(a, b):
+        return float(((a.float() - b).abs() / b.abs().clamp(min=1)).max())
+    errs = {"lse": rel(lse, ref_lse), "dq": rel(grads[0], ref[0]),
+            "dk": rel(grads[1], ref[1]), "dv": rel(grads[2], ref[2])}
+    repeats = all(torch.equal(a, b) for a, b in zip(grads, again))
+    same_out = bool(torch.equal(out, plain_out))
+    ok = max(errs.values()) <= tol and repeats and same_out
+    # the function's work: five products a band pair (scores, dp, dv, dk,
+    # dq); q, k, v, out, dout and lse read once, dq, dk, dv written once
+    pairs = _pairs(S, window)
+    nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel()
+                                  + 2 * v.numel() + 2 * do.numel())
+              + lse.numel() * 4)
+    b_ms, b_by = bound(nbytes, 10.0 * hd * B * H * pairs, name)
+    rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
+           "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+                     "window": window}, "dtype": name,
+           "max_err": max(errs.values()), "errs": errs, "tol": tol,
+           "bit_equal_repeat": repeats, "lse_out_equal": same_out, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, window=window), torch)
+        rec["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, window=window), torch)
+        rec["fwd_ms"] = time_ms(lambda: fa.flash_attention(
+            q, k, v, window=window), torch)
+        rec["fwd_lse_ms"] = time_ms(lambda: fa.flash_attention(
+            q, k, v, window=window, return_lse=True), torch)
+        # B2 with lse beside its plain version and SDPA's forward; its
+        # bound: two products a pair, q, k, v read, out and lse written
+        rec["fwd_plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, window=window, return_lse=True), torch)
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
+            q.element_size() * (2 * q.numel() + 2 * k.numel())
+            + lse.numel() * 4, 4.0 * hd * B * H * pairs, name)
+        rec["library_ms"] = None
+        if window == 0:
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               enable_gqa=True)
+            rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o, (qs, ks, vs), do, retain_graph=True), torch)
+            rec["library"] = ("the backward of scaled_dot_product_attention"
+                              "(is_causal, enable_gqa)")
+            rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+            del o
+            rec["fwd_library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), torch)
+    emit(rec)
+    require(ok, f"flash_attention_bwd disagrees with its plain version: "
+                f"{rec}")
     return rec
 
 
@@ -901,7 +1021,32 @@ def phase_kernels(torch):
                                              bf16, hd_v=128)
         main[("flash_mla_fp32", S)] = check_flash(torch, fa, 1, 16, 16, S,
                                                   192, f32, hd_v=128)
+    # B2's lse and B2-bwd (training) on the sweep: every square head dim,
+    # G 1, 4 and 6, lengths ragged against the 64-row tiles, causal and a
+    # window of 48; then at qwen3-8b's train shape
+    for dtype in (f32, bf16):
+        for hd in fa.HEAD_DIMS:
+            for H, KV in ((4, 4), (8, 2), (6, 1)):
+                for S in (1, 63, 65, 200, 1000):
+                    for window in (0, 48):
+                        check_flash_bwd(torch, fa, 2, H, KV, S, hd, dtype,
+                                        window=window, seed=hd + S + H,
+                                        timed=False)
+    main[("flash_bwd", 4096)] = check_flash_bwd_train(torch, fa)
     return main
+
+
+def check_flash_bwd_train(torch, fa):
+    """B2's lse and B2-bwd at qwen3-8b's train shape (B 1 per microbatch,
+    H 32, KV 8, hd 128, S 4096): in bf16, the train path's type, timed
+    beside SDPA's backward; and in fp32 within 4e-5, not the sweep's 2e-5
+    (S <= 1000): the rounding of fp32 sums grows as the square root of
+    their length, and 2e-5 * sqrt(4096 / 1000) is 4.05e-5. Returns the
+    bf16 record."""
+    rec = check_flash_bwd(torch, fa, 1, 32, 8, 4096, 128, torch.bfloat16)
+    check_flash_bwd(torch, fa, 1, 32, 8, 4096, 128, torch.float32,
+                    timed=False, tol=4e-5)
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1266,6 +1411,7 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
 WRAPPER_KERNELS = {
     "flash_attention": ((FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel",
                          "flash_fwd_kernel"), 1),
+    "flash_attention_bwd": (FLASH_BWD_KERNELS, 2),
     "paged_decode_attention": (("paged_decode_split_kernel",
                                 "paged_decode_reduce_kernel"), 2),
     "wkv6_chunked": (WKV_CHUNKED_KERNELS, 3),
@@ -1388,6 +1534,309 @@ def _profile(torch, device, fn):
             "pad_dropped": dropped}
 
 
+# --------------------------------------------------------------------------
+# training: gradients card vs CPU, the launcher's run, resume, FT recovery
+# --------------------------------------------------------------------------
+
+# qwen3-8b trained at full width and 14 of its 36 layers, the deepest that
+# fits one 80 GB card: AdamW keeps 16 bytes a parameter (bf16 param and
+# gradient, fp32 master, m, v) and gradient accumulation over microbatches
+# 4 more (fp32); on the H100 (``--only train --train-layers N``) 12 and
+# 14 layers peaked at 72.59 and 80.30 GB, ~3.86 GB a layer, so 16 would
+# need ~88 GB
+TRAIN_LAYERS = 14
+TRAIN_STEPS = 8
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_MICROBATCH = 2
+TRAIN_DIR = ROOT / "build" / "smoke_train"
+
+
+def _train_args(layers, steps, ckpt_dir, *more):
+    return ["--arch", "qwen3-8b", "--layers", str(layers), "--seq",
+            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--microbatch",
+            str(TRAIN_MICROBATCH), "--steps", str(steps), "--ckpt-dir",
+            str(ckpt_dir), *more]
+
+
+def _reset_launches():
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def _train_launches(label, wrappers, layers, grad_calls, remat=True):
+    """B2 launched layers x grad calls x 2 (remat replays the forward) or
+    x 1, B2-bwd layers x grad calls, every other kernel never; returns
+    the record ``kernel_line`` reads."""
+    launches = {n: w.launches for n, w in wrappers.items()}
+    want = {"flash_attention": layers * grad_calls * (2 if remat else 1),
+            "flash_attention_bwd": layers * grad_calls}
+    require(all(launches[n] == want.get(n, 0) for n in launches)
+            and grad_calls > 0,
+            f"train {label}: launches {launches} != {want} "
+            f"({layers} layers x {grad_calls} gradient calls)")
+    return {"label": label, "launches": launches,
+            "launch_path": {n: {"grad_calls": layers} for n in want}}
+
+
+def phase_model_grads(torch, cfg, n_seq=2, n_tok=200, seed=0,
+                      device="cuda"):
+    """Loss and every gradient of ``cfg`` (fp32, TF32 off) on the card
+    (B2 with lse, B2-bwd, remat) against the CPU (the plain versions) on
+    the same weights and tokens: the loss within 1e-5 relative, each
+    gradient within 1e-3 of its leaf's largest |g| on the CPU."""
+    import numpy as np
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    p_cpu = lm.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+    p_gpu = _to(p_cpu, device)
+    toks = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(n_seq, n_tok)).astype(np.int32)
+    (l_cpu, _), g_cpu = value_and_grad(p_cpu, torch.from_numpy(toks), cfg)
+    wrappers = _reset_launches()
+    (l_gpu, _), g_gpu = value_and_grad(
+        p_gpu, torch.as_tensor(toks, device=device), cfg)
+    sync(torch, device)
+    path = _train_launches(f"{cfg.name} grads", wrappers, cfg.n_layers, 1)
+    loss_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+    worst = 0.0
+    for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
+        scale = float(b.abs().max())
+        worst = max(worst, float((a.cpu() - b).abs().max()) / max(scale,
+                                                                   1e-30))
+    rec = {"phase": "model_grads", "config": cfg.name,
+           "layers": cfg.n_layers, "tokens": [n_seq, n_tok],
+           "loss_cpu": float(l_cpu), "loss_card": float(l_gpu),
+           "loss_rel_err": loss_err, "grad_err_of_leaf_max": worst,
+           "launches": path["launches"],
+           "ok": loss_err <= 1e-5 and worst <= 1e-3}
+    emit(rec)
+    require(rec["ok"], f"model grads: card vs CPU {rec}")
+    return rec
+
+
+def phase_train(torch, layers=TRAIN_LAYERS, steps=TRAIN_STEPS,
+                device="cuda"):
+    """qwen3-8b at full width and ``layers`` layers in bf16 through the
+    train launcher's entry point: every step's loss, grad norm, lr and
+    seconds; tokens/s; peak memory; the launches held to layers x
+    microbatches x steps (x 2 for B2: remat). Then on one repeated batch
+    the loss must fall, and one train step is traced."""
+    import shutil
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = _reset_launches()
+    out = launcher.main(_train_args(layers, steps, TRAIN_DIR / "main"))
+    sync(torch, device)
+    peak = torch.cuda.max_memory_allocated()
+    path = _train_launches("qwen3-8b train", wrappers, layers,
+                           steps * TRAIN_MICROBATCH)
+    losses = [r["loss"] for r in out["steps"]]
+    tok_step = TRAIN_BATCH * TRAIN_SEQ
+    steady = [r["seconds"] for r in out["steps"][1:]]
+    rec = {"phase": "train", "config": "qwen3-8b", "layers": layers,
+           "reduced": {"n_layers": [36, layers]}, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
+           "remat": True, "dtype": "bfloat16", "steps": out["steps"],
+           "tokens_per_s": out["tokens_per_s"],
+           "steady_step_s": statistics.median(steady),
+           "steady_tokens_per_s": tok_step / statistics.median(steady),
+           "peak_gb": peak / 1e9, "launches": path["launches"]}
+    require(all(np.isfinite(x) for x in losses)
+            and all(np.isfinite(r["grad_norm"]) for r in out["steps"]),
+            f"train: a loss or grad norm is not finite: {out['steps']}")
+    require(losses[-1] < losses[0],
+            f"train: the loss did not fall over {steps} steps: {losses}")
+    # one batch, repeated: the loss falls at every step
+    cfg = get_config("qwen3-8b").scaled(n_layers=layers)
+    params, opt = out["params"], out["opt_state"]
+    del out
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=0,
+                                            total_steps=100),
+                           microbatch=TRAIN_MICROBATCH)
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        1, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32),
+        device=device)
+    rep = []
+    for _ in range(4):
+        params, opt, m = step(params, opt, toks)
+        rep.append(float(m["loss"]))
+    rec["repeated_batch_losses"] = rep
+    require(all(b < a for a, b in zip(rep, rep[1:])),
+            f"train: the loss on a repeated batch did not fall: {rep}")
+    win = _profile(torch, device, lambda: step(params, opt, toks))
+    rec["trace"] = _traced(torch, win)
+    emit(rec)
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, rec
+
+
+def phase_train_resume(torch, layers=2, device="cuda"):
+    """The launcher at full width and ``layers`` layers: one run of 8
+    steps, and one stopped at its step-4 checkpoint and resumed with
+    ``--resume``: the resumed losses against the uninterrupted run's, bit
+    for bit or the first step and size of a difference. Eight steps stay
+    inside the launcher's 10-step warmup, where the lr does not depend on
+    ``--steps``."""
+    import shutil
+    from repro_torch.core.timing import Timer
+    from repro_torch.launch import train as launcher
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def run(*args):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = Timer()
+        out = launcher.main(_train_args(layers, *args))
+        out.pop("params")
+        out.pop("opt_state")
+        return out, t.elapsed()
+
+    wrappers = _reset_launches()
+    full, full_s = run(8, TRAIN_DIR / "full")
+    first, first_s = run(4, TRAIN_DIR / "resume", "--ckpt-every", "4")
+    rest, rest_s = run(8, TRAIN_DIR / "resume", "--resume")
+    sync(torch, device)
+    path = _train_launches("qwen3-8b train resume", wrappers, layers,
+                           16 * TRAIN_MICROBATCH)
+    want = [r["loss"] for r in full["steps"]]
+    got = [r["loss"] for r in first["steps"] + rest["steps"]]
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    ckpt = TRAIN_DIR / "resume" / "step_00000004" / "shards.npz"
+    rec = {"phase": "train_resume", "config": "qwen3-8b", "layers": layers,
+           "resumed_from": rest["start"], "losses_uninterrupted": want,
+           "losses_stopped_and_resumed": got, "bit_equal": not diff,
+           "first_differing_step": diff[0] if diff else None,
+           "max_abs_diff": max(abs(a - b) for a, b in zip(got, want)),
+           "checkpoint_bytes": ckpt.stat().st_size if ckpt.exists() else None,
+           "seconds": {"uninterrupted": full_s, "to_step_4_and_save": first_s,
+                       "load_and_resume": rest_s},
+           "launches": path["launches"]}
+    emit(rec)
+    require(rest["start"] == 4 and len(got) == len(want) == 8,
+            f"train resume: {rec}")
+    require(rec["max_abs_diff"] <= 1e-3 * abs(want[-1]),
+            f"train resume: the resumed losses are not the run's: {rec}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return path, rec
+
+
+def phase_train_ft(torch, steps=6, device="cuda"):
+    """FaultTolerantTrainer on the trainer-demo model of
+    examples/train_lm.py (dim 256, 4 layers, hd 64, vocab 4096, seq 256,
+    batch 8, bf16) under the reference test's failures (rate 0.3, seed 5,
+    2 workers, a checkpoint every 2 steps): SR within 5e-3 and GBN within
+    1e-6 of the no-failure params (tests/test_substrate.py), GBN's bit
+    equality reported; launches held to the gradient calls made."""
+    import shutil
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.tree import leaves, map_tree
+    from repro_torch.data import DataConfig, SyntheticPackedDataset
+    from repro_torch.ft import FaultTolerantTrainer, FTConfig
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.train_step import value_and_grad
+    cfg = ModelConfig(name="trainer-demo", family="dense", n_layers=4,
+                      d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                      d_ff=1024, vocab_size=4096)
+    params = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                            device=device)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    calls = [0]
+
+    def grad_fn(p, t):
+        calls[0] += 1
+        return value_and_grad(p, t, cfg)[1], {}
+
+    def update_fn(g, o, p):
+        return adamw_update(g, o, p, ocfg)
+
+    def trainer(policy, rate, ck):
+        data = SyntheticPackedDataset(DataConfig(seq_len=256, global_batch=8,
+                                                 vocab_size=cfg.vocab_size))
+        return FaultTolerantTrainer(
+            grad_fn, update_fn, data, ck,
+            FTConfig(policy=policy, failure_rate=rate, checkpoint_every=2,
+                     seed=5), n_workers=2, device=device)
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    wrappers = _reset_launches()
+    p = map_tree(lambda t: t.clone(), params)
+    clean, _, _ = trainer("sr", 0.0, Checkpointer(str(TRAIN_DIR / "clean"))
+                          ).run(p, adamw_init(p), steps)
+    recs = []
+    for policy, tol in (("sr", 5e-3), ("gbn", 1e-6)):
+        ck = Checkpointer(str(TRAIN_DIR / policy))
+        p = map_tree(lambda t: t.clone(), params)
+        ck.save(0, (p, adamw_init(p)), blocking=True)
+        got, _, st = trainer(policy, 0.3, ck).run(p, adamw_init(p), steps)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(leaves(got), leaves(clean)))
+        bits = all(torch.equal(a, b) for a, b in zip(leaves(got),
+                                                     leaves(clean)))
+        rec = {"phase": "train_ft", "policy": policy, "steps": st.steps,
+               "failures": st.failures,
+               "microbatches_recomputed": st.microbatches_recomputed,
+               "steps_replayed": st.steps_replayed,
+               "checkpoints_restored": st.checkpoints_restored,
+               "max_abs_diff_vs_no_failure": err, "tol": tol,
+               "bit_equal": bits, "wall_s": st.wall_s}
+        emit(rec)
+        require(st.failures > 0 and err <= tol,
+                f"train ft: {policy} did not reach the no-failure params: "
+                f"{rec}")
+        recs.append(rec)
+    sync(torch, device)
+    path = _train_launches("trainer-demo ft", wrappers, cfg.n_layers,
+                           calls[0])
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return path, recs
+
+
+def train_phases(torch, layers=TRAIN_LAYERS):
+    """The training phases in their order, as (phase, label, fn, args):
+    2 layers of qwen3-8b in fp32, loss and gradients card against CPU;
+    qwen3-8b at full width and ``layers`` of its 36 layers, alone on the
+    card; resume at 2 layers (each checkpoint holds 16 bytes a
+    parameter); FT recovery on the trainer demo."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-8b")
+    return [("model_grads", cfg.name, phase_model_grads,
+             (torch, cfg.scaled(n_layers=2, dtype="float32"))),
+            ("train", cfg.name, phase_train, (torch, layers)),
+            ("train", f"{cfg.name} resume", phase_train_resume, (torch,)),
+            ("train", "trainer-demo ft", phase_train_ft, (torch,))]
+
+
+def run_train_phases(torch, layers=TRAIN_LAYERS):
+    """Run ``train_phases``, freeing the card between them; returns the
+    train phases' launch records for ``kernel_line``."""
+    paths = []
+    for phase, label, fn, args in train_phases(torch, layers):
+        out = seconds(phase, label, fn, *args)
+        if phase == "train":
+            paths.append(out[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
 def streams_digest(streams) -> str:
     """sha256 of a run's token streams ({req_id: tokens}), to compare runs
     of different code without printing every token."""
@@ -1431,8 +1880,8 @@ def profile_prefill(torch, cfg, params, ecfg, prompt, device):
 
 
 def _wrappers():
-    """Every kernel wrapper of the port (B1-B7), by kernel name; each
-    counts its launches in ``.launches``."""
+    """Every kernel wrapper of the port (B1-B7 and B2-bwd), by kernel
+    name; each counts its launches in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import moe_dispatch as md
@@ -1440,6 +1889,7 @@ def _wrappers():
     from repro_torch.kernels import ssm_decode as sd
     from repro_torch.kernels import wkv6 as wk
     return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "paged_decode_attention": pa.paged_decode_attention,
             "wkv6_chunked": wk.wkv6_chunked,
             "wkv6_decode": wk.wkv6_decode,
@@ -2580,10 +3030,15 @@ def _kernel_row(name, rec, src, replaces, by_path, main, more):
         row["library"] = rec["library"]
     if "x_library" in rec:
         row["x_library"] = rec["x_library"]
+    if "fwd_lse_ms" in rec:     # B2 at the same shape, without and with lse
+        row["b2_with_lse"] = {k: rec.get(k) for k in (
+            "fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms",
+            "fwd_bound_ms", "fwd_bound_by")}
     if more:
         row["also_at"] = [{k: main[m].get(k) for k in (
             "shape", "dtype", "max_err", "kernel_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "x_library")} for m in more]
+            "bound_by", "library_ms", "x_library", "fwd_ms", "fwd_lse_ms")
+            if k in main[m]} for m in more]
     return row
 
 
@@ -2620,7 +3075,9 @@ def kernel_line(main, serves):
             ("moe_dispatch", ("moe_dispatch", "prefill"), "moe_dispatch.cu",
              MOE_REPLACES, (("moe_dispatch", "decode"),
                             ("moe_dispatch_jamba", "prefill"),
-                            ("moe_dispatch_jamba", "decode")))):
+                            ("moe_dispatch_jamba", "decode"))),
+            ("flash_attention_bwd", ("flash_bwd", 4096),
+             "flash_attention_bwd.cu", FLASH_BWD_REPLACES, ())):
         rec = main[key]
         by_path = {s["label"]: s["launches"][name] for s in serves
                    if s["launches"][name]}
@@ -2642,7 +3099,15 @@ def kernel_line(main, serves):
     return {"kernels": rows}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
+    ap.add_argument("--only", choices=("train",),
+                    help="build, then run only these phases (train: B2-bwd "
+                         "at qwen3-8b's train shape and the training "
+                         "phases); prints no result line")
+    ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
+                    help="qwen3-8b's depth in the train phase")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2674,6 +3139,13 @@ def main() -> int:
         emit({"phase": "build", "seconds": t.elapsed(),
               "dir": str(_build.build_dir().relative_to(ROOT)),
               "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
+        if args.only == "train":
+            from repro_torch.kernels import flash_attention as fa
+            seconds("kernels", "flash_bwd", check_flash_bwd_train, torch, fa)
+            run_train_phases(torch, args.train_layers)
+            emit({"phase": "total", "seconds": total.elapsed()})
+            print(smi, flush=True)
+            return 0
         main_shapes = seconds("kernels", "all", phase_kernels, torch)
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
@@ -2699,19 +3171,24 @@ def main() -> int:
         # decode steps around the ring
         dcfg = get_config("h2o-danube-3-4b")
         ncfg = get_config("nemotron-4-15b")
+        # (nemotron-4-15b and chameleon-34b at one layer, for time: their
+        # CPU side is the slowest of the 2-layer runs)
         for name in DENSE_FAMILY:
+            depth = 1 if name in ("nemotron-4-15b", "chameleon-34b") else 2
             seconds("model", name, phase_model, torch,
-                    get_config(name).scaled(n_layers=2, dtype="float32"))
+                    get_config(name).scaled(n_layers=depth,
+                                            dtype="float32"))
             gc.collect()
+        # (one layer each, for time: the CPU's O(S^2) attention dominates)
         seconds("model", f"{dcfg.name} 4500", phase_model, torch,
-                dcfg.scaled(n_layers=2, dtype="float32"), n_prompt=4500,
+                dcfg.scaled(n_layers=1, dtype="float32"), n_prompt=4500,
                 n_seq=1, steps=8)
         gc.collect()
         # the rotary angles at long positions: since the frequencies carry
         # the reference's bits, the card's K slab stays within 2e-3 of the
         # CPU's at 8100 tokens
         seconds("model", f"{dcfg.name} 8100", phase_model, torch,
-                dcfg.scaled(n_layers=2, dtype="float32"), n_prompt=8100,
+                dcfg.scaled(n_layers=1, dtype="float32"), n_prompt=8100,
                 n_seq=1, steps=8)
         gc.collect()
         # deepseek-v2-lite-16b: its dense first layer and an MoE layer, MLA
@@ -2733,16 +3210,20 @@ def main() -> int:
         # two largest worst-case footprints, 440 + 377 pages, do not fit
         # 700 together, so that run parks; its 7000-token prefill and
         # nemotron-4-15b's 1900-token one are traced (B2 in its band, B2
-        # at G 6). deepseek-v2-lite-16b (27 layers, 31.4 GB) serves on the
-        # latent layout; 200 pages make it park; its 1900-token prefill is
-        # traced (B2's (192, 128) instance in each of the 27 layers)
+        # at G 6). deepseek-v2-lite-16b serves on the latent layout; 200
+        # pages make it park; its 1900-token prefill is traced (B2's (192,
+        # 128) instance in each layer). For time, beside the train phase,
+        # moonshot serves at 24 of its 48 layers and deepseek at 14 of its
+        # 27; pages count tokens, so both still park
         for c, layout, n_pages, park, traced, cache_len, lens in (
                 (cfg, "paged", 640, None, None, 2048, PROMPT_LENS),
                 (rcfg, "recurrent", 4, 3, 1531, 2048, PROMPT_LENS),
                 (dcfg, "dense", 2048, 700, 7000, 8192, DANUBE_PROMPT_LENS),
                 (ncfg, "paged", 640, None, 1900, 2048, PROMPT_LENS),
-                (mcfg, "paged", 640, 200, 1900, 2048, PROMPT_LENS),
-                (scfg, "latent", 640, 200, 1900, 2048, PROMPT_LENS),
+                (mcfg.scaled(n_layers=24), "paged", 640, 200, 1900, 2048,
+                 PROMPT_LENS),
+                (scfg.scaled(n_layers=14), "latent", 640, 200, 1900, 2048,
+                 PROMPT_LENS),
                 (jcfg, "dense", 640, 200, None, 2048, PROMPT_LENS)):
             gc.collect()
             torch.cuda.empty_cache()
@@ -2755,9 +3236,10 @@ def main() -> int:
                 "serve", f"{c.name} {layout}", phase_serve, torch, c, ecfg,
                 serve_path(c, layout), prompt_lens=lens, park_pages=park,
                 trace_prefill=traced))
-        # chunked prefill and the prefix cache: qwen3-8b on paged at full
-        # depth, and on dense at 8 of its 36 layers (for time)
-        for c, layout in ((cfg, "paged"), (cfg.scaled(n_layers=8), "dense")):
+        # chunked prefill and the prefix cache: qwen3-8b on paged at 18 and
+        # on dense at 8 of its 36 layers (for time)
+        for c, layout in ((cfg.scaled(n_layers=18), "paged"),
+                          (cfg.scaled(n_layers=8), "dense")):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2782,6 +3264,9 @@ def main() -> int:
             torch.cuda.empty_cache()
             serves += phase_crash_layout(torch, get_config(name), layout,
                                          *rest)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serves += run_train_phases(torch)
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

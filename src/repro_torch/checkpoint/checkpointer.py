@@ -64,13 +64,18 @@ def _unflatten(template, leaves):
 
 
 def _to_host(leaf) -> np.ndarray:
-    """A leaf as a host array npz can hold (bf16 upcast to float32)."""
+    """A leaf as a host array npz can hold (bf16 upcast to float32).
+
+    Always a copy, never a view: the writer thread reads it after `save`
+    has returned, while the caller may already be updating the tree in
+    place (`adamw_update` does), and a CPU tensor's ``.cpu().numpy()``
+    shares the tensor's storage."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.cpu().numpy()
-    return np.asarray(leaf)
+        return t.to("cpu", copy=True).numpy()
+    return np.array(leaf, copy=True)
 
 
 class Checkpointer:

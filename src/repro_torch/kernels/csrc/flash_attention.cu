@@ -50,6 +50,11 @@
 // warpgroups (warp specialisation), overlap of one tile's softmax with the
 // next tile's products, a persistent grid.
 //
+// Both kernels can also write each row's natural-log log-sum-exp (lse =
+// m + log l, as the reference's `_fwd_scan` forms it) through one more
+// pointer: training saves it for the backward (flash_attention_bwd.cu).
+// Serving passes null, and nothing more is written.
+//
 // fp32 inputs take `flash_fwd_kernel`, the FMA kernel on the CUDA cores
 // (a 64-row query tile, an 8 x 4 score block and an 8 x hd_v/16 output
 // block per thread, fp32 tiles in shared memory; hd up to 192, hd_v up to
@@ -64,6 +69,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // fp32: FMA on the CUDA cores
@@ -96,7 +102,8 @@ __device__ __forceinline__ float reduce16_sum(float v) {
 __global__ void flash_fwd_kernel(const float* __restrict__ q,
                                  const float* __restrict__ k,
                                  const float* __restrict__ v,
-                                 float* __restrict__ out, int H, int KV,
+                                 float* __restrict__ out,
+                                 float* __restrict__ lse, int H, int KV,
                                  int S, int hd, int hdv, int window,
                                  float scale) {
   const int qt = blockIdx.x;
@@ -217,16 +224,21 @@ __global__ void flash_fwd_kernel(const float* __restrict__ q,
   for (int i = 0; i < RPT; ++i) {
     const int qpos = q_lo + ty * RPT + i;
     if (qpos >= S) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe;
 #pragma unroll
     for (int j = 0; j < MAX_OCOL; ++j)
       if (j < ncol) o_bh[(size_t)qpos * hdv + tx + 16 * j] = acc[i][j] * inv;
+    // natural-log row sum for the backward, as the reference's scan forms
+    // it: m + log(l)
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * S + qpos] = m[i] + logf(l_safe);
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int H, int KV, int S, int hd, int hdv, int window, float scale,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int H, int KV, int S, int hd, int hdv,
+               int window, float scale, cudaStream_t stream) {
   if (hd % 16 != 0 || hd > MAX_HD || hdv % 16 != 0 || hdv == 0 ||
       hdv > 16 * MAX_OCOL)
     return (int)cudaErrorInvalidValue;
@@ -240,8 +252,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, H, KV,
-      S, hd, hdv, window, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, H,
+      KV, S, hd, hdv, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -522,8 +534,9 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int H, int KV,
-                          int S, int window, float scale_log2) {
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int H, int KV, int S,
+                          int window, float scale_log2) {
   constexpr int TILE = sw_blocks(HD) * SW_BLOCK;    // bytes of a q/k tile
   constexpr int VTILE = sw_blocks(HDV) * SW_BLOCK;  // bytes of a v tile
   constexpr int ONT = HDV / 8;
@@ -634,6 +647,13 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  // the running max is in base-2 units of the scaled score: the natural
+  // log-sum-exp is m * ln 2 + log(l), one quad lane writing each row
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lse_bh = lse + ((size_t)b * H + h) * S;
+    if (row0 < S) lse_bh[row0] = m0 * LN2 + logf(l0 > 0.f ? l0 : 1.f);
+    if (row1 < S) lse_bh[row1] = m1 * LN2 + logf(l1 > 0.f ? l1 : 1.f);
+  }
 
   // stage the 64 rows in the K buffers (free once every product is done)
   // with padded rows, then write them out as 16-byte rows
@@ -662,8 +682,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2)
 
 template <int HD, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int KV, int S, int window, float scale,
-                 cudaStream_t stream) {
+                float* lse, int B, int H, int KV, int S, int window,
+                float scale, cudaStream_t stream) {
   // q, two k stages and two v stages, and the 1024-byte alignment:
   // 107,520 bytes at (192, 128)
   const size_t smem =
@@ -675,7 +695,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   dim3 grid(H, B, (S + TC_BQ - 1) / TC_BQ);
   flash_fwd_bf16_kernel<HD, HDV><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, KV, S, window,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, H, KV, S, window,
       scale * LOG2E);
   return (int)cudaGetLastError();
 }
@@ -687,31 +707,38 @@ extern "C" {
 // q/k head dim hd, v and out head dim hd_v. dtype: 0 = float32 (hd a
 // multiple of 16 up to 192, hd_v one up to 128), 1 = bfloat16 ((hd, hd_v)
 // one of (16, 16), (32, 32), (64, 64), (128, 128), (192, 128); q, k, v
-// 16-byte aligned). The wrapper checks both. Returns a cudaError_t (0 =
+// 16-byte aligned). The wrapper checks both. lse, when not null, receives
+// the natural-log log-sum-exp of each row's scaled scores, [B, H, S]
+// float32, for the backward (flash_attention_bwd.cu); the serving path
+// passes null and nothing more is written. Returns a cudaError_t (0 =
 // success).
-int flash_fwd(const void* q, const void* k, const void* v, void* out, int B,
-              int H, int KV, int S, int hd, int hd_v, int window, float scale,
-              int dtype, void* stream) {
+int flash_fwd(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int H, int KV, int S, int hd, int hd_v,
+              int window, float scale, int dtype, void* stream) {
   if (B == 0 || S == 0) return 0;
   if (H % KV != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_f32(q, k, v, out, B, H, KV, S, hd, hd_v, window, scale, st);
+    return launch_f32(q, k, v, out, (float*)lse, B, H, KV, S, hd, hd_v,
+                      window, scale, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int pair = hd * 1000 + hd_v;
   switch (pair) {
     case 16016:
-      return launch_bf16<16, 16>(q, k, v, out, B, H, KV, S, window, scale, st);
+      return launch_bf16<16, 16>(q, k, v, out, (float*)lse, B, H, KV,
+                                 S, window, scale, st);
     case 32032:
-      return launch_bf16<32, 32>(q, k, v, out, B, H, KV, S, window, scale, st);
+      return launch_bf16<32, 32>(q, k, v, out, (float*)lse, B, H, KV,
+                                 S, window, scale, st);
     case 64064:
-      return launch_bf16<64, 64>(q, k, v, out, B, H, KV, S, window, scale, st);
+      return launch_bf16<64, 64>(q, k, v, out, (float*)lse, B, H, KV,
+                                 S, window, scale, st);
     case 128128:
-      return launch_bf16<128, 128>(q, k, v, out, B, H, KV, S, window, scale,
-                                   st);
+      return launch_bf16<128, 128>(q, k, v, out, (float*)lse, B, H, KV,
+                                 S, window, scale, st);
     case 192128:
-      return launch_bf16<192, 128>(q, k, v, out, B, H, KV, S, window, scale,
-                                   st);
+      return launch_bf16<192, 128>(q, k, v, out, (float*)lse, B, H, KV,
+                                 S, window, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

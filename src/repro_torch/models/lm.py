@@ -1,4 +1,5 @@
-"""LM entry points: params, prefill, decode step, device-resident spans.
+"""LM entry points: params, the training loss, prefill, decode step,
+device-resident spans.
 
 Params are a plain dict of tensors, ``{"embed": [V,D], "blocks": [...],
 "final_norm": [D], "head": [D,V]}``, with the JAX package's ``[in, out]``
@@ -28,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -126,6 +128,77 @@ def head_logits(x, head_w):
 
 def _head_weight(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+# tokens of one cross-entropy chunk: at qwen3's vocab of 151936 its fp32
+# logits take 622 MB, where a whole 4096-token row's would take 2.5 GB
+CE_CHUNK = 1024
+
+
+def train_supported(cfg: ModelConfig) -> bool:
+    """Training runs the dense-attention family: every layer plain
+    attention (no MLA) with a dense MLP."""
+    return (all(k == "attn" for k in cfg.layer_kinds()) and cfg.mla is None
+            and cfg.moe is None)
+
+
+def _ce_rows(x, head_w, targets):
+    """Per-token CE of rows x [N,D] against targets [N], in fp32 over the
+    logits (the reference's ``_ce_from_logits``)."""
+    logits = (x @ head_w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[:, None].long())[:, 0]
+    return lse - tgt
+
+
+def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK):
+    """Mean CE over masked tokens (the reference's ``chunked_ce_loss``
+    without a mesh). x: [B,S,D]; targets, mask: [B,S]. The per-token
+    values are formed ``chunk`` tokens at a time, each chunk under
+    ``torch.utils.checkpoint`` when autograd records, so no more than one
+    chunk's logits are alive; the mean is the reference's, over the whole
+    [B,S] at once."""
+    B, S, D = x.shape
+    xf, tf_ = x.reshape(B * S, D), targets.reshape(B * S)
+    parts = []
+    for lo in range(0, B * S, chunk):
+        args = (xf[lo:lo + chunk], head_w, tf_[lo:lo + chunk])
+        if torch.is_grad_enabled():
+            parts.append(torch.utils.checkpoint.checkpoint(
+                _ce_rows, *args, use_reentrant=False))
+        else:
+            parts.append(_ce_rows(*args))
+    per_tok = torch.cat(parts).reshape(B, S)
+    return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
+    """Next-token CE loss of tokens [B,S] (int32), the last position
+    masked. Returns (loss, metrics), metrics ``{"ce", "moe_aux",
+    "moe_dropped"}`` as the reference's for a dense stack (the router
+    stats are zero). With ``remat`` each block is replayed in the
+    backward (``transformer.apply_stack``). The dense-attention family
+    only: MoE (the router's aux loss), MLA, RWKV-6 and Mamba stacks
+    raise."""
+    if not train_supported(cfg):
+        raise NotImplementedError(
+            f"training {cfg.name} (layer kinds "
+            f"{sorted(set(cfg.layer_kinds()))}, moe={cfg.moe is not None}, "
+            f"mla={cfg.mla is not None}): the port trains the dense-"
+            f"attention family; MoE, MLA, RWKV-6 and Mamba stacks are "
+            f"ROADMAP A12b")
+    x = embed(params["embed"], tokens)
+    ctx = {"mode": "train", "remat": remat}
+    x, _ = tf.apply_stack(params, x, cfg, ctx)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                      torch.zeros_like(tokens[:, :1])],
+                     dim=1).to(torch.float32)
+    ce = ce_loss(x, _head_weight(params, cfg), targets, mask)
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "moe_aux": zero, "moe_dropped": zero}
 
 
 def prefill(params, tokens, cfg: ModelConfig,

@@ -39,9 +39,11 @@ eager torch would copy every cache on every step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_append
@@ -395,7 +397,28 @@ def apply_block(p, x, kind: str, mlp_kind: str, cfg: ModelConfig, ctx,
 
 def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                 want_caches: bool = False):
-    """Run every block in layer order. Returns (x, new_caches)."""
+    """Run every block in layer order. Returns (x, new_caches).
+
+    ``ctx["mode"] == "train"`` runs the blocks for a loss: no cache is
+    read or written, and with ``ctx["remat"]`` each block after the
+    reference's prefix (``plan_layers``; none in a dense stack) runs
+    under ``torch.utils.checkpoint``, as the reference wraps each block
+    of its scan in ``jax.checkpoint``: the backward replays one block at
+    a time, so a block's activations are never kept past it."""
+    if ctx["mode"] == "train":
+        if caches is not None or want_caches:
+            raise ValueError("train mode reads and writes no cache")
+        n_prefix = len(plan_layers(cfg)[0])
+        for i, (bp, kind, mlp_kind) in enumerate(zip(
+                params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
+            run = functools.partial(_train_block, bp, kind, mlp_kind, cfg,
+                                    ctx)
+            if ctx.get("remat") and i >= n_prefix:
+                x = torch.utils.checkpoint.checkpoint(run, x,
+                                                      use_reentrant=False)
+            else:
+                x = run(x)
+        return x, []
     new_caches = []
     for i, (bp, kind, mlp_kind) in enumerate(zip(
             params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
@@ -404,6 +427,10 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                             want_cache=want_caches)
         new_caches.append(nc)
     return x, new_caches
+
+
+def _train_block(bp, kind: str, mlp_kind: str, cfg: ModelConfig, ctx, x):
+    return apply_block(bp, x, kind, mlp_kind, cfg, ctx)[0]
 
 
 # --------------------------------------------------------------------------

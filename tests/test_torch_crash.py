@@ -40,6 +40,18 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve import loadgen as tlg  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 SIDES = ("ref", "port")
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
@@ -564,6 +576,39 @@ def test_checkpointer_async_error_surfaces(tmp_path):
     ckpt.save(2, [torch.arange(3)], blocking=False)
     ckpt.wait()
     assert latest_step(tmp_path / "ck") == 2
+
+
+def test_checkpointer_async_save_keeps_the_values_at_save(tmp_path,
+                                                          monkeypatch):
+    """An asynchronous save holds the tree as it was when `save` returned,
+    though the caller updates it in place before the write runs (as
+    `adamw_update` does to the master copy, m and v): the writer is held
+    until the tree has changed."""
+    import threading
+    release = threading.Event()
+    savez = np.savez
+
+    def held(*a, **kw):
+        assert release.wait(30)
+        return savez(*a, **kw)
+
+    monkeypatch.setattr(np, "savez", held)
+    tree = {"f32": torch.arange(6, dtype=torch.float32),
+            "bf16": torch.arange(4, dtype=torch.bfloat16),
+            "i32": torch.arange(5, dtype=torch.int32),
+            "np": np.arange(3.0)}
+    want = [tree["bf16"].float().numpy().copy(), tree["f32"].numpy().copy(),
+            tree["i32"].numpy().copy(), tree["np"].copy()]
+    ckpt = Checkpointer(tmp_path / "ck")
+    ckpt.save(7, tree, blocking=False)
+    for k in ("f32", "bf16", "i32"):
+        tree[k].add_(100)
+    tree["np"] += 100
+    release.set()
+    meta, leaves = ckpt.load()              # waits for the write
+    assert meta["step"] == 7
+    for got, ref in zip(leaves, want):
+        np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ MLA engine (deepseek-v2-lite-16b) on the latent and dense backends
 against the CPU, and an MLA decode span with no sync; crash and restore
 on the card (SMOKE configs crashed at step boundaries on all four
 layouts keep the card's clean streams) and bf16 pools bit for bit
-through a snapshot, the Checkpointer's files and a restore.
+through a snapshot, the Checkpointer's files and a restore; B2's
+log-sum-exp and the B2-bwd kernels against their plain versions, bit
+for bit across calls, and a SMOKE train step on the card against the
+CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -1072,3 +1075,94 @@ def test_bf16_pools_survive_snapshot_and_disk_on_card(cuda, tmp_path):
     s = eng2.stats
     assert s["host_syncs"] == s["prefills"] + s["decode_spans"]
     assert all(h.ok and h.streamed == h.req.tokens_out for h in handles)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("S", [1, 63, 65, 200])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_and_backward_match_plain(cuda, dtype, hd, H, KV, S,
+                                            window):
+    """B2's lse and B2-bwd's dq, dk, dv against their plain versions on
+    the same inputs (fp32 2e-5, bf16 2e-2 of max(1, |ref|)); two calls
+    give the same bits; one launch each."""
+    rng = np.random.default_rng(hd * 1000 + S + window + H)
+    q, k, v, do = [_randn(rng, *s).to(cuda, dtype)
+                   for s in ((2, H, S, hd), (2, KV, S, hd), (2, KV, S, hd),
+                             (2, H, S, hd))]
+    n = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert (fa.flash_attention.launches - n[0],
+            fa.flash_attention_bwd.launches - n[1]) == (1, 1)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert torch.equal(out, fa.flash_attention(q, k, v, window=window))
+    _, want_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                           window=window, return_lse=True)
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        out.float(), lse, do.float(),
+                                        window=window)
+    tol = _TOL[dtype]
+    for got, ref in zip((lse, *grads), (want_lse, *want)):
+        assert got.dtype == (torch.float32 if got is lse else dtype)
+        err = (got.float() - ref).abs() / ref.abs().clamp(min=1)
+        assert float(err.max()) <= tol
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """A 2-layer qwen3-8b SMOKE model in fp32 (TF32 off) on the card (B2
+    with lse, B2-bwd) and on the CPU (the plain versions) from the same
+    weights: the gradients within 1e-4 of each leaf's largest; then two
+    train steps with microbatch 2, the losses within 1e-5, and the params
+    within 5e-5 of max(1, |cpu|) but for at most 1e-3 of the elements,
+    each of those within 1 lr: AdamW's m / sqrt(v) can move an element
+    whose gradient is near zero by up to lr a step on a 1e-7 gradient
+    difference (the largest difference measured 1.3e-4 at lr 1e-3; the
+    test prints its readings). Every leaf moved by more than 20 times
+    5e-5, so a step that left the params alone fails. B2 launched layers
+    x microbatches x 2 (remat) a step, B2-bwd layers x microbatches."""
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _to(cpu, cuda)
+    rng = np.random.default_rng(0)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 96))
+                             .astype(np.int32)) for _ in range(2)]
+    (_, _), gc_ = value_and_grad(cpu, toks[0], cfg)
+    (_, _), gg = value_and_grad(card, toks[0].to(cuda), cfg)
+    for a, b in zip(_leaves(gg), _leaves(gc_)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    lr = 1e-3
+    step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=1,
+                                            total_steps=4), microbatch=2)
+    oc, og = adamw_init(cpu), adamw_init(card)
+    start = [p.clone() for p in _leaves(cpu)]
+    for t in toks:
+        n = (fa.flash_attention.launches, fa.flash_attention_bwd.launches)
+        cpu, oc, mc = step(cpu, oc, t)
+        card, og, mg = step(card, og, t.to(cuda))
+        assert (fa.flash_attention.launches - n[0],
+                fa.flash_attention_bwd.launches - n[1]) == (2 * 2 * 2, 2 * 2)
+        assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5 * float(
+            mc["loss"])
+    diffs = [(a.cpu() - b).abs() for a, b in zip(_leaves(card), _leaves(cpu))]
+    far = sum(int((d > 5e-5 * b.abs().clamp(min=1)).sum())
+              for d, b in zip(diffs, _leaves(cpu)))
+    total = sum(b.numel() for b in _leaves(cpu))
+    largest = max(float(d.max()) for d in diffs)
+    print(f"params: {far} of {total} elements beyond 5e-5, largest "
+          f"difference {largest:.3e}")
+    assert far <= 1e-3 * total and largest <= lr
+    for b, b0 in zip(_leaves(cpu), start):
+        assert float((b - b0).abs().max()) > 20 * 5e-5
+
+
+def _leaves(tree):
+    from repro_torch.core.tree import leaves
+    return leaves(tree)

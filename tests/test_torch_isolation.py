@@ -158,7 +158,7 @@ def test_crash_recovery_imports_without_jax_or_repro():
     assert proc.returncode == 0, proc.stderr
     assert (PORT / "checkpoint" / "checkpointer.py").exists()
     assert sorted(p.name for p in (PORT / "ft").glob("*.py")) == [
-        "__init__.py", "chaos.py", "crash.py", "faults.py"]
+        "__init__.py", "chaos.py", "crash.py", "faults.py", "manager.py"]
 
 
 def test_chaos_drive_needs_cuda_unless_asked_for_cpu():
@@ -186,3 +186,46 @@ def test_chaos_drive_needs_cuda_unless_asked_for_cpu():
     r = drive(cfg, params, kw, trace(), crash_at=(1,), device="cpu")
     assert r.outcomes == {0: "completed"} and len(r.streams[0]) == 3
     assert r.crash_log[0]["step"] == 1
+
+
+def test_training_imports_without_jax_or_repro():
+    """The training modules (data, optimizer, train step, compression,
+    the fault-tolerant trainer, the launcher, their core helpers) stand
+    alone."""
+    code = ("import sys\n"
+            "import repro_torch.core.primitives, repro_torch.core.transport\n"
+            "import repro_torch.core.tree, repro_torch.data\n"
+            "import repro_torch.optim, repro_torch.optim.schedules\n"
+            "import repro_torch.train.train_step\n"
+            "import repro_torch.train.grad_compress\n"
+            "import repro_torch.ft.manager, repro_torch.launch.train\n"
+            "import repro_torch.models.convert\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_training_needs_cuda_unless_asked_for_cpu(tmp_path):
+    """The train launcher and the fault-tolerant trainer run on the card
+    unless asked for the CPU; make_train_step runs where the params
+    are."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.ft import FaultTolerantTrainer, FTConfig
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path / "a")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FaultTolerantTrainer(None, None, None, Checkpointer(str(tmp_path)),
+                             FTConfig())
+    out = train.main(["--smoke", "--device", "cpu", "--steps", "1", "--seq",
+                      "16", "--batch", "2", "--ckpt-dir",
+                      str(tmp_path / "b")])
+    assert out["params"]["embed"].device.type == "cpu"
+    assert len(out["steps"]) == 1
