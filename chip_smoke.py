@@ -2,10 +2,12 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only train [--train-layers N]
+    python3 chip_smoke.py --only train [--train-layers N] [--arch A ...]
 
-The second builds the kernels and runs only B2-bwd at qwen3-8b's train
-shape and the training phases (8 below), printing no result line.
+The second builds the kernels and runs only the backward kernels' rows
+(B2-bwd at qwen3-8b's train shape; the others for the other --arch
+configs) and the training phases (8 below) of the --arch configs (all
+four of TRAIN_ARCHS if none is given), printing no result line.
 
 Phases, each printing one JSON object per line:
 
@@ -30,7 +32,16 @@ Phases, each printing one JSON object per line:
              their plain versions on a sweep (hd 16-128; G 1, 4, 6; S 1,
              63, 65, 200, 1000; window 0 and 48; fp32 and bf16), bit for
              bit across calls, and at qwen3-8b's train shape: bf16
-             beside SDPA's backward, fp32 within 4e-5;
+             beside SDPA's backward, fp32 within 4e-5; the training
+             kernels of the other families against their plain
+             versions, bit for bit across calls: B2-bwd's (192, 128)
+             instance on a sweep and at deepseek-v2-lite-16b's H = KV =
+             16, S 1900 and 4096 (beside SDPA's backward on its efficient
+             backend), B7-bwd (exact) on the forward's sweep and at
+             moonshot's prefill (T 11400, D 2048, E 64, C 223), B6-bwd on
+             a sweep and at jamba's chunk (T 256, D 8192, N 16), B4-bwd on
+             a sweep (S 1-300, hd 6-128) and at rwkv6-1.6b's H 32, hd 64,
+             S 1531 and 4096;
 4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b, jamba-v0.1-52b,
              qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
              musicgen-large and deepseek-v2-lite-16b (decoding through its
@@ -52,10 +63,11 @@ Phases, each printing one JSON object per line:
              h2o-danube-3-4b through the dense engine (prompts of 37-7000
              tokens around its window, cache_len 8192), deepseek-v2-lite-16b
              through the latent engine (B2's (192, 128) instance in every
-             prefill), each at full width, at full depth but moonshot (24
-             of 48 layers) and deepseek (14 of 27), for time, and
+             prefill), each at full width, qwen3 and rwkv6 at full depth,
+             for time moonshot at 6 of 48 layers, deepseek at 4 of 27,
+             danube at 6 of 24 and nemotron at 8 of 32, and
              jamba-v0.1-52b through the dense engine at
-             full width and 16 of its 32 layers (its 103 GB of bf16
+             full width and 8 of its 32 layers (its 103 GB of bf16
              weights do not fit one card), all in bf16: 8 requests,
              launch counts of the path's kernels, a second run that must
              give identical streams (for rwkv6, danube, moonshot and jamba
@@ -66,8 +78,8 @@ Phases, each printing one JSON object per line:
              deepseek's 1900-token prefills), each port
              kernel's device ms and launches in the trace held to its
              wrapper's calls; then chunked prefill with the prefix cache:
-             qwen3-8b on the paged engine at 18 and on the dense engine at
-             8 of its 36 layers, 8 chat requests under one
+             qwen3-8b on the paged engine at 5 and on the dense engine at
+             4 of its 36 layers, 8 chat requests under one
              512-token system prompt in 256-token chunks, twice (equal
              streams, >= 4 prefix hits of 512 tokens each, launches held to
              the counters, the pool empty after), beside the same prompts
@@ -111,16 +123,25 @@ Phases, each printing one JSON object per line:
              x its counters summed over the engines it went through;
              snapshot bytes and the seconds to snapshot, restore, save and
              load;
-8. model_grads — qwen3-8b at full width, 2 layers, fp32: the loss and
-             every gradient on the card against the CPU;
-   train   — qwen3-8b at full width and TRAIN_LAYERS of its 36 layers
-             in bf16 through ``repro_torch.launch.train`` (seq 4096,
-             batch 2 in 2 microbatches, remat): every step's loss, grad
-             norm, lr and seconds, tokens/s, peak memory, B2 and B2-bwd
-             launches held to layers x microbatches (x 2 for B2), the loss
-             falling on a repeated batch, one traced step; a run stopped
+8. model_grads — qwen3-8b, rwkv6-1.6b and deepseek-v2-lite-16b (its
+             dense first layer and an MoE layer) at full width and 2
+             layers, jamba-v0.1-52b at 1 (a Mamba layer), fp32: the loss
+             and every gradient on the card against the CPU, the routed
+             experts compared; then rwkv6-1.6b at all 24 layers and
+             4096 tokens in fp32, B4 and B4-bwd at each layer's own
+             inputs against the plain version in float64, and the whole
+             model's gradient with the WKV in four forms;
+   train   — qwen3-8b at full width and TRAIN_LAYERS of its 36 layers,
+             deepseek-v2-lite-16b at 7 of 27, rwkv6-1.6b at all 24,
+             jamba-v0.1-52b at 1 of 32, in bf16 through
+             ``repro_torch.launch.train`` (seq 4096, batch 2 in 2
+             microbatches, remat): every step's loss, grad norm, lr
+             and seconds, tokens/s, peak memory, every kernel's launches
+             held to ``train_kernel_calls`` x microbatches x steps, the
+             loss falling on a repeated batch, one traced step, and for
+             deepseek two gradients of one batch bit for bit; a run stopped
              at its step-4 checkpoint and resumed against the
-             uninterrupted one (2 layers); the FaultTolerantTrainer's SR
+             uninterrupted one (1 layer); the FaultTolerantTrainer's SR
              and GBN recovery on the trainer demo against its no-failure
              params;
 9. the kernels line, the total wall time, the nvidia-smi line, and the
@@ -160,9 +181,14 @@ WKV_CHUNKED_REPLACES = "src/repro/kernels/wkv6.py:151"
 MOE_REPLACES = "src/repro/kernels/moe_dispatch.py:59"
 SCAN_REPLACES = "src/repro/kernels/linear_scan.py:44"
 SSM_DECODE_REPLACES = "src/repro/kernels/ssm_decode.py:51"
-# B2-bwd has no Pallas kernel to replace: the reference differentiates its
-# training attention through the jnp custom VJP `_flash_bwd`
+# The backward kernels have no Pallas kernel to replace: the reference
+# differentiates its training attention through the jnp custom VJP
+# `_flash_bwd`, and the other families through jax.grad of their jnp forms
+# (the dispatch scatter of `_moe_mlp_local`, `_chunk_scan`, `wkv_chunked`)
 FLASH_BWD_REPLACES = "src/repro/models/attention.py:119"
+MOE_BWD_REPLACES = "src/repro/models/moe.py:237"
+SCAN_BWD_REPLACES = "src/repro/models/mamba.py:76"
+WKV_BWD_REPLACES = "src/repro/models/rwkv.py:105"
 # the __global__ functions of src/repro_torch/kernels/csrc/: B1's split and
 # reduce passes, B2's tensor-core (bf16) kernel, its (192, 128) instance
 # named apart (MLA's q/k 192 with v 128), and its FMA (fp32) kernel, B4's
@@ -171,13 +197,17 @@ FLASH_BWD_REPLACES = "src/repro/models/attention.py:119"
 WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
                        "wkv6_chunk_output_kernel")
 FLASH_MLA_KERNEL = "flash_fwd_bf16_kernel<192, 128>"
-# B2-bwd: a dk/dv pass and a dq pass a call
+# B2-bwd: a dk/dv pass and a dq pass a call; B4-bwd: a forward walk of the
+# state and two backward walks of its adjoint (rows, columns)
 FLASH_BWD_KERNELS = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+WKV_BWD_KERNELS = ("wkv6_bwd_state_kernel", "wkv6_bwd_key_kernel",
+                   "wkv6_bwd_value_kernel")
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
                 FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel", "flash_fwd_kernel",
                 *FLASH_BWD_KERNELS,
-                *WKV_CHUNKED_KERNELS, "wkv6_decode_kernel",
-                "moe_dispatch_kernel", "linear_scan_kernel",
+                *WKV_CHUNKED_KERNELS, "wkv6_decode_kernel", *WKV_BWD_KERNELS,
+                "moe_dispatch_kernel", "moe_dispatch_bwd_kernel",
+                "linear_scan_kernel", "linear_scan_bwd_kernel",
                 "ssm_decode_kernel")
 # WKV-6 outputs are fp32 whatever r/k/v's dtype, and kernel and plain
 # version do fp32 math on the same upcast inputs: the tolerances of
@@ -373,21 +403,25 @@ def _pairs(S, window):
 
 
 def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
-                    timed=True, tol=None):
+                    timed=True, tol=None, hd_v=None):
     """B2's lse and B2-bwd against their plain versions on the same
     inputs, each within ``tol`` (by default TOL of the dtype) of max(1,
     |ref|); two calls give the same
     bits; B2 with and without lse the same out. Timed: B2-bwd, the plain
     backward, and as the library's, the backward of SDPA's forward +
-    backward (causal only); B2 with and without lse beside them."""
+    backward (causal only; at a v head dim of its own, ``hd_v``, on SDPA's
+    efficient backend, which takes q/k 192 with v 128); B2 with and
+    without lse beside them."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     g = torch.Generator(device="cuda").manual_seed(seed)
+    hd_v = hd_v or hd
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    q, k, v, do = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd), \
-        rnd(B, H, S, hd)
+    q, k, v, do = rnd(B, H, S, hd), rnd(B, KV, S, hd), rnd(B, KV, S, hd_v), \
+        rnd(B, H, S, hd_v)
     out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
     plain_out = fa.flash_attention(q, k, v, window=window)
     grads = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
@@ -408,16 +442,19 @@ def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
     repeats = all(torch.equal(a, b) for a, b in zip(grads, again))
     same_out = bool(torch.equal(out, plain_out))
     ok = max(errs.values()) <= tol and repeats and same_out
-    # the function's work: five products a band pair (scores, dp, dv, dk,
-    # dq); q, k, v, out, dout and lse read once, dq, dk, dv written once
+    # the function's work: five products a band pair (scores and dq, dk
+    # over hd; dp and dv over hd_v); q, k, v, out, dout and lse read once,
+    # dq, dk, dv written once
     pairs = _pairs(S, window)
     nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel()
                                   + 2 * v.numel() + 2 * do.numel())
               + lse.numel() * 4)
-    b_ms, b_by = bound(nbytes, 10.0 * hd * B * H * pairs, name)
+    b_ms, b_by = bound(nbytes, (6.0 * hd + 4.0 * hd_v) * B * H * pairs, name)
+    shape = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window}
+    if hd_v != hd:
+        shape["hd_v"] = hd_v
     rec = {"phase": "kernels", "kernel": "flash_attention_bwd",
-           "shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
-                     "window": window}, "dtype": name,
+           "shape": shape, "dtype": name,
            "max_err": max(errs.values()), "errs": errs, "tol": tol,
            "bit_equal_repeat": repeats, "lse_out_equal": same_out, "ok": ok,
            "bound_ms": b_ms, "bound_by": b_by}
@@ -435,22 +472,33 @@ def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
         rec["fwd_plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window, return_lse=True), torch)
         rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
-            q.element_size() * (2 * q.numel() + 2 * k.numel())
-            + lse.numel() * 4, 4.0 * hd * B * H * pairs, name)
+            q.element_size() * (q.numel() + k.numel() + v.numel()
+                                + out.numel()) + lse.numel() * 4,
+            2.0 * (hd + hd_v) * B * H * pairs, name)
         rec["library_ms"] = None
         if window == 0:
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                               enable_gqa=True)
+            gqa = {"enable_gqa": True} if H != KV else {}
+            if hd_v == hd:
+                o = F.scaled_dot_product_attention(qs, ks, vs,
+                                                   is_causal=True, **gqa)
+                rec["library"] = ("the backward of "
+                                  "scaled_dot_product_attention(is_causal, "
+                                  "enable_gqa)")
+            else:
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    o = F.scaled_dot_product_attention(qs, ks, vs,
+                                                       is_causal=True, **gqa)
+                rec["library"] = ("the backward of scaled_dot_product_"
+                                  "attention(is_causal) on its efficient "
+                                  "backend")
             rec["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 o, (qs, ks, vs), do, retain_graph=True), torch)
-            rec["library"] = ("the backward of scaled_dot_product_attention"
-                              "(is_causal, enable_gqa)")
             rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
             del o
             rec["fwd_library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), torch)
+                    q, k, v, is_causal=True, **gqa), torch)
     emit(rec)
     require(ok, f"flash_attention_bwd disagrees with its plain version: "
                 f"{rec}")
@@ -840,6 +888,193 @@ def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True,
     emit(rec)
     require(ok, f"ssm_decode_step disagrees with its plain version: {rec}")
     return rec
+
+
+def check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=0,
+                           timed=True, positions="cumsum"):
+    """B7-bwd equal to its plain gather, on rows placed as
+    ``_dispatch_rows`` says; two calls give the same bits."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dbuf = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
+    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed)
+    out = md.moe_dispatch_bwd(dbuf, eids, pos)
+    again = md.moe_dispatch_bwd(dbuf, eids, pos)
+    torch.cuda.synchronize()
+    ref = md.moe_dispatch_bwd_plain(dbuf, eids, pos)
+    repeats = bool(torch.equal(out, again))
+    ok = bool(torch.equal(out, ref)) and repeats
+    keep = (eids >= 0) & (eids < E) & (pos >= 0) & (pos < C)
+    kept = int(keep.sum())
+    # each kept row's slot read once, ids and positions read once, every
+    # row of the gradient written once; no arithmetic
+    name = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(dbuf.element_size() * D * (kept + T) + 8 * T, 0.0,
+                       name)
+    rec = {"phase": "kernels", "kernel": "moe_dispatch_bwd",
+           "shape": {"T": T, "D": D, "E": E, "C": C},
+           "positions": positions, "kept": kept, "dtype": name,
+           "max_err": _max_err(torch, ((out, ref),)) if out.numel() else 0.0,
+           "tol": 0.0, "bit_equal_repeat": repeats, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(
+            lambda: md.moe_dispatch_bwd(dbuf, eids, pos), torch)
+        rec["plain_ms"] = time_ms(
+            lambda: md.moe_dispatch_bwd_plain(dbuf, eids, pos), torch)
+        flat = dbuf.reshape(E * C, D)
+        idx = torch.where(keep, eids.long() * C + pos.long(), 0)
+        rec["library_ms"] = time_ms(lambda: torch.index_select(flat, 0, idx),
+                                    torch)
+        rec["library"] = ("torch.index_select of each row's slot (the "
+                          "dropped rows' zeros not written)")
+        rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+    emit(rec)
+    require(ok, f"moe_dispatch_bwd is not equal to its plain version: {rec}")
+    return rec
+
+
+def check_linear_scan_bwd(torch, ls, B, T, D, N, seed=0, timed=True):
+    """B6-bwd against its plain version at SSM_TOL (absolute and
+    relative), the same bits on a second call."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand(B, T, D, N, generator=g, device="cuda") * 0.5 + 0.5
+    b, g_all = (torch.randn(B, T, D, N, generator=g, device="cuda")
+                for _ in range(2))
+    h0, g_last = (torch.randn(B, D, N, generator=g, device="cuda")
+                  for _ in range(2))
+    h_all, _ = ls.linear_scan(a, b, h0)
+    got = ls.linear_scan_bwd(a, h0, h_all, g_all, g_last)
+    again = ls.linear_scan_bwd(a, h0, h_all, g_all, g_last)
+    torch.cuda.synchronize()
+    ref = ls.linear_scan_bwd_plain(a, h0, h_all, g_all, g_last)
+    repeats = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = repeats and all(torch.allclose(x, y, atol=SSM_TOL, rtol=SSM_TOL)
+                         for x, y in zip(got, ref))
+    # a, h_all and the gradient of h_all read once, da and db written once;
+    # h0 and g_last read, dh0 written; an add and two multiplies an element
+    # and step
+    b_ms, b_by = bound(4 * (5 * a.numel() + 3 * h0.numel()),
+                       3.0 * a.numel(), "float32")
+    rec = {"phase": "kernels", "kernel": "linear_scan_bwd",
+           "shape": {"B": B, "T": T, "D": D, "N": N}, "dtype": "float32",
+           "max_err": _max_err(torch, zip(got, ref)),
+           "bit_equal": all(torch.equal(x, y) for x, y in zip(got, ref)),
+           "bit_equal_repeat": repeats, "tol": SSM_TOL, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: ls.linear_scan_bwd(
+            a, h0, h_all, g_all, g_last), torch)
+        rec["plain_ms"] = time_ms(lambda: ls.linear_scan_bwd_plain(
+            a, h0, h_all, g_all, g_last), torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_SSM_LIBRARY
+    emit(rec)
+    require(ok, f"linear_scan_bwd disagrees with its plain version: {rec}")
+    return rec
+
+
+# B4-bwd against autograd through the chunked plain version: each gradient
+# within these of its largest |value| (sums of up to S * hd terms in
+# another order; dlogw through a carried difference), bf16 gradients to
+# their rounding
+WKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, seed=0, timed=True):
+    """B4-bwd against its plain version (``torch.autograd.grad`` through
+    ``wkv6_chunked_plain``) on the same inputs, with a nonzero state0 and
+    a gradient on the final state; two calls give the same bits."""
+    r, k, v, logw, u, s0 = _wkv_inputs(torch, seed, B, S, H, hd, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(B, S, H, hd, generator=g, device="cuda")
+    ds = torch.randn(B, H, hd, hd, generator=g, device="cuda")
+    args = (r, k, v, logw, u, s0, dy, ds)
+    got = wk.wkv6_chunked_bwd(*args)
+    again = wk.wkv6_chunked_bwd(*args)
+    torch.cuda.synchronize()
+    ref = wk.wkv6_chunked_bwd_plain(*args)
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+    errs = {n: float((x.float() - y.float()).abs().max())
+            / max(float(y.float().abs().max()), 1e-30)
+            for n, x, y in zip(names, got, ref)}
+    tols = {n: WKV_BWD_TOL[str(x.dtype).split(".")[-1]]
+            for n, x in zip(names, got)}
+    repeats = all(torch.equal(x, y) for x, y in zip(got, again))
+    ok = repeats and all(errs[n] <= tols[n] for n in names)
+    # what these inputs need: a state update, an adjoint update and the
+    # three products of a row or column (dr, dk, dv), ~10 hd^2 flops a
+    # token and head; r, k, v, logw, dy read and their gradients written
+    # once, u, state0 and the state's gradient read, du and dstate0 written
+    esz = r.element_size()
+    nbytes = (B * S * H * hd * (6 * esz + 12) + 8 * u.numel()
+              + 12 * s0.numel())
+    b_ms, b_by = bound(nbytes, 10.0 * hd * hd * B * H * S, "float32")
+    name = str(dtype).split(".")[-1]
+    rec = {"phase": "kernels", "kernel": "wkv6_chunked_bwd",
+           "shape": {"B": B, "S": S, "H": H, "hd": hd}, "dtype": name,
+           "max_err": max(errs.values()), "errs_of_leaf_max": errs,
+           "tol": tols, "bit_equal_repeat": repeats, "ok": ok,
+           "bound_ms": b_ms, "bound_by": b_by}
+    if timed:
+        rec["kernel_ms"] = time_ms(lambda: wk.wkv6_chunked_bwd(*args), torch)
+        rec["plain_ms"] = time_ms(lambda: wk.wkv6_chunked_bwd_plain(*args),
+                                  torch)
+        rec["library_ms"] = None
+        rec["library"] = NO_WKV_LIBRARY
+    emit(rec)
+    require(ok, f"wkv6_chunked_bwd disagrees with its plain version: {rec}")
+    return rec
+
+
+def phase_kernels_bwd(torch):
+    """The training kernels' rows: B2-bwd at (192, 128), B7-bwd, B6-bwd
+    and B4-bwd on their sweeps and at the train paths' shapes (moonshot's
+    prefill dispatch, deepseek's MLA attention, jamba's scan chunk,
+    rwkv6's prompt); returns the timed records by key."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import wkv6 as wk
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = {}
+    for dtype in (f32, bf16):
+        for H, KV in ((4, 4), (8, 2)):
+            for S in (1, 63, 65, 200, 1000):
+                for window in (0, 48):
+                    check_flash_bwd(torch, fa, 2, H, KV, S, 192, dtype,
+                                    window=window, seed=S + H, timed=False,
+                                    hd_v=128)
+        for T, D, E, C in ((64, 32, 8, 12), (100, 16, 4, 40), (48, 7, 3, 5),
+                           (64, 64, 8, 100), (0, 64, 4, 8),
+                           (3000, 2048, 64, 60)):
+            check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=T + C,
+                                   timed=False, positions="sparse")
+        for S in (1, 31, 33, 300):
+            for hd in (6, 8, 64, 128):
+                check_wkv6_bwd(torch, wk, 2, S, 2, hd, dtype, seed=S + hd,
+                               timed=False)
+    for B, T, D, N in ((2, 16, 8, 4), (1, 1, 16, 4), (3, 9, 32, 8),
+                       (2, 33, 24, 16)):
+        check_linear_scan_bwd(torch, ls, B, T, D, N, seed=T, timed=False)
+    # the train paths' shapes: moonshot's 1900-token prefill dispatch (the
+    # bwd of deepseek's is the same shape), deepseek's MLA attention (H =
+    # KV = 16, q/k 192, v 128), jamba's 256-token scan chunk (D = d_inner
+    # 8192, N 16), rwkv6's prompt (H 32, hd 64); timed in bf16 where the
+    # model runs in it
+    check_moe_dispatch_bwd(torch, md, 1900 * 6, 2048, 64, 223, f32,
+                           timed=False)
+    main[("moe_dispatch_bwd", "prefill")] = check_moe_dispatch_bwd(
+        torch, md, 1900 * 6, 2048, 64, 223, bf16)
+    for S in (1900, 4096):
+        main[("flash_bwd_mla", S)] = check_flash_bwd(
+            torch, fa, 1, 16, 16, S, 192, bf16, hd_v=128)
+    main[("linear_scan_bwd", 256)] = check_linear_scan_bwd(
+        torch, ls, 1, 256, 8192, 16)
+    check_wkv6_bwd(torch, wk, 1, 1531, 32, 64, f32, timed=False)
+    for S in (1531, 4096):
+        main[("wkv6_bwd", S)] = check_wkv6_bwd(torch, wk, 1, S, 32, 64,
+                                               bf16)
+    return main
 
 
 def phase_kernels(torch):
@@ -1418,7 +1653,10 @@ WRAPPER_KERNELS = {
     "wkv6_decode": (("wkv6_decode_kernel",), 1),
     "ssm_decode_step": (("ssm_decode_kernel",), 1),
     "linear_scan": (("linear_scan_kernel",), 1),
-    "moe_dispatch": (("moe_dispatch_kernel",), 1)}
+    "moe_dispatch": (("moe_dispatch_kernel",), 1),
+    "moe_dispatch_bwd": (("moe_dispatch_bwd_kernel",), 1),
+    "linear_scan_bwd": (("linear_scan_bwd_kernel",), 1),
+    "wkv6_chunked_bwd": (WKV_BWD_KERNELS, 3)}
 
 
 def _kernel_name(key):
@@ -1543,20 +1781,31 @@ def _profile(torch, device, fn):
 # gradient, fp32 master, m, v) and gradient accumulation over microbatches
 # 4 more (fp32); on the H100 (``--only train --train-layers N``) 12 and
 # 14 layers peaked at 72.59 and 80.30 GB, ~3.86 GB a layer, so 16 would
-# need ~88 GB
+# need ~88 GB. The other families at full width: deepseek-v2-lite-16b at
+# 7 of 27 layers (its dense first layer and 6 MoE layers), the deepest
+# that fits at seq 4096: on the H100 it peaked at 58.47, 70.17 and 81.87
+# GB at 5, 6 and 7 layers, ~11.7 GB a MoE layer, so 8 would need ~93.6;
+# rwkv6-1.6b at all 24 (~32 GB), jamba-v0.1-52b at 1 (a Mamba layer
+# with a dense MLP: one of its MoE layers alone holds 2.82 B parameters,
+# ~56 GB of state, so jamba's MoE trains on the card only through B7's
+# rows and deepseek)
 TRAIN_LAYERS = 14
-TRAIN_STEPS = 8
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 2
 TRAIN_MICROBATCH = 2
+TRAIN_RUNS = {
+    "qwen3-8b": {"layers": TRAIN_LAYERS, "seq": TRAIN_SEQ, "steps": 8},
+    "deepseek-v2-lite-16b": {"layers": 7, "seq": TRAIN_SEQ, "steps": 4},
+    "rwkv6-1.6b": {"layers": 24, "seq": TRAIN_SEQ, "steps": 4},
+    "jamba-v0.1-52b": {"layers": 1, "seq": TRAIN_SEQ, "steps": 4}}
 TRAIN_DIR = ROOT / "build" / "smoke_train"
 
 
-def _train_args(layers, steps, ckpt_dir, *more):
-    return ["--arch", "qwen3-8b", "--layers", str(layers), "--seq",
-            str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--microbatch",
-            str(TRAIN_MICROBATCH), "--steps", str(steps), "--ckpt-dir",
-            str(ckpt_dir), *more]
+def _train_args(arch, layers, steps, ckpt_dir, *more, seq=None):
+    return ["--arch", arch, "--layers", str(layers), "--seq",
+            str(seq or TRAIN_RUNS[arch]["seq"]), "--batch", str(TRAIN_BATCH),
+            "--microbatch", str(TRAIN_MICROBATCH), "--steps", str(steps),
+            "--ckpt-dir", str(ckpt_dir), *more]
 
 
 def _reset_launches():
@@ -1566,30 +1815,78 @@ def _reset_launches():
     return wrappers
 
 
-def _train_launches(label, wrappers, layers, grad_calls, remat=True):
-    """B2 launched layers x grad calls x 2 (remat replays the forward) or
-    x 1, B2-bwd layers x grad calls, every other kernel never; returns
-    the record ``kernel_line`` reads."""
+def train_kernel_calls(cfg, seq, remat=True):
+    """The wrapper calls of one gradient of ``cfg`` on ``seq`` tokens
+    (tests/test_torch_train_families.py pins them on the CPU): attention
+    layers B2 and B2-bwd, RWKV layers B4 and B4-bwd, MoE MLPs B7 and
+    B7-bwd, once each a layer, the forward kernel once more in the replay
+    of a rematerialised block (every block past the reference's prefix);
+    Mamba layers B6 twice a 256-token chunk (the chunk's own checkpoint
+    replays it), three times in a rematerialised block, and B6-bwd once a
+    chunk."""
+    from repro_torch.models import transformer as tf
+    n_prefix = len(tf.plan_layers(cfg)[0])
+    chunks = -(-seq // 256)
+    calls = {}
+
+    def add(name, n):
+        calls[name] = calls.get(name, 0) + n
+    for i, (kind, mlp) in enumerate(zip(cfg.layer_kinds(),
+                                        cfg.mlp_kinds())):
+        replay = int(remat and i >= n_prefix)
+        fwd, bwd = {"attn": ("flash_attention", "flash_attention_bwd"),
+                    "rwkv": ("wkv6_chunked", "wkv6_chunked_bwd"),
+                    "mamba": ("linear_scan", "linear_scan_bwd")}[kind]
+        per = chunks if kind == "mamba" else 1
+        add(fwd, per * (1 + replay + (kind == "mamba")))
+        add(bwd, per)
+        if mlp == "moe" and cfg.moe is not None and kind != "rwkv":
+            add("moe_dispatch", 1 + replay)
+            add("moe_dispatch_bwd", 1)
+    return calls
+
+
+def _train_launches(label, wrappers, cfg, seq, grad_calls, remat=True):
+    """Every kernel launched exactly ``train_kernel_calls`` x grad calls,
+    every other kernel never; returns the record ``kernel_line`` reads."""
+    per = train_kernel_calls(cfg, seq, remat)
     launches = {n: w.launches for n, w in wrappers.items()}
-    want = {"flash_attention": layers * grad_calls * (2 if remat else 1),
-            "flash_attention_bwd": layers * grad_calls}
+    want = {n: c * grad_calls for n, c in per.items()}
     require(all(launches[n] == want.get(n, 0) for n in launches)
             and grad_calls > 0,
             f"train {label}: launches {launches} != {want} "
-            f"({layers} layers x {grad_calls} gradient calls)")
-    return {"label": label, "launches": launches,
-            "launch_path": {n: {"grad_calls": layers} for n in want}}
+            f"({per} x {grad_calls} gradient calls)")
+    return {"label": label, "launches": launches, "mla": cfg.mla is not None,
+            "launch_path": {n: {"grad_calls": c} for n, c in per.items()}}
+
+
+def _record_routes(moe_mod):
+    """Record every MoE layer's experts (``moe.route``'s top-k ids) until
+    the returned ``undo`` is called."""
+    routes, route = [], moe_mod.route
+
+    def rec(*a):
+        out = route(*a)
+        routes.append(out[2])
+        return out
+    moe_mod.route = rec
+
+    def undo():
+        moe_mod.route = route
+    return routes, undo
 
 
 def phase_model_grads(torch, cfg, n_seq=2, n_tok=200, seed=0,
                       device="cuda"):
     """Loss and every gradient of ``cfg`` (fp32, TF32 off) on the card
-    (B2 with lse, B2-bwd, remat) against the CPU (the plain versions) on
-    the same weights and tokens: the loss within 1e-5 relative, each
-    gradient within 1e-3 of its leaf's largest |g| on the CPU."""
+    (every kernel of its path and their backwards, remat) against the CPU
+    (the plain versions) on the same weights and tokens: the loss within
+    1e-5 relative, each gradient within 1e-3 of its leaf's largest |g| on
+    the CPU; for an MoE config the routed experts of the forward compared
+    first, flips reported with the router's gap."""
     import numpy as np
     from repro_torch.core.tree import leaves
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.train.train_step import value_and_grad
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1598,57 +1895,230 @@ def phase_model_grads(torch, cfg, n_seq=2, n_tok=200, seed=0,
     p_gpu = _to(p_cpu, device)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(n_seq, n_tok)).astype(np.int32)
-    (l_cpu, _), g_cpu = value_and_grad(p_cpu, torch.from_numpy(toks), cfg)
-    wrappers = _reset_launches()
-    (l_gpu, _), g_gpu = value_and_grad(
-        p_gpu, torch.as_tensor(toks, device=device), cfg)
-    sync(torch, device)
-    path = _train_launches(f"{cfg.name} grads", wrappers, cfg.n_layers, 1)
+    routes, undo = _record_routes(moe)
+    try:
+        (l_cpu, m_cpu), g_cpu = value_and_grad(p_cpu, torch.from_numpy(toks),
+                                               cfg)
+        n_cpu = len(routes)
+        wrappers = _reset_launches()
+        (l_gpu, m_gpu), g_gpu = value_and_grad(
+            p_gpu, torch.as_tensor(toks, device=device), cfg)
+        sync(torch, device)
+    finally:
+        undo()
+    path = _train_launches(f"{cfg.name} grads", wrappers, cfg, n_tok, 1)
+    n_moe = cfg.mlp_kinds().count("moe") if cfg.moe is not None else 0
+    flips = sum(int((a.cpu() != b).any(-1).sum())
+                for a, b in zip(routes[n_cpu:n_cpu + n_moe],
+                                routes[:n_moe]))
     loss_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
-    worst = 0.0
-    for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
+    worst, worst_leaf = 0.0, None
+    for i, (a, b) in enumerate(zip(leaves(g_gpu), leaves(g_cpu))):
         scale = float(b.abs().max())
-        worst = max(worst, float((a.cpu() - b).abs().max()) / max(scale,
-                                                                   1e-30))
+        err = float((a.cpu() - b).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_leaf = err, i
     rec = {"phase": "model_grads", "config": cfg.name,
            "layers": cfg.n_layers, "tokens": [n_seq, n_tok],
            "loss_cpu": float(l_cpu), "loss_card": float(l_gpu),
            "loss_rel_err": loss_err, "grad_err_of_leaf_max": worst,
-           "launches": path["launches"],
+           "worst_leaf": worst_leaf,
+           "stats": {k: [float(m_cpu[k]), float(m_gpu[k])] for k in m_cpu},
+           "route_flips": flips, "launches": path["launches"],
            "ok": loss_err <= 1e-5 and worst <= 1e-3}
     emit(rec)
     require(rec["ok"], f"model grads: card vs CPU {rec}")
     return rec
 
 
-def phase_train(torch, layers=TRAIN_LAYERS, steps=TRAIN_STEPS,
+# rwkv6-1.6b at the depth and length it trains at (all 24 layers, S 4096)
+RWKV_DEEP_LAYERS, RWKV_DEEP_SEQ = 24, 4096
+WKV_GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths of a params tree in ``leaves``' order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, x in enumerate(tree)
+                for n in _leaf_names(x, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _err_of_max(got, ref):
+    """max |got - ref| over max |ref|."""
+    return (float((got.double() - ref.double()).abs().max())
+            / max(float(ref.abs().max()), 1e-300))
+
+
+def phase_rwkv_deep_grads(torch, layers=RWKV_DEEP_LAYERS, seq=RWKV_DEEP_SEQ,
+                          seed=0, device="cuda"):
+    """B4 and B4-bwd at the inputs rwkv6-1.6b's training gives them. The
+    fp32 model (full width, ``layers`` layers, TF32 off, weights from
+    ``seed``) takes its gradient on the data pipeline's first batch of
+    ``seq`` tokens through the kernels, recording each layer's (r, k, v,
+    logw, u, state0) and the gradient of its output. At those inputs every
+    layer's B4-bwd must lie within ``WKV_BWD_TOL`` of each gradient's
+    largest |value| from the plain version in float64, and B4's y and
+    final state within ``WKV_TOL``; the plain version in fp32 is reported
+    beside them. The whole model's gradient is also taken with the WKV in
+    three other forms: the plain version (fp32), B4's forward with the
+    plain backward, and the plain version in float64 inside the fp32
+    stack; their norms and worst leaves against the plain version's say
+    where a difference of the whole gradient comes from."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import DataConfig, SyntheticPackedDataset
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import lm, rwkv
+    from repro_torch.train.train_step import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("rwkv6-1.6b").scaled(n_layers=layers, dtype="float32")
+    params = lm.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    names = _leaf_names(params)
+    toks = torch.as_tensor(SyntheticPackedDataset(DataConfig(
+        seq_len=seq, global_batch=1,
+        vocab_size=cfg.vocab_size)).next_batch()[0], device=device)
+    kernel, calls = rwkv.wkv6_chunked, []
+
+    def recorded(*args, chunk):
+        y, s_out = kernel(*args, chunk=chunk)
+        rec = [t.detach() for t in args]
+        y.register_hook(rec.append)     # fires in the backward: dy
+        calls.append(rec)
+        return y, s_out
+
+    class B4PlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return wk.wkv6_chunked(*args)       # grad off here: B4
+        @staticmethod
+        def backward(ctx, dy, ds_out):
+            return wk.wkv6_chunked_bwd_plain(*ctx.saved_tensors, dy, ds_out)
+
+    def wkv64(*args, chunk):
+        y, s_out = wk.wkv6_chunked_plain(*(t.double() for t in args),
+                                         chunk=chunk)
+        return y.float(), s_out.float()
+
+    whole, grads = {}, {}
+    for mode, fn in (
+            ("kernels", recorded),
+            ("plain", lambda *a, chunk: wk.wkv6_chunked_plain(*a,
+                                                              chunk=chunk)),
+            ("b4_fwd_plain_bwd", lambda *a, chunk: B4PlainBwd.apply(*a)),
+            ("plain_fp64_wkv", wkv64)):
+        wrappers = _reset_launches()
+        rwkv.wkv6_chunked = fn
+        try:
+            (loss, _), g = value_and_grad(params, toks, cfg)
+            sync(torch, device)
+        finally:
+            rwkv.wkv6_chunked = kernel
+        if mode == "kernels":
+            path = _train_launches("rwkv6-1.6b deep grads", wrappers, cfg,
+                                   seq, 1)
+            # the first forward's calls (the remat replay's see no gradient)
+            calls = [c for c in calls if len(c) == 7]
+        norms = [float(x.norm()) for x in leaves(g)]
+        whole[mode] = {"loss": float(loss),
+                       "grad_norm": sum(n * n for n in norms) ** 0.5,
+                       "largest_leaf": max(zip(norms, names))}
+        grads[mode] = leaves(g)
+        if mode != "plain" and "plain" in grads:
+            whole[mode]["worst_leaf_vs_plain"] = max(
+                (_err_of_max(x, y), n)
+                for x, y, n in zip(grads[mode], grads["plain"], names))
+            if mode != "kernels":
+                del grads[mode]
+    whole["kernels"]["worst_leaf_vs_plain"] = max(
+        (_err_of_max(x, y), n)
+        for x, y, n in zip(grads["kernels"], grads["plain"], names))
+    del params, g, grads
+    require(len(calls) == layers,
+            f"rwkv deep grads: {len(calls)} recorded layers, not {layers}")
+    rows = []
+    for i, (r, k, v, logw, u, s0, dy) in enumerate(calls):
+        fwd = (r, k, v, logw, u, s0)
+        ins = (*fwd, dy, torch.zeros_like(s0))
+        ref = wk.wkv6_chunked_bwd_plain(*(t.double() for t in ins))
+        ref_fwd = wk.wkv6_chunked_plain(*(t.double() for t in fwd))
+        rows.append({
+            "layer": i, "dy_max": float(dy.abs().max()),
+            "kernel": [_err_of_max(a, b) for a, b in
+                       zip(wk.wkv6_chunked_bwd(*ins), ref)],
+            "plain32": [_err_of_max(a, b) for a, b in
+                        zip(wk.wkv6_chunked_bwd_plain(*ins), ref)],
+            "kernel_fwd": [_err_of_max(a, b) for a, b in
+                           zip(wk.wkv6_chunked(*fwd), ref_fwd)],
+            "plain32_fwd": [_err_of_max(a, b) for a, b in
+                            zip(wk.wkv6_chunked_plain(*fwd), ref_fwd)]})
+        calls[i] = None
+    worst = {src: {n: max((row[src][j], row["layer"]) for row in rows)
+                   for j, n in enumerate(names_)}
+             for src, names_ in (("kernel", WKV_GRAD_NAMES),
+                                 ("plain32", WKV_GRAD_NAMES),
+                                 ("kernel_fwd", ("y", "s_out")),
+                                 ("plain32_fwd", ("y", "s_out")))}
+    tol = {"bwd": WKV_BWD_TOL["float32"], "y": WKV_TOL["y"],
+           "s_out": WKV_TOL["state"]}
+    rec = {"phase": "model_grads", "config": "rwkv6-1.6b deep",
+           "layers": layers, "seq": seq, "dtype": "float32",
+           "whole_model": whole, "launches": path["launches"],
+           "worst_vs_fp64": worst, "tol": tol, "per_layer": rows,
+           "ok": all(max(row["kernel"]) <= tol["bwd"]
+                     and row["kernel_fwd"][0] <= tol["y"]
+                     and row["kernel_fwd"][1] <= tol["s_out"]
+                     for row in rows)}
+    emit(rec)
+    require(rec["ok"], f"rwkv deep grads: B4 or B4-bwd off the float64 "
+                       f"plain version at a layer's inputs: {worst}")
+    return rec
+
+
+def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
                 device="cuda"):
-    """qwen3-8b at full width and ``layers`` layers in bf16 through the
-    train launcher's entry point: every step's loss, grad norm, lr and
-    seconds; tokens/s; peak memory; the launches held to layers x
-    microbatches x steps (x 2 for B2: remat). Then on one repeated batch
-    the loss must fall, and one train step is traced."""
+    """``arch`` at full width, ``layers`` layers and ``seq`` tokens a row
+    (``TRAIN_RUNS``' unless given) in
+    bf16 through the train launcher's entry point: every step's loss,
+    grad norm, lr and seconds; tokens/s; peak memory; the launches held
+    to ``train_kernel_calls`` x microbatches x steps. Then on one repeated
+    batch the loss must fall, and one train step is traced. qwen3-8b's
+    loss must also fall over its fresh batches; deepseek's gradient,
+    taken twice on one batch, must give the same bits."""
     import shutil
     import numpy as np
     from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import leaves
     from repro_torch.launch import train as launcher
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    run = TRAIN_RUNS[arch]
+    layers, seq = layers or run["layers"], seq or run["seq"]
+    steps = run["steps"]
+    full = get_config(arch)
+    cfg = full.scaled(n_layers=layers)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     wrappers = _reset_launches()
-    out = launcher.main(_train_args(layers, steps, TRAIN_DIR / "main"))
+    out = launcher.main(_train_args(arch, layers, steps, TRAIN_DIR / "main",
+                                    seq=seq))
     sync(torch, device)
     peak = torch.cuda.max_memory_allocated()
-    path = _train_launches("qwen3-8b train", wrappers, layers,
+    path = _train_launches(f"{arch} train", wrappers, cfg, seq,
                            steps * TRAIN_MICROBATCH)
     losses = [r["loss"] for r in out["steps"]]
-    tok_step = TRAIN_BATCH * TRAIN_SEQ
+    tok_step = TRAIN_BATCH * seq
     steady = [r["seconds"] for r in out["steps"][1:]]
-    rec = {"phase": "train", "config": "qwen3-8b", "layers": layers,
-           "reduced": {"n_layers": [36, layers]}, "seq": TRAIN_SEQ,
+    rec = {"phase": "train", "config": arch, "layers": layers,
+           "reduced": {"n_layers": [full.n_layers, layers]}, "seq": seq,
            "batch": TRAIN_BATCH, "microbatch": TRAIN_MICROBATCH,
            "remat": True, "dtype": "bfloat16", "steps": out["steps"],
            "tokens_per_s": out["tokens_per_s"],
@@ -1657,18 +2127,19 @@ def phase_train(torch, layers=TRAIN_LAYERS, steps=TRAIN_STEPS,
            "peak_gb": peak / 1e9, "launches": path["launches"]}
     require(all(np.isfinite(x) for x in losses)
             and all(np.isfinite(r["grad_norm"]) for r in out["steps"]),
-            f"train: a loss or grad norm is not finite: {out['steps']}")
-    require(losses[-1] < losses[0],
-            f"train: the loss did not fall over {steps} steps: {losses}")
+            f"train {arch}: a loss or grad norm is not finite: "
+            f"{out['steps']}")
+    if arch == "qwen3-8b":
+        require(losses[-1] < losses[0],
+                f"train: the loss did not fall over {steps} steps: {losses}")
     # one batch, repeated: the loss falls at every step
-    cfg = get_config("qwen3-8b").scaled(n_layers=layers)
     params, opt = out["params"], out["opt_state"]
     del out
     step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=0,
                                             total_steps=100),
                            microbatch=TRAIN_MICROBATCH)
     toks = torch.as_tensor(np.random.default_rng(7).integers(
-        1, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32),
+        1, cfg.vocab_size, size=(TRAIN_BATCH, seq)).astype(np.int32),
         device=device)
     rep = []
     for _ in range(4):
@@ -1676,17 +2147,30 @@ def phase_train(torch, layers=TRAIN_LAYERS, steps=TRAIN_STEPS,
         rep.append(float(m["loss"]))
     rec["repeated_batch_losses"] = rep
     require(all(b < a for a, b in zip(rep, rep[1:])),
-            f"train: the loss on a repeated batch did not fall: {rep}")
+            f"train {arch}: the loss on a repeated batch did not fall: "
+            f"{rep}")
     win = _profile(torch, device, lambda: step(params, opt, toks))
     rec["trace"] = _traced(torch, win)
+    del opt, step
+    if arch == "deepseek-v2-lite-16b":
+        # no kernel of the path sums with atomics: two gradients of one
+        # batch, bit for bit
+        half = toks[:TRAIN_BATCH // TRAIN_MICROBATCH]
+        _, g1 = value_and_grad(params, half, cfg)
+        _, g2 = value_and_grad(params, half, cfg)
+        rec["grads_bit_equal_twice"] = all(
+            torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2)))
+        del g1, g2
+        require(rec["grads_bit_equal_twice"],
+                f"train {arch}: two gradients of one batch differ")
     emit(rec)
-    del params, opt, step
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return path, rec
 
 
-def phase_train_resume(torch, layers=2, device="cuda"):
+def phase_train_resume(torch, layers=1, device="cuda"):
     """The launcher at full width and ``layers`` layers: one run of 8
     steps, and one stopped at its step-4 checkpoint and resumed with
     ``--resume``: the resumed losses against the uninterrupted run's, bit
@@ -1694,6 +2178,7 @@ def phase_train_resume(torch, layers=2, device="cuda"):
     inside the launcher's 10-step warmup, where the lr does not depend on
     ``--steps``."""
     import shutil
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.timing import Timer
     from repro_torch.launch import train as launcher
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -1702,7 +2187,7 @@ def phase_train_resume(torch, layers=2, device="cuda"):
         gc.collect()
         torch.cuda.empty_cache()
         t = Timer()
-        out = launcher.main(_train_args(layers, *args))
+        out = launcher.main(_train_args("qwen3-8b", layers, *args))
         out.pop("params")
         out.pop("opt_state")
         return out, t.elapsed()
@@ -1712,8 +2197,9 @@ def phase_train_resume(torch, layers=2, device="cuda"):
     first, first_s = run(4, TRAIN_DIR / "resume", "--ckpt-every", "4")
     rest, rest_s = run(8, TRAIN_DIR / "resume", "--resume")
     sync(torch, device)
-    path = _train_launches("qwen3-8b train resume", wrappers, layers,
-                           16 * TRAIN_MICROBATCH)
+    path = _train_launches("qwen3-8b train resume", wrappers,
+                           get_config("qwen3-8b").scaled(n_layers=layers),
+                           TRAIN_SEQ, 16 * TRAIN_MICROBATCH)
     want = [r["loss"] for r in full["steps"]]
     got = [r["loss"] for r in first["steps"] + rest["steps"]]
     diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -1803,32 +2289,49 @@ def phase_train_ft(torch, steps=6, device="cuda"):
                 f"{rec}")
         recs.append(rec)
     sync(torch, device)
-    path = _train_launches("trainer-demo ft", wrappers, cfg.n_layers,
-                           calls[0])
+    path = _train_launches("trainer-demo ft", wrappers, cfg, 256, calls[0])
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return path, recs
 
 
-def train_phases(torch, layers=TRAIN_LAYERS):
+TRAIN_ARCHS = ("qwen3-8b", "deepseek-v2-lite-16b", "rwkv6-1.6b",
+               "jamba-v0.1-52b")
+# model_grads' depths: qwen3, rwkv6 and deepseek at 2 layers (deepseek's
+# dense first layer and one MoE layer), jamba at 1 (a Mamba layer)
+GRAD_LAYERS = {"qwen3-8b": 2, "deepseek-v2-lite-16b": 2, "rwkv6-1.6b": 2,
+               "jamba-v0.1-52b": 1}
+
+
+def train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
     """The training phases in their order, as (phase, label, fn, args):
-    2 layers of qwen3-8b in fp32, loss and gradients card against CPU;
-    qwen3-8b at full width and ``layers`` of its 36 layers, alone on the
-    card; resume at 2 layers (each checkpoint holds 16 bytes a
-    parameter); FT recovery on the trainer demo."""
+    each arch's loss and gradients in fp32, card against CPU (at
+    ``GRAD_LAYERS``), and with rwkv6-1.6b B4-bwd at its 24-layer
+    model's inputs against float64; each arch at full width and
+    ``TRAIN_RUNS``' depth and length (or ``layers`` and ``seq``), alone on
+    the card; with qwen3-8b also its
+    resume at 1 layer (each checkpoint holds 16 bytes a parameter) and
+    FT recovery on the trainer demo."""
     from repro_torch.configs.registry import get_config
-    cfg = get_config("qwen3-8b")
-    return [("model_grads", cfg.name, phase_model_grads,
-             (torch, cfg.scaled(n_layers=2, dtype="float32"))),
-            ("train", cfg.name, phase_train, (torch, layers)),
-            ("train", f"{cfg.name} resume", phase_train_resume, (torch,)),
-            ("train", "trainer-demo ft", phase_train_ft, (torch,))]
+    out = [("model_grads", a, phase_model_grads,
+            (torch, get_config(a).scaled(n_layers=GRAD_LAYERS[a],
+                                         dtype="float32")))
+           for a in archs]
+    if "rwkv6-1.6b" in archs:
+        out.append(("model_grads", "rwkv6-1.6b deep", phase_rwkv_deep_grads,
+                    (torch,)))
+    out += [("train", a, phase_train,
+             (torch, a, layers, seq)) for a in archs]
+    if "qwen3-8b" in archs:
+        out += [("train", "qwen3-8b resume", phase_train_resume, (torch,)),
+                ("train", "trainer-demo ft", phase_train_ft, (torch,))]
+    return out
 
 
-def run_train_phases(torch, layers=TRAIN_LAYERS):
+def run_train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
     """Run ``train_phases``, freeing the card between them; returns the
     train phases' launch records for ``kernel_line``."""
     paths = []
-    for phase, label, fn, args in train_phases(torch, layers):
+    for phase, label, fn, args in train_phases(torch, archs, layers, seq):
         out = seconds(phase, label, fn, *args)
         if phase == "train":
             paths.append(out[0])
@@ -1880,8 +2383,8 @@ def profile_prefill(torch, cfg, params, ecfg, prompt, device):
 
 
 def _wrappers():
-    """Every kernel wrapper of the port (B1-B7 and B2-bwd), by kernel
-    name; each counts its launches in ``.launches``."""
+    """Every kernel wrapper of the port (B1-B7, B2-bwd, B4-bwd, B6-bwd and
+    B7-bwd), by kernel name; each counts its launches in ``.launches``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import moe_dispatch as md
@@ -1895,7 +2398,10 @@ def _wrappers():
             "wkv6_decode": wk.wkv6_decode,
             "ssm_decode_step": sd.ssm_decode_step,
             "linear_scan": ls.linear_scan,
-            "moe_dispatch": md.moe_dispatch}
+            "moe_dispatch": md.moe_dispatch,
+            "moe_dispatch_bwd": md.moe_dispatch_bwd,
+            "linear_scan_bwd": ls.linear_scan_bwd,
+            "wkv6_chunked_bwd": wk.wkv6_chunked_bwd}
 
 
 def serve_path(cfg, layout, chunked=False):
@@ -3043,12 +3549,13 @@ def _kernel_row(name, rec, src, replaces, by_path, main, more):
 
 
 def kernel_line(main, serves):
-    """One row per kernel: its times at the main serving shape, its
-    launches summed over the serve runs of the paths that run it (each
-    path's own count in ``launches_by_path``). Every kernel must have run
-    on exactly the paths that declare it, and on at least one. B2's (192,
-    128) instance has a row of its own, at deepseek-v2-lite-16b's shape,
-    with the launches of the MLA paths."""
+    """One row per kernel: its times at the main serving (or training)
+    shape, its launches summed over the serve and train runs of the paths
+    that run it (each path's own count in ``launches_by_path``). Every
+    kernel must have run on exactly the paths that declare it, and on at
+    least one. B2's and B2-bwd's (192, 128) instances have rows of their
+    own, at deepseek-v2-lite-16b's shape, with the launches of the MLA
+    paths."""
     rows = []
     for name, key, src, replaces, more in (
             ("flash_attention", ("flash", 1531), "flash_attention.cu",
@@ -3077,7 +3584,13 @@ def kernel_line(main, serves):
                             ("moe_dispatch_jamba", "prefill"),
                             ("moe_dispatch_jamba", "decode"))),
             ("flash_attention_bwd", ("flash_bwd", 4096),
-             "flash_attention_bwd.cu", FLASH_BWD_REPLACES, ())):
+             "flash_attention_bwd.cu", FLASH_BWD_REPLACES, ()),
+            ("moe_dispatch_bwd", ("moe_dispatch_bwd", "prefill"),
+             "moe_dispatch.cu", MOE_BWD_REPLACES, ()),
+            ("linear_scan_bwd", ("linear_scan_bwd", 256), "linear_scan.cu",
+             SCAN_BWD_REPLACES, ()),
+            ("wkv6_chunked_bwd", ("wkv6_bwd", 4096), "wkv6_bwd.cu",
+             WKV_BWD_REPLACES, (("wkv6_bwd", 1531),))):
         rec = main[key]
         by_path = {s["label"]: s["launches"][name] for s in serves
                    if s["launches"][name]}
@@ -3096,17 +3609,34 @@ def kernel_line(main, serves):
         FLASH_REPLACES, by_path, main, (("flash_mla", 1000),
                                         ("flash_mla_fp32", 1000),
                                         ("flash_mla_fp32", 1900))))
+    # B2-bwd's (192, 128) instance: the launches of the MLA train path
+    by_path = {s["label"]: s["launches"]["flash_attention_bwd"]
+               for s in serves if s.get("mla")
+               and s["launches"]["flash_attention_bwd"]}
+    require(by_path, "B2-bwd at (192, 128) ran on no MLA train path")
+    rows.append(_kernel_row(
+        "flash_attention_bwd<192, 128>", main[("flash_bwd_mla", 4096)],
+        "flash_attention_bwd.cu", FLASH_BWD_REPLACES, by_path, main,
+        (("flash_bwd_mla", 1900),)))
     return {"kernels": rows}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--only", choices=("train",),
-                    help="build, then run only these phases (train: B2-bwd "
-                         "at qwen3-8b's train shape and the training "
-                         "phases); prints no result line")
-    ap.add_argument("--train-layers", type=int, default=TRAIN_LAYERS,
-                    help="qwen3-8b's depth in the train phase")
+                    help="build, then run only these phases (train: the "
+                         "backward kernels' rows and the training phases "
+                         "of the --arch configs); prints no result line")
+    ap.add_argument("--train-layers", type=int,
+                    help="with --only train: the depth of every --arch "
+                         "config in the train phase (default: TRAIN_RUNS')")
+    ap.add_argument("--train-seq", type=int,
+                    help="with --only train: the tokens a row of every "
+                         "--arch config in the train phase (default: "
+                         "TRAIN_RUNS')")
+    ap.add_argument("--arch", action="append", choices=TRAIN_ARCHS,
+                    help="with --only train: the configs to train (each "
+                         "once; all four if not given)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -3141,12 +3671,20 @@ def main(argv=None) -> int:
               "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
         if args.only == "train":
             from repro_torch.kernels import flash_attention as fa
-            seconds("kernels", "flash_bwd", check_flash_bwd_train, torch, fa)
-            run_train_phases(torch, args.train_layers)
+            archs = tuple(dict.fromkeys(args.arch or TRAIN_ARCHS))
+            if "qwen3-8b" in archs:
+                seconds("kernels", "flash_bwd", check_flash_bwd_train,
+                        torch, fa)
+            if set(archs) - {"qwen3-8b"}:
+                seconds("kernels", "bwd", phase_kernels_bwd, torch)
+            run_train_phases(torch, archs, args.train_layers,
+                             args.train_seq)
             emit({"phase": "total", "seconds": total.elapsed()})
             print(smi, flush=True)
             return 0
         main_shapes = seconds("kernels", "all", phase_kernels, torch)
+        main_shapes.update(seconds("kernels", "bwd", phase_kernels_bwd,
+                                   torch))
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
         mcfg = get_config("moonshot-v1-16b-a3b")
@@ -3212,19 +3750,24 @@ def main(argv=None) -> int:
         # nemotron-4-15b's 1900-token one are traced (B2 in its band, B2
         # at G 6). deepseek-v2-lite-16b serves on the latent layout; 200
         # pages make it park; its 1900-token prefill is traced (B2's (192,
-        # 128) instance in each layer). For time, beside the train phase,
-        # moonshot serves at 24 of its 48 layers and deepseek at 14 of its
-        # 27; pages count tokens, so both still park
+        # 128) instance in each layer). For time, beside the train phases,
+        # moonshot serves at 6 of its 48 layers, deepseek at 4 of its 27,
+        # danube at 6 of 24, nemotron at 8 of 32 and jamba at 8 (one
+        # whole period of its pattern: 7 Mamba layers, 1 attention, 4 MoE
+        # MLPs); pages count tokens, so the runs that parked still park
         for c, layout, n_pages, park, traced, cache_len, lens in (
                 (cfg, "paged", 640, None, None, 2048, PROMPT_LENS),
                 (rcfg, "recurrent", 4, 3, 1531, 2048, PROMPT_LENS),
-                (dcfg, "dense", 2048, 700, 7000, 8192, DANUBE_PROMPT_LENS),
-                (ncfg, "paged", 640, None, 1900, 2048, PROMPT_LENS),
-                (mcfg.scaled(n_layers=24), "paged", 640, 200, 1900, 2048,
+                (dcfg.scaled(n_layers=6), "dense", 2048, 700, 7000, 8192,
+                 DANUBE_PROMPT_LENS),
+                (ncfg.scaled(n_layers=8), "paged", 640, None, 1900, 2048,
                  PROMPT_LENS),
-                (scfg.scaled(n_layers=14), "latent", 640, 200, 1900, 2048,
+                (mcfg.scaled(n_layers=6), "paged", 640, 200, 1900, 2048,
                  PROMPT_LENS),
-                (jcfg, "dense", 640, 200, None, 2048, PROMPT_LENS)):
+                (scfg.scaled(n_layers=4), "latent", 640, 200, 1900, 2048,
+                 PROMPT_LENS),
+                (jcfg.scaled(n_layers=8), "dense", 640, 200, None, 2048,
+                 PROMPT_LENS)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3236,10 +3779,10 @@ def main(argv=None) -> int:
                 "serve", f"{c.name} {layout}", phase_serve, torch, c, ecfg,
                 serve_path(c, layout), prompt_lens=lens, park_pages=park,
                 trace_prefill=traced))
-        # chunked prefill and the prefix cache: qwen3-8b on paged at 18 and
-        # on dense at 8 of its 36 layers (for time)
-        for c, layout in ((cfg.scaled(n_layers=18), "paged"),
-                          (cfg.scaled(n_layers=8), "dense")):
+        # chunked prefill and the prefix cache: qwen3-8b on paged at 5 and
+        # on dense at 4 of its 36 layers (for time)
+        for c, layout in ((cfg.scaled(n_layers=5), "paged"),
+                          (cfg.scaled(n_layers=4), "dense")):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()

@@ -24,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
-           "wkv6", "moe_dispatch", "linear_scan", "ssm_decode")
+           "wkv6", "wkv6_bwd", "moe_dispatch", "linear_scan", "ssm_decode")
 
 
 def nvcc_path() -> str:

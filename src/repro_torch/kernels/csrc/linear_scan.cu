@@ -33,6 +33,22 @@
 // The multiply and the add round separately (__fmul_rn, __fadd_rn), as
 // the plain PyTorch version's two element-wise ops do, so the kernel
 // equals it bit for bit.
+//
+// The backward (B6-bwd, `linear_scan_bwd_kernel`) replaces no Pallas
+// kernel: the reference trains Mamba through jax.grad of its jnp
+// `_chunk_scan` (src/repro/models/mamba.py). The adjoint of the recurrence
+// is itself a linear scan, run from the last step down: with g_t the
+// gradient of h_t and g_last that of h_last,
+//   lam_T = g_T + g_last,  lam_t = g_t + a_{t+1} * lam_{t+1},
+//   db_t = lam_t,  da_t = lam_t * h_{t-1} (h0 at the first step),
+//   dh0 = a_1 * lam_1.
+// Bytes bound it as the forward: a, g and the saved h_all read once, da and
+// db written once, 20 bytes an element a step (at jamba's chunk, ~671 MB,
+// ~0.2 ms at 3.35 TB/s). The same design: one thread per (b, d, n) element,
+// t looping downwards with lam in a register, neighbouring threads on
+// neighbouring addresses, the loads of UNROLL steps issued before their
+// arithmetic. Each step rounds as the plain version's ops do (a multiply,
+// then an add; a multiply for da).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +93,53 @@ __global__ void linear_scan_kernel(const float* __restrict__ a,
   h_last[i] = h;
 }
 
+// grid ceil(B * D * N / THREADS); one thread per (b, d, n), t from T - 1
+// down to 0
+__global__ void linear_scan_bwd_kernel(const float* __restrict__ a,
+                                       const float* __restrict__ h0,
+                                       const float* __restrict__ h_all,
+                                       const float* __restrict__ g_all,
+                                       const float* __restrict__ g_last,
+                                       float* __restrict__ da,
+                                       float* __restrict__ db,
+                                       float* __restrict__ dh0, int T,
+                                       long long DN, long long total) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= total) return;
+  const long long bi = i / DN;
+  const long long e = i - bi * DN;
+  const long long base = bi * (long long)T * DN + e;
+  // lam_{t+1} * a_{t+1}, carried down; at the top it is g_last
+  float carry = g_last[i];
+  int t = T - 1;
+  for (; t - UNROLL + 1 >= 1; t -= UNROLL) {
+    float gv[UNROLL], av[UNROLL], hv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long off = base + (long long)(t - u) * DN;
+      gv[u] = __ldg(g_all + off);
+      av[u] = __ldg(a + off);
+      hv[u] = __ldg(h_all + off - DN);  // h_{t-u-1}, t - u >= 1
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long off = base + (long long)(t - u) * DN;
+      const float lam = __fadd_rn(gv[u], carry);
+      db[off] = lam;
+      da[off] = __fmul_rn(lam, hv[u]);
+      carry = __fmul_rn(av[u], lam);
+    }
+  }
+  for (; t >= 0; --t) {
+    const long long off = base + (long long)t * DN;
+    const float lam = __fadd_rn(__ldg(g_all + off), carry);
+    db[off] = lam;
+    da[off] = __fmul_rn(lam, t > 0 ? __ldg(h_all + off - DN) : h0[i]);
+    carry = __fmul_rn(__ldg(a + off), lam);
+  }
+  dh0[i] = carry;
+}
+
 }  // namespace
 
 extern "C" {
@@ -94,6 +157,25 @@ int linear_scan(const void* a, const void* b, const void* h0, void* h_all,
                        (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (const float*)h0, (float*)h_all,
       (float*)h_last, T, DN, total);
+  return (int)cudaGetLastError();
+}
+
+// a, h_all, g_all, da, db: [B, T, D, N] float32; h0, g_last, dh0:
+// [B, D, N] float32, all contiguous. g_all and g_last are the gradients of
+// h_all and h_last; writes da, db and dh0. Returns a cudaError_t.
+int linear_scan_bwd(const void* a, const void* h0, const void* h_all,
+                    const void* g_all, const void* g_last, void* da, void* db,
+                    void* dh0, int B, int T, int D, int N, void* stream) {
+  const long long DN = (long long)D * N;
+  const long long total = (long long)B * DN;
+  if (total == 0) return 0;
+  const long long blocks = (total + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  linear_scan_bwd_kernel<<<(unsigned)blocks, THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)h0, (const float*)h_all,
+      (const float*)g_all, (const float*)g_last, (float*)da, (float*)db,
+      (float*)dh0, T, DN, total);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,19 @@
 //   element by element.
 // A slot-tiled gather keeps the copy coalesced on both sides and needs no
 // sort of the routing, which would be a second launch.
+//
+// The backward (B7-bwd, `moe_dispatch_bwd_kernel`) replaces no Pallas
+// kernel: the reference differentiates the jnp scatter
+// `buf.at[g, e, pos].set(x, mode="drop")` of `_moe_mlp_local`
+// (src/repro/models/moe.py) with jax.grad, whose transpose for the scattered
+// rows is a gather. Row t's gradient is the gradient of the slot it landed
+// in, dbuf[expert_ids[t], positions[t]], and zero for a dropped row. It is
+// bytes-bound as the forward is: each kept row's slot read once and every
+// row of d_tokens written once (at moonshot prefill, T 11400, D 2048, bf16,
+// ~93 MB, ~28 us at 3.35 TB/s). One warp copies one row at a time, 16 bytes
+// a lane where both sides are aligned, so every load and store of a warp is
+// coalesced; a block takes BWD_ROWS rows. No two blocks write one row, so
+// there are no atomics and the copy is bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,6 +153,55 @@ __global__ void moe_dispatch_kernel(const Elem* __restrict__ tokens,
   }
 }
 
+constexpr int BWD_ROWS = 32;  // rows of d_tokens a block of the backward
+
+// grid ceil(T / BWD_ROWS); block THREADS; warp w copies rows w, w + WARPS,
+// ... of the block's tile: the slot's row of dbuf, or zeros for a dropped
+// row (position past C or negative, id outside [0, E)).
+template <typename Elem>
+__global__ void moe_dispatch_bwd_kernel(const Elem* __restrict__ dbuf,
+                                        const int32_t* __restrict__ expert_ids,
+                                        const int32_t* __restrict__ positions,
+                                        Elem* __restrict__ d_tokens,
+                                        int n_rows, int D, int E, int C,
+                                        int vec) {
+  const int lane = threadIdx.x % 32;
+  const int t_end = min(n_rows, (blockIdx.x + 1) * BWD_ROWS);
+  for (int t = blockIdx.x * BWD_ROWS + threadIdx.x / 32; t < t_end;
+       t += WARPS) {
+    const int e = expert_ids[t], p = positions[t];
+    const bool kept = e >= 0 && e < E && p >= 0 && p < C;
+    const Elem* src = dbuf + ((size_t)(kept ? e : 0) * C + (kept ? p : 0)) * D;
+    Elem* dst = d_tokens + (size_t)t * D;
+    if (vec) {
+      constexpr int PER_VEC = 16 / sizeof(Elem);
+      const int n_vec = D / PER_VEC;
+      uint4* d4 = reinterpret_cast<uint4*>(dst);
+      const uint4* s4 = reinterpret_cast<const uint4*>(src);
+      const uint4 z = make_uint4(0, 0, 0, 0);
+#pragma unroll 8
+      for (int i = lane; i < n_vec; i += 32) d4[i] = kept ? s4[i] : z;
+    } else {
+      for (int i = lane; i < D; i += 32) dst[i] = kept ? src[i] : Elem(0);
+    }
+  }
+}
+
+template <typename Elem>
+int launch_bwd(const void* dbuf, const void* expert_ids,
+               const void* positions, void* d_tokens, int T, int D, int E,
+               int C, cudaStream_t stream) {
+  if ((size_t)T * D == 0) return 0;
+  const int vec = ((size_t)D * sizeof(Elem)) % 16 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(dbuf) |
+                    reinterpret_cast<uintptr_t>(d_tokens)) & 15) == 0;
+  moe_dispatch_bwd_kernel<Elem>
+      <<<(T + BWD_ROWS - 1) / BWD_ROWS, THREADS, 0, stream>>>(
+          (const Elem*)dbuf, (const int32_t*)expert_ids,
+          (const int32_t*)positions, (Elem*)d_tokens, T, D, E, C, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename Elem>
 int launch(const void* tokens, const void* expert_ids, const void* positions,
            void* out, int T, int D, int E, int C, cudaStream_t stream) {
@@ -171,6 +233,21 @@ int moe_dispatch(const void* tokens, const void* expert_ids,
   if (elem_size == 2)
     return launch<uint16_t>(tokens, expert_ids, positions, out, T, D, E, C,
                             (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dbuf: [E, C, D] of elements of `elem_size` bytes; expert_ids, positions:
+// [T] int32 -> d_tokens [T, D] of the same elements, every row written once
+// (a kept row's slot, or zeros). Returns a cudaError_t (0 = success).
+int moe_dispatch_bwd(const void* dbuf, const void* expert_ids,
+                     const void* positions, void* d_tokens, int T, int D,
+                     int E, int C, int elem_size, void* stream) {
+  if (elem_size == 4)
+    return launch_bwd<uint32_t>(dbuf, expert_ids, positions, d_tokens, T, D,
+                                E, C, (cudaStream_t)stream);
+  if (elem_size == 2)
+    return launch_bwd<uint16_t>(dbuf, expert_ids, positions, d_tokens, T, D,
+                                E, C, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,10 @@ also returns each row's log-sum-exp, which training saves.
 ``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``, which
 replaces the reference model's jnp custom VJP ``_flash_bwd``
 (``repro.models.attention``): dq, dk and dv from the forward's out and
-lse. ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the
+lse, at every (hd, hd_v) of ``INSTANCES``. With grad on and an input
+that requires it, ``flash_attention`` goes through ``FlashAttention``,
+the autograd Function of B2 with its lse and B2-bwd.
+``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the
 same functions in plain PyTorch (O(S^2) masked softmaxes, the
 ``ref.flash_attention_ref`` oracle and the VJP's formulas): each wrapper
 takes its plain version only for CPU tensors, and the tests and
@@ -145,6 +148,28 @@ def _aligned(*ts):
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
+class FlashAttention(torch.autograd.Function):
+    """B2 as the reference's ``_flash`` custom VJP: the forward writes out
+    and lse and saves ``(q, k, v, out, lse)``; the backward recomputes p
+    from lse in kernel B2-bwd (``flash_attention_bwd``). q, k, v are
+    [B,n,S,d] at an (hd, hd_v) of ``INSTANCES``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, scale: float):
+        out, lse = _flash_fwd(q, k, v, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.scale = window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), window=ctx.window,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, window: int = 0,
                     scale: Optional[float] = None,
                     return_lse: bool = False):
@@ -152,15 +177,27 @@ def flash_attention(q, k, v, *, window: int = 0,
     the tensor cores, fp32 on the CUDA cores); CPU tensors take
     ``flash_attention_plain``. Anything else raises. ``return_lse``
     returns ``(out, lse)``, lse [B,H,S] float32 written by the same
-    launch; without it the kernel writes out alone."""
+    launch; without it the kernel writes out alone. With grad on and an
+    input that requires it the call goes through ``FlashAttention``
+    (its lse is saved, not returned: asking for it then raises)."""
     _check(q, k, v)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if return_lse:
+            raise ValueError("flash_attention: the lse of a differentiated "
+                             "call is saved for the backward, not returned")
+        return FlashAttention.apply(q, k, v, int(window), float(scale))
+    return _flash_fwd(q, k, v, window, scale, return_lse)
+
+
+def _flash_fwd(q, k, v, window, scale, return_lse):
     if not _on_card("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, window=window, scale=scale,
                                      return_lse=return_lse)
     q, k, v = _aligned(q, k, v)
     B, H, S, hd = q.shape
     hd_v = v.shape[3]
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = q.new_empty((B, H, S, hd_v))
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -184,19 +221,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
                         scale: Optional[float] = None):
     """dq, dk, dv of causal (+SWA) attention from the forward's ``out``
     and ``lse`` (``flash_attention(..., return_lse=True)``) and the
-    output's gradient ``dout``, each in q's dtype. Square head dims
-    ``HEAD_DIMS`` only. CUDA tensors launch the B2-bwd kernels (a dk/dv
-    pass and a dq pass, fp32 arithmetic on the CUDA cores for both
-    dtypes, no atomics: the same bits on every call); CPU tensors take
-    ``flash_attention_bwd_plain``. Anything else raises."""
+    output's gradient ``dout``, each in q's dtype, at every (hd, hd_v) of
+    ``INSTANCES`` (MLA's q/k 192 with v 128 included). CUDA tensors
+    launch the B2-bwd kernels (a dk/dv pass and a dq pass, fp32
+    arithmetic on the CUDA cores for both dtypes, no atomics: the same
+    bits on every call); CPU tensors take ``flash_attention_bwd_plain``.
+    Anything else raises."""
     _check(q, k, v)
     B, H, S, hd = q.shape
-    if v.shape[3] != hd or hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd takes square head dims "
-                         f"{HEAD_DIMS}; got q/k {hd}, v {v.shape[3]}")
-    if out.shape != q.shape or dout.shape != q.shape \
+    hd_v = v.shape[3]
+    o_shape = (B, H, S, hd_v)
+    if out.shape != o_shape or dout.shape != o_shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"out and dout must be {tuple(q.shape)} {q.dtype}; "
+        raise ValueError(f"out and dout must be {o_shape} {q.dtype}; "
                          f"got {tuple(out.shape)} {out.dtype}, "
                          f"{tuple(dout.shape)} {dout.dtype}")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
@@ -206,6 +243,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          window=window, scale=scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    # D_i = rowsum(dout * out) over the hd_v columns, one elementwise
+    # reduction beside the kernels
     delta = (dout.float() * out.float()).sum(-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lib = _bwd_lib()
@@ -214,7 +253,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
         err = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             dout.data_ptr(), lse.data_ptr(),
                             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                            dv.data_ptr(), B, H, k.shape[1], S, hd,
+                            dv.data_ptr(), B, H, k.shape[1], S, hd, hd_v,
                             int(window), float(scale), _DTYPES[q.dtype],
                             stream)
     _build.check(lib, err, "flash_bwd")
@@ -240,6 +279,6 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.flash_bwd.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                              ctypes.c_float, I, P]
+                              I, ctypes.c_float, I, P]
     lib.flash_bwd.restype = I
     return lib

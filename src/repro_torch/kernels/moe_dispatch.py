@@ -12,6 +12,14 @@ algorithm in plain PyTorch (per tile of slots, the row that lands in
 each slot, then one write of every slot), which the CPU tests hold
 equal to both.
 
+Training: when grad mode is on and the tokens require grad, the wrapper
+goes through ``_MoeDispatch``, whose backward is ``moe_dispatch_bwd``,
+the wrapper of the hand-written B7-bwd kernel (``csrc/moe_dispatch.cu``):
+each row's gradient is its slot's, gathered from the buffer's gradient,
+and zero for a dropped row, as ``jax.grad`` transposes the reference's
+``.at[].set(mode="drop")`` scatter. ``moe_dispatch_bwd_plain`` is the
+same gather in plain PyTorch; the CPU takes it.
+
 Contract (the TPU kernel's): tokens [T, D]; expert_ids, positions [T]
 int32, positions >= 0 -> [E, C, D] in the tokens' dtype. Row t lands at
 (expert_ids[t], positions[t]); rows with a position at or past C, or an
@@ -98,12 +106,48 @@ def _check(tokens, expert_ids, positions, n_experts, capacity):
         raise ValueError(f"all inputs must be on one device; got {devs}")
 
 
+def moe_dispatch_bwd_plain(dbuf, expert_ids, positions):
+    """The gradient of the tokens from the buffer's, dbuf [E,C,D] ->
+    [T,D]: row t takes slot (expert_ids[t], positions[t]), or zeros where
+    the row was dropped."""
+    E, C, D = dbuf.shape
+    ids, pos = expert_ids.long(), positions.long()
+    kept = (ids >= 0) & (ids < E) & (pos >= 0) & (pos < C)
+    rows = torch.cat([dbuf.reshape(E * C, D), dbuf.new_zeros(1, D)])
+    return rows[torch.where(kept, ids * C + pos, E * C)]
+
+
+class _MoeDispatch(torch.autograd.Function):
+    """B7 under autograd: the forward is the dispatch, the backward the
+    B7-bwd gather (``moe_dispatch_bwd``); ids and positions take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, tokens, expert_ids, positions, n_experts, capacity):
+        ctx.save_for_backward(expert_ids, positions)
+        return _dispatch(tokens, expert_ids, positions, n_experts, capacity)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        ids, pos = ctx.saved_tensors
+        return (moe_dispatch_bwd(dbuf.contiguous(), ids, pos), None, None,
+                None, None)
+
+
 def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
                  capacity: int):
     """tokens [T,D] -> per-expert capacity buffers [E,C,D]. CUDA tensors
     launch the B7 kernel (one launch that writes every slot once, T = 0
-    included); CPU tensors take ``moe_dispatch_plain``."""
+    included); CPU tensors take ``moe_dispatch_plain``. With grad on and
+    tokens that require it, the call goes through ``_MoeDispatch``."""
     _check(tokens, expert_ids, positions, n_experts, capacity)
+    if torch.is_grad_enabled() and tokens.requires_grad:
+        return _MoeDispatch.apply(tokens, expert_ids, positions, n_experts,
+                                  capacity)
+    return _dispatch(tokens, expert_ids, positions, n_experts, capacity)
+
+
+def _dispatch(tokens, expert_ids, positions, n_experts, capacity):
     if tokens.device.type == "cpu":
         return moe_dispatch_plain(tokens, expert_ids, positions, n_experts,
                                   capacity)
@@ -130,10 +174,54 @@ def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
 moe_dispatch.launches = 0
 
 
+def moe_dispatch_bwd(dbuf, expert_ids, positions):
+    """The tokens' gradient [T,D] from the buffer's dbuf [E,C,D]. CUDA
+    tensors launch the B7-bwd kernel (one launch, a warp a row, every row
+    written once); CPU tensors take ``moe_dispatch_bwd_plain``."""
+    if dbuf.dim() != 3 or expert_ids.dim() != 1 \
+            or positions.shape != expert_ids.shape:
+        raise ValueError(f"want dbuf [E,C,D], expert_ids and positions [T]; "
+                         f"got {tuple(dbuf.shape)}, "
+                         f"{tuple(expert_ids.shape)}, "
+                         f"{tuple(positions.shape)}")
+    E, C, D = dbuf.shape
+    if dbuf.dtype not in _DTYPES or expert_ids.dtype != torch.int32 \
+            or positions.dtype != torch.int32:
+        raise TypeError(f"moe_dispatch_bwd takes a float32 or bfloat16 "
+                        f"dbuf and int32 ids and positions; got "
+                        f"{dbuf.dtype}, {expert_ids.dtype}, "
+                        f"{positions.dtype}")
+    if {t.device for t in (dbuf, expert_ids, positions)} != {dbuf.device}:
+        raise ValueError("all inputs must be on one device")
+    if dbuf.device.type == "cpu":
+        return moe_dispatch_bwd_plain(dbuf, expert_ids, positions)
+    if dbuf.device.type != "cuda":
+        raise ValueError(f"moe_dispatch_bwd runs on cuda or cpu, not "
+                         f"{dbuf.device}")
+    if not all(t.is_contiguous() for t in (dbuf, expert_ids, positions)):
+        raise ValueError("moe_dispatch_bwd needs contiguous inputs")
+    T = expert_ids.shape[0]
+    out = torch.empty(T, D, dtype=dbuf.dtype, device=dbuf.device)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dbuf.device).cuda_stream
+    with torch.cuda.device(dbuf.device):
+        err = lib.moe_dispatch_bwd(dbuf.data_ptr(), expert_ids.data_ptr(),
+                                   positions.data_ptr(), out.data_ptr(), T,
+                                   D, E, C, dbuf.element_size(), stream)
+    _build.check(lib, err, "moe_dispatch_bwd")
+    moe_dispatch_bwd.launches += 1
+    return out
+
+
+moe_dispatch_bwd.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_dispatch")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.moe_dispatch.argtypes = [P, P, P, P, I, I, I, I, I, P]
     lib.moe_dispatch.restype = I
+    lib.moe_dispatch_bwd.argtypes = [P, P, P, P, I, I, I, I, I, P]
+    lib.moe_dispatch_bwd.restype = I
     return lib

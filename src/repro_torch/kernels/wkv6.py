@@ -14,6 +14,15 @@ own chunk-parallel algorithm (every chunk's state increment, a scan of
 the carry over the chunks, every chunk's output) in plain PyTorch, which
 the CPU tests hold against the chunk-serial version and the JAX package.
 
+Training: with grad on and an input that requires it, ``wkv6_chunked``
+goes through ``_Wkv6Chunked``, whose backward is ``wkv6_chunked_bwd``,
+the wrapper of the hand-written B4-bwd kernels (``csrc/wkv6_bwd.cu``):
+the gradients of (y, s_out) with respect to r, k, v, logw, u and state0,
+with the gradient of s_out as the starting adjoint.
+``wkv6_chunked_bwd_plain`` is ``torch.autograd.grad`` through
+``wkv6_chunked_plain``, the reference's ``wkv_chunked`` step for step;
+the CPU takes it.
+
 Layouts follow the JAX package. Chunked: r, k, v, logw [B,S,H,hd] (logw
 fp32 < 0), u [H,hd], state0 [B,H,hd,hd] -> y [B,S,H,hd] f32, state f32.
 Decode: r, k, v, w [B,H,hd] (w the decay multiplier exp(logw)), u
@@ -37,8 +46,10 @@ MAX_CHUNK = 32
 def wkv6_chunked_plain(r, k, v, logw, u, state0, chunk: int = 32):
     """Chunked WKV-6 in plain PyTorch, step for step the JAX model's
     ``wkv_chunked``: the tail is zero-padded to a whole chunk, and each
-    chunk works from the cumulative log-decay."""
+    chunk works from the cumulative log-decay. It computes in float32, or
+    in float64 where r is float64 (a reference for the fp32 paths)."""
     B, S, H, hd = r.shape
+    ct = torch.promote_types(r.dtype, torch.float32)
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
@@ -47,13 +58,13 @@ def wkv6_chunked_plain(r, k, v, logw, u, state0, chunk: int = 32):
     nc = (S + pad) // chunk
 
     def chunks(t):                                  # [nc, B, H, C, hd]
-        return t.reshape(B, nc, chunk, H, hd).permute(1, 0, 3, 2, 4).float()
+        return t.reshape(B, nc, chunk, H, hd).permute(1, 0, 3, 2, 4).to(ct)
 
     rc, kc, vc, lw = (chunks(t) for t in (r, k, v, logw))
     causal_strict = torch.tril(torch.ones(chunk, chunk, device=r.device),
                                -1)
-    u = u.float()
-    state = state0.float()
+    u = u.to(ct)
+    state = state0.to(ct)
     ys = []
     for ri, ki, vi, lwi in zip(rc, kc, vc, lw):
         cum = torch.cumsum(lwi, dim=2)              # inclusive
@@ -145,12 +156,81 @@ def _launch_checks(name, ts):
         raise ValueError(f"{name} needs contiguous inputs")
 
 
-def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
-    """Chunked WKV-6 over a whole sequence. CUDA tensors launch the B4
-    kernel, three device kernels a call in the passes of
-    ``wkv6_chunked_passes_plain`` (the ragged tail is masked in the
-    kernel, no padded copy; ``launches`` counts calls); CPU tensors take
-    ``wkv6_chunked_plain``."""
+def wkv6_chunked_bwd_plain(r, k, v, logw, u, state0, dy, ds_out,
+                           chunk: int = 32):
+    """(dr, dk, dv, dlogw, du, dstate0): ``torch.autograd.grad`` of
+    ``wkv6_chunked_plain``'s (y, s_out) against (dy, ds_out), each
+    gradient in its input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in
+               (r, k, v, logw, u, state0)]
+        y, s_out = wkv6_chunked_plain(*ins, chunk=chunk)
+        return torch.autograd.grad((y, s_out), ins, (dy, ds_out))
+
+
+def wkv6_chunked_bwd_walk_plain(r, k, v, logw, u, state0, dy, ds_out):
+    """The B4-bwd kernels' own algorithm in plain PyTorch, token by token:
+    a forward walk of the state S gives dr, b_t = r_t * (S_{t-1} dy_t),
+    du and Q_T = sum_e ds_out * S_T; a backward walk of the adjoint lam
+    gives dk, dv, dstate0 = lam_0 and dlogw_t = Q_t - a_t with a_t = k_t *
+    (lam_t v_t), carrying Q_{t-1} = Q_t - a_t + b_t. No state of any step
+    is kept. The CPU tests hold it against ``wkv6_chunked_bwd_plain``."""
+    f = [t.float() for t in (r, k, v, logw)]
+    r_, k_, v_, lw = (t.permute(1, 0, 2, 3) for t in f)    # [S,B,H,hd]
+    w = torch.exp(lw)
+    u = u.float()[None]
+    dyt = dy.permute(1, 0, 2, 3)
+    S = r_.shape[0]
+    vdy = (v_ * dyt).sum(-1, keepdim=True)                  # [S,B,H,1]
+    st = state0.float()
+    dr, b = torch.empty_like(r_), torch.empty_like(r_)
+    for t in range(S):
+        sdy = torch.einsum("bhde,bhe->bhd", st, dyt[t])
+        dr[t] = sdy + u * k_[t] * vdy[t]
+        b[t] = r_[t] * sdy
+        st = w[t][..., None] * st + k_[t][..., None] * v_[t][..., None, :]
+    du = (r_ * k_ * vdy).sum((0, 1))
+    q = (ds_out * st).sum(-1)
+    lam = ds_out.float()
+    dk, dv, dlw = (torch.empty_like(r_) for _ in range(3))
+    for t in range(S - 1, -1, -1):
+        lv = torch.einsum("bhde,bhe->bhd", lam, v_[t])
+        dk[t] = lv + r_[t] * u * vdy[t]
+        dv[t] = (torch.einsum("bhde,bhd->bhe", lam, k_[t])
+                 + (r_[t] * u * k_[t]).sum(-1, keepdim=True) * dyt[t])
+        a = k_[t] * lv
+        dlw[t] = q - a
+        q = q - a + b[t]
+        lam = w[t][..., None] * lam + r_[t][..., None] * dyt[t][..., None, :]
+
+    def back(x, like):
+        return x.permute(1, 0, 2, 3).to(like.dtype)
+    return (back(dr, r), back(dk, k), back(dv, v), back(dlw, logw), du, lam)
+
+
+class _Wkv6Chunked(torch.autograd.Function):
+    """B4 under autograd: the forward saves its inputs; the backward is
+    B4-bwd (``wkv6_chunked_bwd``) from the gradients of y and s_out (zero
+    where unused)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0, chunk):
+        ctx.save_for_backward(r, k, v, logw, u, state0)
+        ctx.chunk = chunk
+        return _chunked(r, k, v, logw, u, state0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        r, k, v, logw, u, state0 = ctx.saved_tensors
+        dy = (torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+              if dy is None else dy.contiguous())
+        ds_out = torch.zeros_like(state0) if ds_out is None \
+            else ds_out.contiguous()
+        return (*wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out,
+                                  chunk=ctx.chunk), None)
+
+
+def _check_chunked(r, k, v, logw, u, state0, chunk):
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"wkv6_chunked: want r, k, v, logw [B,S,H,hd]; "
                          f"got {[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -163,6 +243,24 @@ def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
         raise ValueError(f"wkv6_chunked: need S >= 1 and chunk >= 1; got "
                          f"S={S}, chunk={chunk}")
     _check_common("wkv6_chunked", (r, k, v), (logw,), u, state0)
+
+
+def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
+    """Chunked WKV-6 over a whole sequence. CUDA tensors launch the B4
+    kernel, three device kernels a call in the passes of
+    ``wkv6_chunked_passes_plain`` (the ragged tail is masked in the
+    kernel, no padded copy; ``launches`` counts calls); CPU tensors take
+    ``wkv6_chunked_plain``. With grad on and an input that requires it,
+    the call goes through ``_Wkv6Chunked``."""
+    _check_chunked(r, k, v, logw, u, state0, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, state0)):
+        return _Wkv6Chunked.apply(r, k, v, logw, u, state0, chunk)
+    return _chunked(r, k, v, logw, u, state0, chunk)
+
+
+def _chunked(r, k, v, logw, u, state0, chunk):
+    B, S, H, hd = r.shape
     if r.device.type == "cpu":
         return wkv6_chunked_plain(r, k, v, logw, u, state0, chunk=chunk)
     ts = (r, k, v, logw, u, state0)
@@ -194,6 +292,58 @@ def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
 
 
 wkv6_chunked.launches = 0
+
+
+def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
+                     chunk: int = 32):
+    """(dr, dk, dv, dlogw, du, dstate0) of ``wkv6_chunked``'s (y, s_out)
+    from their gradients dy [B,S,H,hd] and ds_out [B,H,hd,hd] (float32).
+    CUDA tensors launch the B4-bwd kernels (three device kernels a call:
+    a forward walk of the state by rows, a backward walk of its adjoint by
+    rows and one by columns; no atomics, the same bits on every call;
+    ``launches`` counts calls), with du's per-row sums added over the
+    batch beside them; CPU tensors take ``wkv6_chunked_bwd_plain``. The
+    kernels walk token by token, so ``chunk`` matters to the plain
+    version's rounding alone."""
+    _check_chunked(r, k, v, logw, u, state0, chunk)
+    if dy.shape != r.shape or ds_out.shape != state0.shape \
+            or dy.dtype != torch.float32 or ds_out.dtype != torch.float32:
+        raise ValueError(f"wkv6_chunked_bwd: want dy {tuple(r.shape)} and "
+                         f"ds_out {tuple(state0.shape)} float32; got "
+                         f"{tuple(dy.shape)} {dy.dtype}, "
+                         f"{tuple(ds_out.shape)} {ds_out.dtype}")
+    ts = (r, k, v, logw, u, state0, dy, ds_out)
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("wkv6_chunked_bwd: all inputs must be on one "
+                         "device")
+    if r.device.type == "cpu":
+        return wkv6_chunked_bwd_plain(r, k, v, logw, u, state0, dy, ds_out,
+                                      chunk=chunk)
+    _launch_checks("wkv6_chunked_bwd", ts)
+    B, S, H, hd = r.shape
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"wkv6_chunked_bwd: the kernels take hd <= "
+                         f"{MAX_HEAD_DIM}; got {hd}")
+    dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlogw = torch.empty_like(logw)
+    ds0 = torch.empty_like(state0)
+    du_part = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
+    q_last = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        err = lib.wkv6_chunked_bwd(
+            *(t.data_ptr() for t in ts),
+            *(t.data_ptr() for t in (dr, dk, dv, dlogw, du_part, ds0,
+                                     q_last)),
+            B, S, H, hd, _DTYPES[r.dtype], stream)
+    _build.check(lib, err, "wkv6_chunked_bwd")
+    wkv6_chunked_bwd.launches += 1
+    # the bonus's gradient, summed over the batch rows
+    return dr, dk, dv, dlogw, du_part.sum(0), ds0
+
+
+wkv6_chunked_bwd.launches = 0
 
 
 def wkv6_decode(r, k, v, w, u, state):
@@ -241,4 +391,13 @@ def _lib() -> ctypes.CDLL:
     lib.wkv6_chunked.restype = I
     lib.wkv6_decode.argtypes = [P] * 8 + [I] * 4 + [P]
     lib.wkv6_decode.restype = I
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("wkv6_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.wkv6_chunked_bwd.argtypes = [P] * 15 + [I] * 5 + [P]
+    lib.wkv6_chunked_bwd.restype = I
     return lib

@@ -14,8 +14,9 @@ synthetic packed data, and runs the train step with checkpoints every
 runs on the first CUDA card unless ``--device cpu``. The flags are the
 reference's, with ``--layers`` to cut the depth for one card (the whole
 qwen3-8b with AdamW's fp32 state needs 131 GB) and ``--device``. One
-device: ``--multipod`` (sharding) is ROADMAP A13b. The dense-attention
-family trains (``lm.train_supported``); the other families are A12b.
+device: ``--multipod`` (sharding) is ROADMAP A13b. Every registry config
+trains: ``--arch rwkv6-1.6b``, ``moonshot-v1-16b-a3b``,
+``deepseek-v2-lite-16b`` and ``jamba-v0.1-52b`` as the dense ones.
 """
 from __future__ import annotations
 
@@ -65,10 +66,6 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = cfg.scaled(n_layers=args.layers)
-    if not lm.train_supported(cfg):
-        raise NotImplementedError(
-            f"training {cfg.name} is ROADMAP A12b; the port trains the "
-            f"dense-attention family")
     gen = torch.Generator(device=device).manual_seed(0)
     params = lm.init_params(cfg, gen, device=device)
     opt = adamw_init(params)

@@ -5,7 +5,7 @@
 with kernel B2, causal flash attention. Under autograd it is
 differentiable as the reference's custom VJP is: the forward is B2 with
 its log-sum-exp, and the backward is kernel B2-bwd
-(``_FlashAttention``).
+(``flash_attention.FlashAttention``).
 ``paged_decode_attention`` runs kernel B1 through the page table.
 ``decode_attention`` attends over per-slot slabs (the ``dense`` layout),
 and ``chunk_prefix_attention`` attends a prompt chunk over the cache
@@ -26,29 +26,6 @@ from repro_torch.kernels import paged_attention as pa
 NEG_INF = -1e30
 
 
-class _FlashAttention(torch.autograd.Function):
-    """B2 as the reference's ``_flash`` custom VJP: the forward writes out
-    and lse and saves ``(q, k, v, out, lse)``; the backward recomputes p
-    from lse in kernel B2-bwd (``fa.flash_attention_bwd``). q, k, v are
-    [B,n,S,d] at a square head dim ``fa.HEAD_DIMS``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, window: int, scale: float):
-        out, lse = fa.flash_attention(q, k, v, window=window, scale=scale,
-                                      return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.scale = window, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = fa.flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), window=ctx.window,
-            scale=ctx.scale)
-        return dq, dk, dv, None, None
-
-
 def chunked_causal_attention(q, k, v, *, window: int = 0,
                              scale: Optional[float] = None):
     """q: [B,S,H,hd], k: [B,S,KV,hd], v: [B,S,KV,hd_v] -> [B,S,H,hd_v]
@@ -62,11 +39,11 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
     q passed explicitly. The zero columns add nothing to the scores, and
     the output's padded columns are sliced off. The CPU path takes the
     same route. When autograd records (any of q, k, v requires grad) the
-    call goes through ``_FlashAttention``, B2 with its lse forward and
-    B2-bwd backward; the padding and the slice stay outside it and are
-    differentiated by autograd, so a padded head dim's gradients come
-    back through the slice. The backward has the square head dims only:
-    MLA's (192, 128) trains in ROADMAP A12b."""
+    B2 wrapper goes through ``fa.FlashAttention``, B2 with its lse forward
+    and B2-bwd backward, at every instance, MLA's (192, 128) included;
+    the padding and the slice stay outside it and are differentiated by
+    autograd, so a padded head dim's gradients come back through the
+    slice."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     width = max(hd, hd_v)
@@ -87,16 +64,7 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
         return t.contiguous()
 
     q, k, v = heads_first(q), heads_first(k), heads_first(v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        if q.shape[-1] != v.shape[-1]:
-            raise NotImplementedError(
-                f"attention backward at head dims q/k {hd}, v {hd_v}: "
-                f"B2-bwd has square head dims {fa.HEAD_DIMS}; MLA's "
-                f"training is ROADMAP A12b")
-        out = _FlashAttention.apply(q, k, v, window, scale)
-    else:
-        out = fa.flash_attention(q, k, v, window=window, scale=scale)
+    out = fa.flash_attention(q, k, v, window=window, scale=scale)
     return out[..., :hd_v].transpose(1, 2)
 
 

@@ -135,13 +135,6 @@ def _head_weight(params, cfg: ModelConfig):
 CE_CHUNK = 1024
 
 
-def train_supported(cfg: ModelConfig) -> bool:
-    """Training runs the dense-attention family: every layer plain
-    attention (no MLA) with a dense MLP."""
-    return (all(k == "attn" for k in cfg.layer_kinds()) and cfg.mla is None
-            and cfg.moe is None)
-
-
 def _ce_rows(x, head_w, targets):
     """Per-token CE of rows x [N,D] against targets [N], in fp32 over the
     logits (the reference's ``_ce_from_logits``)."""
@@ -174,22 +167,17 @@ def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK):
 
 def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
     """Next-token CE loss of tokens [B,S] (int32), the last position
-    masked. Returns (loss, metrics), metrics ``{"ce", "moe_aux",
-    "moe_dropped"}`` as the reference's for a dense stack (the router
-    stats are zero). With ``remat`` each block is replayed in the
-    backward (``transformer.apply_stack``). The dense-attention family
-    only: MoE (the router's aux loss), MLA, RWKV-6 and Mamba stacks
-    raise."""
-    if not train_supported(cfg):
-        raise NotImplementedError(
-            f"training {cfg.name} (layer kinds "
-            f"{sorted(set(cfg.layer_kinds()))}, moe={cfg.moe is not None}, "
-            f"mla={cfg.mla is not None}): the port trains the dense-"
-            f"attention family; MoE, MLA, RWKV-6 and Mamba stacks are "
-            f"ROADMAP A12b")
+    masked, plus ``router_aux_weight`` times the summed ``moe_aux`` for
+    an MoE config, as the reference's. Returns (loss, metrics), metrics
+    ``{"ce", "moe_aux", "moe_dropped"}`` (the router stats summed over
+    the layers; zero for a stack without MoE). With ``remat`` each block
+    after the reference's prefix is replayed in the backward
+    (``transformer.apply_stack``). Every family trains: plain and MLA
+    attention through B2 and B2-bwd, MoE through B7 and B7-bwd, Mamba
+    through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd."""
     x = embed(params["embed"], tokens)
     ctx = {"mode": "train", "remat": remat}
-    x, _ = tf.apply_stack(params, x, cfg, ctx)
+    x, stats = tf.apply_stack(params, x, cfg, ctx)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                         dim=1)
@@ -197,8 +185,10 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
                       torch.zeros_like(tokens[:, :1])],
                      dim=1).to(torch.float32)
     ce = ce_loss(x, _head_weight(params, cfg), targets, mask)
-    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce, {"ce": ce, "moe_aux": zero, "moe_dropped": zero}
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * stats["moe_aux"]
+    return loss, {"ce": ce, **stats}
 
 
 def prefill(params, tokens, cfg: ModelConfig,

@@ -13,6 +13,10 @@ The reference pads the last chunk with dt = 0 (a = 1, b = 0), which
 leaves the state at S unchanged; the port runs a ragged last chunk
 instead, with the same final state. The per-chunk fp32 tensors
 ([B, C, Di, N], 134 MB each at jamba's width) live one chunk at a time.
+When autograd records, each chunk's body runs under
+``torch.utils.checkpoint``, as the reference's ``@jax.checkpoint`` body:
+the backward replays the chunk (B6 again) and runs B6-bwd, so no
+chunk's [B, C, Di, N] tensors are kept past it.
 
 Ops round where the JAX model's do: the prefill conv is K shifted adds
 from the bias, each rounding in the model dtype; the decode conv is one
@@ -25,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linear_scan import linear_scan
@@ -98,6 +103,16 @@ def _ssm_inputs(xc, p, cfg: ModelConfig):
     return dt, B_ssm, C_ssm
 
 
+def _chunk_body(h, dt_i, x_i, B_i, C_i, A):
+    """One chunk: the scan on B6 from h, then y = h_all . C. Returns
+    (h_last, y [B,C,Di])."""
+    a = torch.exp(dt_i[..., None] * A)                # [B,C,Di,N]
+    b = (dt_i * x_i)[..., None] * B_i[:, :, None, :]
+    h_all, h_last = linear_scan(a, b, h)
+    del a, b
+    return h_last, torch.einsum("bcdn,bcn->bcd", h_all, C_i)
+
+
 def mamba_forward(x, p, cfg: ModelConfig, chunk: int = CHUNK,
                   state: Optional[dict] = None, want_state: bool = False):
     """Prefill over x [B,S,D] from an optional carried state, the scan of
@@ -116,16 +131,18 @@ def mamba_forward(x, p, cfg: ModelConfig, chunk: int = CHUNK,
          else torch.zeros(B, di, cfg.mamba.d_state, dtype=torch.float32,
                           device=x.device))
     chunk = min(chunk, S)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, xcf, B_ssm, C_ssm, A, h))
     ys = []
     for s0 in range(0, S, chunk):
         sl = slice(s0, min(s0 + chunk, S))
-        dt_i = dt[:, sl]
-        a = torch.exp(dt_i[..., None] * A)            # [B,C,Di,N]
-        b = (dt_i * xcf[:, sl])[..., None] * B_ssm[:, sl, None, :]
-        h_all, h = linear_scan(a, b, h)
-        del a, b
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, C_ssm[:, sl]))
-        del h_all
+        args = (h, dt[:, sl], xcf[:, sl], B_ssm[:, sl], C_ssm[:, sl], A)
+        if remat:
+            h, y_i = torch.utils.checkpoint.checkpoint(
+                _chunk_body, *args, use_reentrant=False)
+        else:
+            h, y_i = _chunk_body(*args)
+        ys.append(y_i)
     y = torch.cat(ys, dim=1) + xcf * p["D_skip"]
     out = (y.to(x.dtype) * silu(z)) @ p["out_proj"]
     new_state = {"conv": new_conv, "ssm": h} if want_state else None

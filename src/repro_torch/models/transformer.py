@@ -30,7 +30,8 @@ slot's pages as such a cache (``pages_to_dense``).
 
 MoE layers return the router's stats (``moe_aux``, ``moe_dropped``);
 serving has no loss to add them to and drops them unread, so no value
-crosses to the host.
+crosses to the host. The ``train`` mode sums them over the layers, as
+the reference's ``apply_stack`` does, for the loss.
 
 Cache tensors are updated IN PLACE (paged and dense decode appends,
 prefill inserts, unpark restores, Mamba and RWKV decode commit their new
@@ -336,16 +337,18 @@ def _rwkv_block(p, x, cfg: ModelConfig, ctx, cache, want_cache: bool):
     return x + m, new_cache
 
 
-def _moe_block_mlp(h2, p, cfg: ModelConfig, decode: bool):
+def _moe_block_mlp(h2, p, cfg: ModelConfig, decode: bool, stats=None):
     """The MoE MLP as the reference's ``apply_block`` calls it: decode
     tokens [B,D] form one group with capacity factor 2.0, prefill runs
     one group per sequence at the config's factor (a prefill chunk one
     group of its C tokens, padding rows included, as there). The stats
-    are dropped."""
+    go into ``stats`` when it is a dict, else they are dropped."""
     if decode:
         out, _ = moe.moe_mlp(h2[None], p, cfg, capacity_factor=2.0)
         return out[0]
-    out, _ = moe.moe_mlp(h2, p, cfg)
+    out, st = moe.moe_mlp(h2, p, cfg)
+    if stats is not None:
+        stats.update(st)
     return out
 
 
@@ -378,11 +381,12 @@ def _mixer(h, kind: str, p, cfg: ModelConfig, ctx, cache,
 
 
 def apply_block(p, x, kind: str, mlp_kind: str, cfg: ModelConfig, ctx,
-                cache=None, want_cache: bool = False):
+                cache=None, want_cache: bool = False, stats=None):
     """One layer of kind ``kind`` ("attn", "mamba" or "rwkv") with an MLP
     of kind ``mlp_kind`` ("dense" or "moe"; RWKV has none). Attention and
     Mamba: norm -> mixer -> residual -> norm -> MLP -> residual. Returns
-    (x, new_cache)."""
+    (x, new_cache); an MoE MLP's stats go into ``stats`` if it is a
+    dict."""
     if kind == "rwkv":
         return _rwkv_block(p, x, cfg, ctx, cache, want_cache)
     decode = ctx["mode"] == "decode"
@@ -391,34 +395,45 @@ def apply_block(p, x, kind: str, mlp_kind: str, cfg: ModelConfig, ctx,
     x = x + a
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     if mlp_kind == "moe":
-        return x + _moe_block_mlp(h2, p["moe"], cfg, decode), new_cache
+        return (x + _moe_block_mlp(h2, p["moe"], cfg, decode, stats),
+                new_cache)
     return x + dense_mlp(h2, p["mlp"], cfg), new_cache
 
 
 def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                 want_caches: bool = False):
-    """Run every block in layer order. Returns (x, new_caches).
+    """Run every block in layer order. Returns (x, new_caches), or in
+    ``train`` mode (x, stats).
 
     ``ctx["mode"] == "train"`` runs the blocks for a loss: no cache is
     read or written, and with ``ctx["remat"]`` each block after the
-    reference's prefix (``plan_layers``; none in a dense stack) runs
-    under ``torch.utils.checkpoint``, as the reference wraps each block
-    of its scan in ``jax.checkpoint``: the backward replays one block at
-    a time, so a block's activations are never kept past it."""
+    reference's prefix (``plan_layers``: moonshot's and deepseek's dense
+    first layer; none in a dense stack) runs under
+    ``torch.utils.checkpoint``, as the reference wraps each block of its
+    scan in ``jax.checkpoint``: the backward replays one block at a time,
+    so a block's activations are never kept past it. The stats
+    ``{"moe_aux", "moe_dropped"}`` are fp32 scalars summed over the
+    layers in layer order from zero, as the reference's ``apply_stack``
+    sums them; a layer without an MoE MLP adds zeros. They leave each
+    checkpointed block as outputs of its own, so ``moe_aux`` keeps its
+    gradient through the router."""
     if ctx["mode"] == "train":
         if caches is not None or want_caches:
             raise ValueError("train mode reads and writes no cache")
         n_prefix = len(plan_layers(cfg)[0])
+        aux = dropped = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
         for i, (bp, kind, mlp_kind) in enumerate(zip(
                 params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
             run = functools.partial(_train_block, bp, kind, mlp_kind, cfg,
                                     ctx)
             if ctx.get("remat") and i >= n_prefix:
-                x = torch.utils.checkpoint.checkpoint(run, x,
-                                                      use_reentrant=False)
+                x, a, d = torch.utils.checkpoint.checkpoint(
+                    run, x, use_reentrant=False)
             else:
-                x = run(x)
-        return x, []
+                x, a, d = run(x)
+            aux, dropped = aux + a, dropped + d
+        return x, {"moe_aux": aux, "moe_dropped": dropped}
     new_caches = []
     for i, (bp, kind, mlp_kind) in enumerate(zip(
             params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
@@ -430,7 +445,12 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
 
 
 def _train_block(bp, kind: str, mlp_kind: str, cfg: ModelConfig, ctx, x):
-    return apply_block(bp, x, kind, mlp_kind, cfg, ctx)[0]
+    """One block for a loss: (x, moe_aux, moe_dropped), the stats zero
+    for a block without an MoE MLP."""
+    stats = {}
+    x = apply_block(bp, x, kind, mlp_kind, cfg, ctx, stats=stats)[0]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, stats.get("moe_aux", zero), stats.get("moe_dropped", zero)
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,10 @@ layouts keep the card's clean streams) and bf16 pools bit for bit
 through a snapshot, the Checkpointer's files and a restore; B2's
 log-sum-exp and the B2-bwd kernels against their plain versions, bit
 for bit across calls, and a SMOKE train step on the card against the
-CPU.
+CPU; the other backward kernels (B2-bwd at (192, 128), B7-bwd, B6-bwd,
+B4-bwd) against their plain versions on shape sweeps, bit for bit across
+calls, and the gradients of SMOKE moonshot, deepseek, rwkv6 and jamba on
+the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -1166,3 +1169,157 @@ def test_train_step_on_card_matches_cpu(cuda):
 def _leaves(tree):
     from repro_torch.core.tree import leaves
     return leaves(tree)
+
+
+def _rel(got, ref):
+    """max |got - ref| over the largest |ref| (1 for an all-zero ref)."""
+    return float((got.float() - ref.float()).abs().max()) / max(
+        float(ref.float().abs().max()), 1e-30) if ref.numel() else 0.0
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 200])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_at_mla_head_dims_matches_plain(cuda, dtype, H, KV,
+                                                       S):
+    """B2-bwd's (192, 128) instance (q/k 192, v 128: deepseek-v2-lite-16b's
+    MLA) against its plain version (fp32 2e-5, bf16 2e-2 of max(1,
+    |ref|)), the same bits on a second call, one launch."""
+    rng = np.random.default_rng(S + H)
+    q, k, v, do = [_randn(rng, *s).to(cuda, dtype)
+                   for s in ((2, H, S, 192), (2, KV, S, 192),
+                             (2, KV, S, 128), (2, H, S, 128))]
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    n = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert fa.flash_attention_bwd.launches == n + 1
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        out.float(), lse, do.float())
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.float() - ref).abs() / ref.abs().clamp(min=1)
+        assert float(err.max()) <= _TOL[dtype]
+
+
+@pytest.mark.parametrize("T,D,E,C", [(64, 32, 8, 12), (100, 16, 4, 40),
+                                     (48, 7, 3, 5), (0, 64, 4, 8),
+                                     (3000, 2048, 64, 60)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_backward_matches_plain(cuda, dtype, T, D, E, C):
+    """B7-bwd equal to its plain gather, on ids out of range, positions
+    past C and rows of an odd width; the same bits on a second call."""
+    rng = np.random.default_rng(T + C)
+    dbuf = _randn(rng, E, C, D).to(cuda, dtype)
+    ids = torch.from_numpy(rng.integers(0, E + 2, T).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(-1, 2 * C, T).astype(np.int32))
+    ids, pos = ids.to(cuda), pos.to(cuda)
+    n = md.moe_dispatch_bwd.launches
+    got = md.moe_dispatch_bwd(dbuf, ids, pos)
+    assert md.moe_dispatch_bwd.launches == n + 1
+    assert torch.equal(got, md.moe_dispatch_bwd(dbuf, ids, pos))
+    assert torch.equal(got, md.moe_dispatch_bwd_plain(dbuf, ids, pos))
+
+
+@pytest.mark.parametrize("B,T,D,N", [(2, 16, 8, 4), (1, 1, 16, 4),
+                                     (3, 9, 32, 8), (1, 256, 512, 16)])
+def test_linear_scan_backward_matches_plain(cuda, B, T, D, N):
+    """B6-bwd against its plain loop within 1e-5 of max(1, |ref|), the
+    same bits on a second call; the ragged remainder of its unrolled
+    loop (T 9) and a single step (T 1)."""
+    rng = np.random.default_rng(T + D)
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (B, T, D, N)).astype(
+        np.float32)).to(cuda)
+    b, g_all = (_randn(rng, B, T, D, N).to(cuda) for _ in range(2))
+    h0, g_last = (_randn(rng, B, D, N).to(cuda) for _ in range(2))
+    h_all, _ = ls.linear_scan(a, b, h0)
+    n = ls.linear_scan_bwd.launches
+    got = ls.linear_scan_bwd(a, h0, h_all, g_all, g_last)
+    assert ls.linear_scan_bwd.launches == n + 1
+    again = ls.linear_scan_bwd(a, h0, h_all, g_all, g_last)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ls.linear_scan_bwd_plain(a, h0, h_all, g_all, g_last)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 31, 33, 70])
+@pytest.mark.parametrize("hd", [6, 8, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_backward_matches_plain(cuda, dtype, hd, S):
+    """B4-bwd (three walks a call) against autograd through the chunked
+    plain version on the same inputs, a nonzero state0 and a gradient on
+    the final state: every gradient within 1e-4 of its largest |value|
+    in fp32 (sums of up to S * hd terms in another order, dlogw through
+    a carried difference), within 1e-2 where bf16 gradients round; the
+    same bits on a second call; one launch."""
+    rng = np.random.default_rng(hd * 100 + S)
+    B, H = 2, 2
+    r, k, v = (_randn(rng, B, S, H, hd).to(cuda, dtype) for _ in range(3))
+    logw = -torch.exp(torch.clamp(_randn(rng, B, S, H, hd), -8, 0.5))
+    u, s0 = _randn(rng, H, hd) * 0.1, _randn(rng, B, H, hd, hd) * 0.3
+    dy, ds = _randn(rng, B, S, H, hd), _randn(rng, B, H, hd, hd)
+    args = (r, k, v, *(t.to(cuda) for t in (logw, u, s0, dy, ds)))
+    n = wkv6.wkv6_chunked_bwd.launches
+    got = wkv6.wkv6_chunked_bwd(*args)
+    assert wkv6.wkv6_chunked_bwd.launches == n + 1
+    again = wkv6.wkv6_chunked_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = wkv6.wkv6_chunked_bwd_plain(*args)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        tol = 1e-2 if x.dtype == torch.bfloat16 else 1e-4
+        assert _rel(x, y) <= tol
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b", "rwkv6-1.6b",
+                                  "jamba-v0.1-52b"])
+def test_family_gradients_on_card_match_cpu(cuda, arch):
+    """SMOKE fp32 (TF32 off), 300 tokens (a Mamba tail past its 256-token
+    chunk): the loss within 1e-5 and every gradient within 1e-4 of its
+    leaf's largest on the card (B2, B2-bwd, B7, B7-bwd, B6, B6-bwd, B4,
+    B4-bwd) against the CPU (the plain versions); the routed experts
+    equal; each backward kernel launched once a layer (B6-bwd once a
+    chunk)."""
+    from repro_torch.models import moe
+    from repro_torch.train.train_step import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
+    cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = _to(cpu, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 300)).astype(np.int32))
+    routes, route = [], moe.route
+
+    def rec(*a):
+        out = route(*a)
+        routes.append(out[2].cpu())
+        return out
+    moe.route = rec
+    try:
+        (lc, _), gc_ = value_and_grad(cpu, toks, cfg)
+        n = [len(routes)]
+        counts = {w: w.launches for w in (fa.flash_attention_bwd,
+                                          md.moe_dispatch_bwd,
+                                          ls.linear_scan_bwd,
+                                          wkv6.wkv6_chunked_bwd)}
+        (lg, _), gg = value_and_grad(card, toks.to(cuda), cfg)
+    finally:
+        moe.route = route
+    kinds = cfg.layer_kinds()
+    want = {fa.flash_attention_bwd: kinds.count("attn"),
+            md.moe_dispatch_bwd: cfg.mlp_kinds().count("moe")
+            if cfg.moe else 0,
+            ls.linear_scan_bwd: kinds.count("mamba") * 2,
+            wkv6.wkv6_chunked_bwd: kinds.count("rwkv")}
+    assert {w: w.launches - c for w, c in counts.items()} == want
+    n_moe = n[0] if cfg.moe else 0
+    for a, b in zip(routes[:n_moe], routes[n[0]:n[0] + n_moe]):
+        assert torch.equal(a, b)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(_leaves(gg), _leaves(gc_)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-30)
