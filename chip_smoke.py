@@ -12,7 +12,8 @@ four of TRAIN_ARCHS if none is given), printing no result line.
 Phases, each printing one JSON object per line:
 
 1. device  — card name, power limit (nvidia-smi), torch and CUDA versions;
-2. build   — nvcc build of every kernel source in the checkout;
+2. build   — nvcc build of every kernel source in the checkout; fails if
+             ptxas reports a spill in a B2-bwd tensor-core kernel;
 3. kernels — each kernel (B1 paged decode, B2 flash prefill, B3 WKV-6
              decode, B4 WKV-6 chunked prefill, B5 SSM decode step, B6
              linear scan, B7 MoE dispatch) against its plain PyTorch
@@ -30,9 +31,11 @@ Phases, each printing one JSON object per line:
              1900) in fp32 and bf16, against SDPA at the same shape;
              B2's log-sum-exp and B2-bwd (training's backward) against
              their plain versions on a sweep (hd 16-128; G 1, 4, 6; S 1,
-             63, 65, 200, 1000; window 0 and 48; fp32 and bf16), bit for
-             bit across calls, and at qwen3-8b's train shape: bf16
-             beside SDPA's backward, fp32 within 4e-5; the training
+             63, 65, 200, 1000; window 0 and 48; fp32 and bf16) and,
+             for B2-bwd's tensor-core (bf16) route, at every instance
+             on its tile edges (S 64, 127-129; windows 0, 48, 64, 65),
+             bit for bit across calls, and at qwen3-8b's train shape:
+             bf16 beside SDPA's backward, fp32 within 4e-5; the training
              kernels of the other families against their plain
              versions, bit for bit across calls: B2-bwd's (192, 128)
              instance on a sweep and at deepseek-v2-lite-16b's H = KV =
@@ -138,7 +141,8 @@ Phases, each printing one JSON object per line:
              microbatches, remat): every step's loss, grad norm, lr
              and seconds, tokens/s, peak memory, every kernel's launches
              held to ``train_kernel_calls`` x microbatches x steps, the
-             loss falling on a repeated batch, one traced step, and for
+             loss falling on a repeated batch, one traced step (every
+             B2-bwd call there on the tensor-core pair), and for
              deepseek two gradients of one batch bit for bit; a run stopped
              at its step-4 checkpoint and resumed against the
              uninterrupted one (1 layer); the FaultTolerantTrainer's SR
@@ -157,6 +161,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -193,13 +198,18 @@ WKV_BWD_REPLACES = "src/repro/models/rwkv.py:105"
 # reduce passes, B2's tensor-core (bf16) kernel, its (192, 128) instance
 # named apart (MLA's q/k 192 with v 128), and its FMA (fp32) kernel, B4's
 # three passes (chunk states, the scan of the carry, chunk outputs), B3,
-# B5-B7
+# B5-B7, and the backward kernels
 WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
                        "wkv6_chunk_output_kernel")
 FLASH_MLA_KERNEL = "flash_fwd_bf16_kernel<192, 128>"
-# B2-bwd: a dk/dv pass and a dq pass a call; B4-bwd: a forward walk of the
-# state and two backward walks of its adjoint (rows, columns)
-FLASH_BWD_KERNELS = ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# B2-bwd: a dk/dv pass and a dq pass a call, on the tensor cores for bf16
+# (the train paths' type) and on the CUDA cores (FMA) for fp32; B4-bwd: a
+# forward walk of the state and two backward walks of its adjoint (rows,
+# columns)
+FLASH_BWD_BF16_KERNELS = ("flash_bwd_dkdv_bf16_kernel",
+                          "flash_bwd_dq_bf16_kernel")
+FLASH_BWD_KERNELS = (*FLASH_BWD_BF16_KERNELS, "flash_bwd_dkdv_kernel",
+                     "flash_bwd_dq_kernel")
 WKV_BWD_KERNELS = ("wkv6_bwd_state_kernel", "wkv6_bwd_key_kernel",
                    "wkv6_bwd_value_kernel")
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
@@ -928,6 +938,16 @@ def check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=0,
         rec["library"] = ("torch.index_select of each row's slot (the "
                           "dropped rows' zeros not written)")
         rec["x_library"] = rec["kernel_ms"] / rec["library_ms"]
+        # the two are close: six more rounds of each in turns (kernel,
+        # library, library, kernel, ...), so that their spreads show
+        # whether they differ
+        fns = {"kernel": lambda: md.moe_dispatch_bwd(dbuf, eids, pos),
+               "library": lambda: torch.index_select(flat, 0, idx)}
+        turns = {"kernel": [], "library": []}
+        for order in (("kernel", "library"), ("library", "kernel")) * 3:
+            for who in order:
+                turns[who].append(time_ms(fns[who], torch))
+        rec["alternating_ms"] = turns
     emit(rec)
     require(ok, f"moe_dispatch_bwd is not equal to its plain version: {rec}")
     return rec
@@ -1267,6 +1287,16 @@ def phase_kernels(torch):
                         check_flash_bwd(torch, fa, 2, H, KV, S, hd, dtype,
                                         window=window, seed=hd + S + H,
                                         timed=False)
+    # the tensor-core (bf16) route at every instance, at its tile edges: a
+    # tile, a ragged last tile, two tiles, windows of a tile and one past
+    for hd, hd_v in fa.INSTANCES:
+        for H, KV in ((4, 4), (8, 2), (6, 1)):
+            for S in (64, 127, 128, 129):
+                for window in (0, 48, 64, 65):
+                    check_flash_bwd(torch, fa, 2, H, KV, S, hd, bf16,
+                                    window=window,
+                                    seed=hd + S + H + window, timed=False,
+                                    hd_v=hd_v)
     main[("flash_bwd", 4096)] = check_flash_bwd_train(torch, fa)
     return main
 
@@ -1642,7 +1672,8 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
 
 
 # the device kernels each wrapper launches per call: B1 a split and a
-# reduce pass, B2 one kernel of its dtype, B4 three passes, the rest one
+# reduce pass, B2 one kernel of its dtype, B2-bwd the two passes of its
+# dtype, B4 three passes, the rest one
 WRAPPER_KERNELS = {
     "flash_attention": ((FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel",
                          "flash_fwd_kernel"), 1),
@@ -1699,7 +1730,8 @@ def _traced(torch, win):
         require(seen == per_call * n_calls,
                 f"trace: {wrapper} was called {n_calls} times but its "
                 f"kernels {names} launched {seen} times, not "
-                f"{per_call} a call")
+                f"{per_call} a call (the trace lost {win['pad_dropped']} "
+                f"of the {PAD_LAUNCHES} empty kernels ahead of the window)")
     return {"wall_s": wall, "device_kernel_s": busy,
             "device_busy_share": busy / wall,
             "device_ops": sum(n for _, _, n in events),
@@ -2151,6 +2183,14 @@ def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
             f"{rep}")
     win = _profile(torch, device, lambda: step(params, opt, toks))
     rec["trace"] = _traced(torch, win)
+    bwd_calls = rec["trace"]["wrapper_calls"].get("flash_attention_bwd", 0)
+    if bwd_calls:
+        seen = {n: rec["trace"]["port_kernels"].get(n, {}).get("launches", 0)
+                for n in FLASH_BWD_KERNELS}
+        require(all(seen[n] == bwd_calls for n in FLASH_BWD_BF16_KERNELS)
+                and sum(seen.values()) == 2 * bwd_calls,
+                f"train {arch}: the traced step's {bwd_calls} B2-bwd calls "
+                f"launched {seen}, not the tensor-core pair each")
     del opt, step
     if arch == "deepseek-v2-lite-16b":
         # no kernel of the path sums with atomics: two gradients of one
@@ -3522,6 +3562,24 @@ def ptxas_summary(log: str):
     return rows
 
 
+def require_no_spill(log: str, names) -> None:
+    """Fail when nvcc's ``-Xptxas -v`` output ``log`` shows a kernel whose
+    name holds one of ``names`` spilling to local memory, or shows none
+    of them."""
+    seen, cur = set(), None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((n for n in names if n in ln), None)
+            seen.update([cur] if cur else [])
+        elif cur is not None and "spill" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            require(m is not None and m.groups() == ("0", "0"),
+                    f"build: {cur} spills: {ln.strip()}")
+    require(seen == set(names), f"build: no ptxas record of "
+                                f"{sorted(set(names) - seen)}")
+
+
 def _kernel_row(name, rec, src, replaces, by_path, main, more):
     row = {"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -3669,6 +3727,10 @@ def main(argv=None) -> int:
         emit({"phase": "build", "seconds": t.elapsed(),
               "dir": str(_build.build_dir().relative_to(ROOT)),
               "ptxas": {n: ptxas_summary(log) for n, log in logs.items()}})
+        # B2-bwd's tensor-core kernels hold dK, dV and two score tiles in
+        # registers: any spill is a regression
+        require_no_spill(_build.build_log("flash_attention_bwd"),
+                         FLASH_BWD_BF16_KERNELS)
         if args.only == "train":
             from repro_torch.kernels import flash_attention as fa
             archs = tuple(dict.fromkeys(args.arch or TRAIN_ARCHS))

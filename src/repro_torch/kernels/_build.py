@@ -78,6 +78,7 @@ def _finish(proc: subprocess.Popen) -> str:
         Path(proc.tmp).unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(proc.cmd)}\n{log}")
+    proc.out.with_suffix(".log").write_text(log)
     os.replace(proc.tmp, proc.out)
     return log
 
@@ -97,6 +98,14 @@ def build_all(names=SOURCES) -> Dict[str, str]:
                 p.kill()
                 p.wait()
     return logs
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for ``csrc/<name>.cu`` as built into ``build_dir()``
+    (``-Xptxas -v``: each kernel's registers, shared memory and spills),
+    kept beside the library; empty if it is not built."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)

@@ -8,7 +8,8 @@ also returns each row's log-sum-exp, which training saves.
 ``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``, which
 replaces the reference model's jnp custom VJP ``_flash_bwd``
 (``repro.models.attention``): dq, dk and dv from the forward's out and
-lse, at every (hd, hd_v) of ``INSTANCES``. With grad on and an input
+lse, at every (hd, hd_v) of ``INSTANCES``, bf16 on the tensor cores and
+fp32 on the CUDA cores. With grad on and an input
 that requires it, ``flash_attention`` goes through ``FlashAttention``,
 the autograd Function of B2 with its lse and B2-bwd.
 ``flash_attention_plain`` and ``flash_attention_bwd_plain`` are the
@@ -143,7 +144,7 @@ def _on_card(name: str, *ts) -> bool:
 
 
 def _aligned(*ts):
-    """The bf16 kernel copies 16-byte chunks: a view at an odd offset (a
+    """The bf16 kernels copy 16-byte chunks: a view at an odd offset (a
     one-token prompt's slice of a projection) is copied first."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
@@ -223,9 +224,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
     and ``lse`` (``flash_attention(..., return_lse=True)``) and the
     output's gradient ``dout``, each in q's dtype, at every (hd, hd_v) of
     ``INSTANCES`` (MLA's q/k 192 with v 128 included). CUDA tensors
-    launch the B2-bwd kernels (a dk/dv pass and a dq pass, fp32
-    arithmetic on the CUDA cores for both dtypes, no atomics: the same
-    bits on every call); CPU tensors take ``flash_attention_bwd_plain``.
+    launch the B2-bwd kernels, a dk/dv pass and a dq pass with no
+    atomics (the same bits on every call): bf16 on the tensor cores (P
+    and dS rounded to bf16 before their products, fp32 sums), fp32 on
+    the CUDA cores; CPU tensors take ``flash_attention_bwd_plain``.
     Anything else raises."""
     _check(q, k, v)
     B, H, S, hd = q.shape
@@ -243,6 +245,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          window=window, scale=scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    q, k, v, dout = _aligned(q, k, v, dout)
     # D_i = rowsum(dout * out) over the hd_v columns, one elementwise
     # reduction beside the kernels
     delta = (dout.float() * out.float()).sum(-1)

@@ -13,8 +13,9 @@ on the card (SMOKE configs crashed at step boundaries on all four
 layouts keep the card's clean streams) and bf16 pools bit for bit
 through a snapshot, the Checkpointer's files and a restore; B2's
 log-sum-exp and the B2-bwd kernels against their plain versions, bit
-for bit across calls, and a SMOKE train step on the card against the
-CPU; the other backward kernels (B2-bwd at (192, 128), B7-bwd, B6-bwd,
+for bit across calls (the tensor-core route at every instance on its
+tile edges), and a SMOKE train step on the card against the CPU; the
+other backward kernels (B2-bwd at (192, 128), B7-bwd, B6-bwd,
 B4-bwd) against their plain versions on shape sweeps, bit for bit across
 calls, and the gradients of SMOKE moonshot, deepseek, rwkv6 and jamba on
 the card against the CPU.
@@ -1201,6 +1202,38 @@ def test_flash_backward_at_mla_head_dims_matches_plain(cuda, dtype, H, KV,
         assert got.dtype == dtype and got.shape == ref.shape
         err = (got.float() - ref).abs() / ref.abs().clamp(min=1)
         assert float(err.max()) <= _TOL[dtype]
+
+
+@pytest.mark.parametrize("window", [0, 48, 64, 65])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 4095])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("hd,hd_v", fa.INSTANCES)
+def test_flash_backward_tensor_cores_match_plain(cuda, hd, hd_v, H, KV, S,
+                                                 window):
+    """B2-bwd's bf16 route (the tensor-core kernels, P and dS rounded to
+    bf16 before their products) at every instance against its plain
+    version in fp32: dq, dk, dv within 2e-2 of max(1, |ref|); the same
+    bits on a second call; one launch. Lengths at and around the 64-row
+    tiles (a ragged last tile, two tiles, 4095 = 64 tiles less a row),
+    windows inside a tile, of one tile and one past it, G 1, 4 and 6."""
+    rng = np.random.default_rng(hd * 100000 + S * 100 + window + H)
+    B = 1 if S > 1000 else 2
+    q, k, v, do = [_randn(rng, *s).to(cuda, torch.bfloat16)
+                   for s in ((B, H, S, hd), (B, KV, S, hd), (B, KV, S, hd_v),
+                             (B, H, S, hd_v))]
+    out, lse = fa.flash_attention(q, k, v, window=window, return_lse=True)
+    n = fa.flash_attention_bwd.launches
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert fa.flash_attention_bwd.launches == n + 1
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        out.float(), lse, do.float(),
+                                        window=window)
+    for got, ref in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err = (got.float() - ref).abs() / ref.abs().clamp(min=1)
+        assert float(err.max()) <= _TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("T,D,E,C", [(64, 32, 8, 12), (100, 16, 4, 40),

@@ -156,6 +156,64 @@ def test_attention_backward_matches_reference(hd, window):
                                    atol=1e-5, rtol=1e-5)
 
 
+def _bf16_route(q, k, v, out, lse, dout, window, scale):
+    """B2-bwd's bf16 route in plain torch: bf16-valued inputs and forward
+    output, dS rounded to bf16 before the dK and dQ products, P given to
+    the dV product as two bf16 parts (hi = bf16(P), lo = bf16(P - hi)),
+    fp32 sums, the gradients rounded to bf16. [B,n,S,d] layouts."""
+    B, H, S, _ = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    kf = k.repeat_interleave(G, dim=1)
+    vf = v.repeat_interleave(G, dim=1)
+    s = torch.matmul(q, kf.transpose(-1, -2)) * scale
+    p = torch.where(fa._visible(S, window, q.device),
+                    torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dp = torch.matmul(dout, vf.transpose(-1, -2))
+    delta = (dout * out).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).bfloat16().float()
+    hi = p.bfloat16().float()
+    p = hi + (p - hi).bfloat16().float()
+
+    def group_sum(t):
+        return t.reshape(B, KV, G, S, t.shape[-1]).sum(2)
+    grads = (torch.matmul(ds, kf),
+             group_sum(torch.matmul(ds.transpose(-1, -2), q)),
+             group_sum(torch.matmul(p.transpose(-1, -2), dout)))
+    return tuple(g.bfloat16().float() for g in grads)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("hd,hd_v", [(128, 128), (192, 128)])
+def test_attention_backward_bf16_rounding_within_tolerance(hd, hd_v, window):
+    """The card's bf16 route rounds dS to bf16 and carries P in two bf16
+    parts where the reference keeps both fp32: a model of that route on
+    bf16-valued inputs (B 1, H 4, KV 2, S 300) within the card's bf16
+    tolerance, 2e-2 of max(1, |ref|), of ``jax.vjp`` of the reference's
+    attention on the same inputs. The margin is printed."""
+    B, S, H, KV = 1, 300, 4, 2
+
+    def bf16_valued(seed, *shape):
+        x = torch.from_numpy(_rnd(seed, *shape)).bfloat16().float()
+        return x.numpy()
+    q, k = bf16_valued(20, B, S, H, hd), bf16_valued(21, B, S, KV, hd)
+    v, dout = bf16_valued(22, B, S, KV, hd_v), bf16_valued(23, B, S, H, hd_v)
+    _, vjp = jax.vjp(lambda a, b, c: jattn.chunked_causal_attention(
+        a, b, c, window=window), q, k, v)
+    want = vjp(jnp.asarray(dout))
+    heads = [torch.from_numpy(x).transpose(1, 2).contiguous()
+             for x in (q, k, v, dout)]
+    out, lse = fa.flash_attention(*heads[:3], window=window, return_lse=True)
+    got = _bf16_route(*heads[:3], out.bfloat16().float(), lse, heads[3],
+                      window, 1.0 / np.sqrt(hd))
+    errs = [_tree_err(g.transpose(1, 2).numpy(), np.asarray(w))
+            for g, w in zip(got, want)]
+    print(f"bf16 route (hd {hd}, hd_v {hd_v}, window {window}): dq, dk, dv "
+          f"within {[round(e, 5) for e in errs]} of max(1, |ref|); the "
+          f"tolerance 2e-2 leaves a margin of {2e-2 - max(errs):.5f}")
+    assert max(errs) <= 2e-2
+
+
 def test_attention_backward_through_padded_head_dim():
     """hd 120 (danube's) pads to 128 outside the Function: the gradients
     come back through the slice and equal the reference's unpadded
