@@ -43,8 +43,8 @@ Phases, each printing one JSON object per line:
              backend), B7-bwd (exact) on the forward's sweep and at
              moonshot's prefill (T 11400, D 2048, E 64, C 223), B6-bwd on
              a sweep and at jamba's chunk (T 256, D 8192, N 16), B4-bwd on
-             a sweep (S 1-300, hd 6-128) and at rwkv6-1.6b's H 32, hd 64,
-             S 1531 and 4096;
+             a sweep (S 1-300 around chunk edges, chunks 32 and 16, hd
+             6-128) and at rwkv6-1.6b's H 32, hd 64, S 1531 and 4096;
 4. model   — qwen3-8b, rwkv6-1.6b, moonshot-v1-16b-a3b, jamba-v0.1-52b,
              qwen1.5-4b, nemotron-4-15b, h2o-danube-3-4b, chameleon-34b,
              musicgen-large and deepseek-v2-lite-16b (decoding through its
@@ -145,7 +145,8 @@ Phases, each printing one JSON object per line:
              B2-bwd call there on the tensor-core pair), and for
              deepseek two gradients of one batch bit for bit; a run stopped
              at its step-4 checkpoint and resumed against the
-             uninterrupted one (1 layer); the FaultTolerantTrainer's SR
+             uninterrupted one (rwkv6-1.6b, 1 layer); the
+             FaultTolerantTrainer's SR
              and GBN recovery on the trainer demo against its no-failure
              params;
 9. the kernels line, the total wall time, the nvidia-smi line, and the
@@ -203,15 +204,16 @@ WKV_CHUNKED_KERNELS = ("wkv6_chunk_state_kernel", "wkv6_state_scan_kernel",
                        "wkv6_chunk_output_kernel")
 FLASH_MLA_KERNEL = "flash_fwd_bf16_kernel<192, 128>"
 # B2-bwd: a dk/dv pass and a dq pass a call, on the tensor cores for bf16
-# (the train paths' type) and on the CUDA cores (FMA) for fp32; B4-bwd: a
-# forward walk of the state and two backward walks of its adjoint (rows,
-# columns)
+# (the train paths' type) and on the CUDA cores (FMA) for fp32; B4-bwd:
+# B4's passes run backwards (every chunk's state and adjoint increments,
+# the two carries over the chunks, every chunk's gradients), under names
+# of its own
 FLASH_BWD_BF16_KERNELS = ("flash_bwd_dkdv_bf16_kernel",
                           "flash_bwd_dq_bf16_kernel")
 FLASH_BWD_KERNELS = (*FLASH_BWD_BF16_KERNELS, "flash_bwd_dkdv_kernel",
                      "flash_bwd_dq_kernel")
-WKV_BWD_KERNELS = ("wkv6_bwd_state_kernel", "wkv6_bwd_key_kernel",
-                   "wkv6_bwd_value_kernel")
+WKV_BWD_KERNELS = ("wkv6_bwd_chunk_state_kernel", "wkv6_bwd_scan_kernel",
+                   "wkv6_bwd_chunk_grad_kernel")
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_reduce_kernel",
                 FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel", "flash_fwd_kernel",
                 *FLASH_BWD_KERNELS,
@@ -998,21 +1000,26 @@ def check_linear_scan_bwd(torch, ls, B, T, D, N, seed=0, timed=True):
 # another order; dlogw through a carried difference), bf16 gradients to
 # their rounding
 WKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# B4-bwd's sweep lengths: one token, either side of one and two chunks of
+# 32 (and of 16), a ragged tail and many chunks
+WKV_BWD_SWEEP_S = (1, 31, 32, 33, 63, 64, 65, 70, 300)
 
 
-def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, seed=0, timed=True):
-    """B4-bwd against its plain version (``torch.autograd.grad`` through
-    ``wkv6_chunked_plain``) on the same inputs, with a nonzero state0 and
-    a gradient on the final state; two calls give the same bits."""
+def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, chunk=32, seed=0,
+                   timed=True):
+    """B4-bwd in chunks of ``chunk`` against its plain version
+    (``torch.autograd.grad`` through ``wkv6_chunked_plain`` at the same
+    chunk) on the same inputs, with a nonzero state0 and a gradient on the
+    final state; two calls give the same bits."""
     r, k, v, logw, u, s0 = _wkv_inputs(torch, seed, B, S, H, hd, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     dy = torch.randn(B, S, H, hd, generator=g, device="cuda")
     ds = torch.randn(B, H, hd, hd, generator=g, device="cuda")
     args = (r, k, v, logw, u, s0, dy, ds)
-    got = wk.wkv6_chunked_bwd(*args)
-    again = wk.wkv6_chunked_bwd(*args)
+    got = wk.wkv6_chunked_bwd(*args, chunk=chunk)
+    again = wk.wkv6_chunked_bwd(*args, chunk=chunk)
     torch.cuda.synchronize()
-    ref = wk.wkv6_chunked_bwd_plain(*args)
+    ref = wk.wkv6_chunked_bwd_plain(*args, chunk=chunk)
     names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
     errs = {n: float((x.float() - y.float()).abs().max())
             / max(float(y.float().abs().max()), 1e-30)
@@ -1023,7 +1030,8 @@ def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, seed=0, timed=True):
     ok = repeats and all(errs[n] <= tols[n] for n in names)
     # what these inputs need: a state update, an adjoint update and the
     # three products of a row or column (dr, dk, dv), ~10 hd^2 flops a
-    # token and head; r, k, v, logw, dy read and their gradients written
+    # token and head (the function's count, not the chunk form's larger
+    # one); r, k, v, logw, dy read and their gradients written
     # once, u, state0 and the state's gradient read, du and dstate0 written
     esz = r.element_size()
     nbytes = (B * S * H * hd * (6 * esz + 12) + 8 * u.numel()
@@ -1031,14 +1039,16 @@ def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, seed=0, timed=True):
     b_ms, b_by = bound(nbytes, 10.0 * hd * hd * B * H * S, "float32")
     name = str(dtype).split(".")[-1]
     rec = {"phase": "kernels", "kernel": "wkv6_chunked_bwd",
-           "shape": {"B": B, "S": S, "H": H, "hd": hd}, "dtype": name,
+           "shape": {"B": B, "S": S, "H": H, "hd": hd,
+                     "chunk": min(chunk, S)}, "dtype": name,
            "max_err": max(errs.values()), "errs_of_leaf_max": errs,
            "tol": tols, "bit_equal_repeat": repeats, "ok": ok,
            "bound_ms": b_ms, "bound_by": b_by}
     if timed:
-        rec["kernel_ms"] = time_ms(lambda: wk.wkv6_chunked_bwd(*args), torch)
-        rec["plain_ms"] = time_ms(lambda: wk.wkv6_chunked_bwd_plain(*args),
-                                  torch)
+        rec["kernel_ms"] = time_ms(
+            lambda: wk.wkv6_chunked_bwd(*args, chunk=chunk), torch)
+        rec["plain_ms"] = time_ms(
+            lambda: wk.wkv6_chunked_bwd_plain(*args, chunk=chunk), torch)
         rec["library_ms"] = None
         rec["library"] = NO_WKV_LIBRARY
     emit(rec)
@@ -1069,10 +1079,11 @@ def phase_kernels_bwd(torch):
                            (3000, 2048, 64, 60)):
             check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=T + C,
                                    timed=False, positions="sparse")
-        for S in (1, 31, 33, 300):
-            for hd in (6, 8, 64, 128):
-                check_wkv6_bwd(torch, wk, 2, S, 2, hd, dtype, seed=S + hd,
-                               timed=False)
+        for S in WKV_BWD_SWEEP_S:
+            for chunk in (32, 16):
+                for hd in (6, 8, 64, 128):
+                    check_wkv6_bwd(torch, wk, 2, S, 2, hd, dtype,
+                                   chunk=chunk, seed=S + hd, timed=False)
     for B, T, D, N in ((2, 16, 8, 4), (1, 1, 16, 4), (3, 9, 32, 8),
                        (2, 33, 24, 16)):
         check_linear_scan_bwd(torch, ls, B, T, D, N, seed=T, timed=False)
@@ -1673,7 +1684,7 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
 
 # the device kernels each wrapper launches per call: B1 a split and a
 # reduce pass, B2 one kernel of its dtype, B2-bwd the two passes of its
-# dtype, B4 three passes, the rest one
+# dtype, B4 and B4-bwd three passes, the rest one
 WRAPPER_KERNELS = {
     "flash_attention": ((FLASH_MLA_KERNEL, "flash_fwd_bf16_kernel",
                          "flash_fwd_kernel"), 1),
@@ -1746,8 +1757,14 @@ def _traced(torch, win):
 # session, as a rule more with every session the process has opened (on
 # the H100: none in the first, 21 in the 40th; scripts/
 # trace_completeness.py), once 443 in the sixth. Each window therefore
-# opens with PAD_LAUNCHES empty kernels, ahead of the WORK annotation
-# from whose start on the window is read.
+# opens with PAD_LAUNCHES empty kernels and a synchronize, ahead of the
+# WORK annotation. The window's host events are read from the
+# annotation's start on, its device records from the last empty kernel's
+# end on: the two clocks drift apart within a session (on the H100 a
+# kernel's record started up to 6.9 ms before its own launch, and in 6 of
+# 112 sessions records of the window before the annotation's host start;
+# scripts/trace_completeness.py --arch rwkv6-1.6b), while on the device's
+# clock every record of the window follows the empty kernels.
 PAD_LAUNCHES = 4096
 WORK = "chip_smoke.work"
 
@@ -1756,10 +1773,13 @@ def _profile(torch, device, fn):
     """Run ``fn`` under torch.profiler (CPU and CUDA): the window's rows
     (the events from ``fn``'s start on, summed by key and device, as
     ``key_averages`` sums them), its wall
-    time, each wrapper's calls in it and, on the card, how many of the
-    PAD_LAUNCHES empty kernels launched ahead of it the trace lost. At
-    least one must show: the lost records are the session's first, so
-    then none of ``fn``'s is lost."""
+    time, each wrapper's calls in it, on the card how many of the
+    PAD_LAUNCHES empty kernels launched ahead of it the trace lost, and the
+    profiler itself (``scripts/trace_completeness.py`` reads its raw
+    records). At least one empty kernel must show: the lost records are
+    the session's first, so then none of ``fn``'s is lost. Host events
+    count from the annotation's start, device records from the end of the
+    last empty kernel, each on its own clock."""
     from types import SimpleNamespace
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1784,16 +1804,20 @@ def _profile(torch, device, fn):
     calls = {n: w.launches - before[n] for n, w in wrappers.items()
              if w.launches > before[n]}
     events = prof.events()
-    start = min(e.time_range.start for e in events if e.name == WORK)
-    pad = sum(1 for e in events if e.device_type != DeviceType.CPU
-              and "spin_kernel" in e.name)
-    dropped = PAD_LAUNCHES - pad if cuda else 0
+    start = min(e.time_range.start for e in events
+                if e.name == WORK and e.device_type == DeviceType.CPU)
+    pad = [e for e in events if e.device_type != DeviceType.CPU
+           and "spin_kernel" in e.name]
+    dropped = PAD_LAUNCHES - len(pad) if cuda else 0
     require(dropped < PAD_LAUNCHES,
             f"trace: the profiler lost all {PAD_LAUNCHES} empty kernels "
             f"ahead of the window, so it may have lost the window's own")
+    device_start = max(e.time_range.end for e in pad) if cuda else start
     rows = {}
     for e in events:
-        if e.name != WORK and e.time_range.start >= start:
+        on_device = e.device_type != DeviceType.CPU
+        if e.name != WORK and e.time_range.start >= (
+                device_start if on_device else start):
             row = rows.setdefault((e.key, e.device_type), SimpleNamespace(
                 key=e.key, device_type=e.device_type, count=0,
                 self_device_time_total=0.0, self_cpu_time_total=0.0))
@@ -1801,7 +1825,7 @@ def _profile(torch, device, fn):
             row.self_device_time_total += e.self_device_time_total
             row.self_cpu_time_total += e.self_cpu_time_total
     return {"rows": list(rows.values()), "wall_s": wall, "calls": calls,
-            "pad_dropped": dropped}
+            "pad_dropped": dropped, "prof": prof}
 
 
 # --------------------------------------------------------------------------
@@ -2210,13 +2234,22 @@ def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
     return path, rec
 
 
-def phase_train_resume(torch, layers=1, device="cuda"):
-    """The launcher at full width and ``layers`` layers: one run of 8
-    steps, and one stopped at its step-4 checkpoint and resumed with
-    ``--resume``: the resumed losses against the uninterrupted run's, bit
-    for bit or the first step and size of a difference. Eight steps stay
-    inside the launcher's 10-step warmup, where the lr does not depend on
-    ``--steps``."""
+# the resume phase's config: rwkv6-1.6b at full width, whose 1-layer
+# checkpoint (5 GB at 16 bytes a parameter) writes and reads in a quarter
+# of the time of qwen3-8b's (23.0 GB, its 151936-token vocabulary: 95 of
+# the smoke's seconds on the H100), through the same launcher and
+# Checkpointer; its bit-equal resume also holds B4-bwd to the same bits
+# on every call
+RESUME_ARCH = "rwkv6-1.6b"
+
+
+def phase_train_resume(torch, arch=RESUME_ARCH, layers=1, device="cuda"):
+    """The launcher with ``arch`` at full width and ``layers`` layers: one
+    run of 8 steps, and one stopped at its step-4 checkpoint and resumed
+    with ``--resume``: the resumed losses against the uninterrupted run's,
+    bit for bit or the first step and size of a difference. Eight steps
+    stay inside the launcher's 10-step warmup, where the lr does not
+    depend on ``--steps``."""
     import shutil
     from repro_torch.configs.registry import get_config
     from repro_torch.core.timing import Timer
@@ -2227,7 +2260,7 @@ def phase_train_resume(torch, layers=1, device="cuda"):
         gc.collect()
         torch.cuda.empty_cache()
         t = Timer()
-        out = launcher.main(_train_args("qwen3-8b", layers, *args))
+        out = launcher.main(_train_args(arch, layers, *args))
         out.pop("params")
         out.pop("opt_state")
         return out, t.elapsed()
@@ -2237,14 +2270,14 @@ def phase_train_resume(torch, layers=1, device="cuda"):
     first, first_s = run(4, TRAIN_DIR / "resume", "--ckpt-every", "4")
     rest, rest_s = run(8, TRAIN_DIR / "resume", "--resume")
     sync(torch, device)
-    path = _train_launches("qwen3-8b train resume", wrappers,
-                           get_config("qwen3-8b").scaled(n_layers=layers),
+    path = _train_launches(f"{arch} train resume", wrappers,
+                           get_config(arch).scaled(n_layers=layers),
                            TRAIN_SEQ, 16 * TRAIN_MICROBATCH)
     want = [r["loss"] for r in full["steps"]]
     got = [r["loss"] for r in first["steps"] + rest["steps"]]
     diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
     ckpt = TRAIN_DIR / "resume" / "step_00000004" / "shards.npz"
-    rec = {"phase": "train_resume", "config": "qwen3-8b", "layers": layers,
+    rec = {"phase": "train_resume", "config": arch, "layers": layers,
            "resumed_from": rest["start"], "losses_uninterrupted": want,
            "losses_stopped_and_resumed": got, "bit_equal": not diff,
            "first_differing_step": diff[0] if diff else None,
@@ -2348,9 +2381,9 @@ def train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
     ``GRAD_LAYERS``), and with rwkv6-1.6b B4-bwd at its 24-layer
     model's inputs against float64; each arch at full width and
     ``TRAIN_RUNS``' depth and length (or ``layers`` and ``seq``), alone on
-    the card; with qwen3-8b also its
-    resume at 1 layer (each checkpoint holds 16 bytes a parameter) and
-    FT recovery on the trainer demo."""
+    the card; with ``RESUME_ARCH`` also its resume at 1 layer (each
+    checkpoint holds 16 bytes a parameter), and with qwen3-8b FT recovery
+    on the trainer demo."""
     from repro_torch.configs.registry import get_config
     out = [("model_grads", a, phase_model_grads,
             (torch, get_config(a).scaled(n_layers=GRAD_LAYERS[a],
@@ -2361,9 +2394,11 @@ def train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
                     (torch,)))
     out += [("train", a, phase_train,
              (torch, a, layers, seq)) for a in archs]
+    if RESUME_ARCH in archs:
+        out.append(("train", f"{RESUME_ARCH} resume", phase_train_resume,
+                    (torch,)))
     if "qwen3-8b" in archs:
-        out += [("train", "qwen3-8b resume", phase_train_resume, (torch,)),
-                ("train", "trainer-demo ft", phase_train_ft, (torch,))]
+        out.append(("train", "trainer-demo ft", phase_train_ft, (torch,)))
     return out
 
 

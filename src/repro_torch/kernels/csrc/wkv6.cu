@@ -64,6 +64,8 @@
 //   with fused multiply-adds (the bonus one thread per token, the carry
 //   fmaf(w, S, dS)), as a kernel that walked the chunks one after another
 //   would round them: splitting the walk into passes changes no bit.
+//   The chunk loader, pass (a)'s decays and increment product and pass
+//   (b)'s carry are in wkv6_chunk.cuh, which B4-bwd (wkv6_bwd.cu) shares.
 // - B3: the state streams through once, so what counts is how much of it
 //   is in flight. Column e of S' and y_e need column e of S alone, so a
 //   (slot, head) splits across blocks by value columns, 16 a block, with
@@ -84,6 +86,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "wkv6_chunk.cuh"
+
 namespace {
 
 constexpr int CHUNK_THREADS = 128;   // passes (a) and (c)
@@ -92,117 +96,6 @@ constexpr int SCAN_AHEAD = 8;        // chunks of pass (b) loaded at once
 constexpr int DEC_THREADS = 128;     // B3
 constexpr int DEC_TE = 16;           // B3: value columns a block
 constexpr int DEC_MAX_HD = 128;      // B3: the tile and vectors on chip
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
-
-// 16-byte global -> shared copy; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// A chunk of a [B, S, H, hd] tensor into shared memory [CP][HDP], rows
-// `ld` apart (a multiple of 4), zeros past S, past C and past hd. With
-// `async` (hd * sizeof(T) a multiple of 16, so HDP = hd, and 16-byte
-// aligned rows) the rows go by cp.async, all in flight at once, in T's own
-// type; the caller waits. Otherwise element by element, upcast to fp32
-// (`dst` then holds floats).
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ x,
-                                           void* dst, int ld, bool async,
-                                           size_t base, size_t row, int t0,
-                                           int S, int C, int CP, int hd,
-                                           int HDP) {
-  if (async) {
-    constexpr int PER = 16 / sizeof(T);
-    const int n_vec = HDP / PER;
-    T* d = static_cast<T*>(dst);
-    for (int i = threadIdx.x; i < CP * n_vec; i += blockDim.x) {
-      const int t = i / n_vec, j = (i % n_vec) * PER;
-      const bool valid = t < C && t0 + t < S;
-      cp_async16(d + t * ld + j,
-                 x + base + (size_t)(t0 + (valid ? t : 0)) * row + j,
-                 valid ? 16 : 0);
-    }
-    return;
-  }
-  float* d = static_cast<float*>(dst);
-  for (int i = threadIdx.x; i < CP * HDP; i += blockDim.x) {
-    const int t = i / HDP, j = i % HDP;
-    const bool valid = t < C && t0 + t < S && j < hd;
-    d[t * ld + j] = valid ? to_f(x[base + (size_t)(t0 + t) * row + j]) : 0.f;
-  }
-}
-
-// a bf16 tile [CP][HDP] staged by cp.async, upcast to fp32 rows `ld` apart
-__device__ __forceinline__ void upcast(const __nv_bfloat16* src, float* dst,
-                                       int ld, int CP, int HDP) {
-  for (int i = 8 * threadIdx.x; i < CP * HDP; i += 8 * blockDim.x) {
-    const uint4 q = *reinterpret_cast<const uint4*>(src + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]),
-                 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    float* o = dst + (i / HDP) * ld + i % HDP;
-    *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
-    *reinterpret_cast<float4*>(o + 4) = make_float4(c.x, c.y, d.x, d.y);
-  }
-}
-
-// load r/k/v-type tiles (T) and logw (fp32) of one chunk into fp32 tiles
-// (rows lds[n] apart; logw's HDP apart): by cp.async where the shapes
-// allow, r/k/v through `stage` when T is bf16; returns with every tile in
-// place (after a barrier)
-template <typename T, int N>
-__device__ __forceinline__ void load_tiles(const T* const* xs,
-                                           float* const* dsts,
-                                           const int* lds,
-                                           const float* __restrict__ logw,
-                                           float* lw_dst, void* stage,
-                                           bool async, size_t base,
-                                           size_t row, int t0, int S, int C,
-                                           int CP, int hd, int HDP) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  for (int n = 0; n < N; ++n)
-    if (async && BF16)
-      load_chunk(xs[n], static_cast<T*>(stage) + n * CP * HDP, HDP, true,
-                 base, row, t0, S, C, CP, hd, HDP);
-    else
-      load_chunk(xs[n], dsts[n], lds[n], async, base, row, t0, S, C, CP, hd,
-                 HDP);
-  load_chunk(logw, lw_dst, HDP, async, base, row, t0, S, C, CP, hd, HDP);
-  if (async) cp_async_wait_all();
-  __syncthreads();
-  if constexpr (BF16) {
-    if (async) {
-      for (int n = 0; n < N; ++n)
-        upcast(reinterpret_cast<const __nv_bfloat16*>(stage) + n * CP * HDP,
-               dsts[n], lds[n], CP, HDP);
-      __syncthreads();
-    }
-  }
-}
-
-__device__ __forceinline__ void fma4x4(float acc[4][4], float4 a,
-                                       float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
 
 // (a) grid (n_chunks, H, B); block CHUNK_THREADS; dynamic shared memory
 // k_s | v_s | lw_s | stage, [CP][HDP] floats each. Writes ws[b,h,c] =
@@ -216,7 +109,7 @@ __global__ void wkv6_chunk_state_kernel(const T* __restrict__ k,
                                         int hd, int C, int async) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_chunks = gridDim.x;
-  const int HDP = round4(hd), CP = round4(C), tid = threadIdx.x;
+  const int HDP = round4(hd), CP = round4(C);
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + CP * HDP;
@@ -235,32 +128,10 @@ __global__ void wkv6_chunk_state_kernel(const T* __restrict__ k,
   const size_t bhc = ((size_t)b * H + h) * n_chunks + c;
   // per channel: the inclusive cumulative log-decay, in token order, then
   // k_carry = k * exp(cum_last - cum) in place of k
-  for (int d = tid; d < HDP; d += CHUNK_THREADS) {
-    float acc = 0.f;
-    for (int t = 0; t < C; ++t) {
-      acc += lw_s[t * HDP + d];
-      lw_s[t * HDP + d] = acc;
-    }
-    for (int t = 0; t < C; ++t)
-      k_s[t * HDP + d] *= expf(acc - lw_s[t * HDP + d]);
-    wl[bhc * HDP + d] = expf(acc);
-  }
+  chunk_decays<CHUNK_THREADS>(lw_s, k_s, wl + bhc * HDP, HDP, C);
   __syncthreads();
-
   // dS = k_carry^T v, 4 x 4 tiles of (d, e)
-  const int G = HDP / 4;
-  float* out = ws + bhc * HDP * HDP;
-  for (int tile = tid; tile < G * G; tile += CHUNK_THREADS) {
-    const int d0 = 4 * (tile / G), e0 = 4 * (tile % G);
-    float acc[4][4] = {};
-    for (int t = 0; t < C; ++t)
-      fma4x4(acc, *reinterpret_cast<const float4*>(k_s + t * HDP + d0),
-             *reinterpret_cast<const float4*>(v_s + t * HDP + e0));
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(out + (size_t)(d0 + i) * HDP + e0) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
+  chunk_increment<CHUNK_THREADS>(k_s, v_s, ws + bhc * HDP * HDP, HDP, C);
 }
 
 // (b) grid (ceil(HDP^2 / SCAN_THREADS), B * H); one thread per (d, e).
@@ -292,13 +163,13 @@ __global__ void wkv6_state_scan_kernel(const float* __restrict__ s0,
 #pragma unroll
     for (int j = 0; j < SCAN_AHEAD; ++j) {
       p[(c + j) * step] = s;
-      s = fmaf(wc[j], s, ds[j]);
+      s = carry(wc[j], s, ds[j]);
     }
   }
   for (; c < n_chunks; ++c) {
     const float ds = p[c * step];
     p[c * step] = s;
-    s = fmaf(w[(size_t)c * HDP], s, ds);
+    s = carry(w[(size_t)c * HDP], s, ds);
   }
   if (real) s_out[so] = s;
 }

@@ -21,7 +21,11 @@ the gradients of (y, s_out) with respect to r, k, v, logw, u and state0,
 with the gradient of s_out as the starting adjoint.
 ``wkv6_chunked_bwd_plain`` is ``torch.autograd.grad`` through
 ``wkv6_chunked_plain``, the reference's ``wkv_chunked`` step for step;
-the CPU takes it.
+the CPU takes it. ``wkv6_chunked_bwd_passes_plain`` is the B4-bwd
+kernels' own chunk-parallel algorithm in plain PyTorch, and
+``wkv6_chunked_bwd_walk_plain`` the same function token by token; the
+CPU tests hold both against autograd, each other in float64 and the
+passes against the JAX package.
 
 Layouts follow the JAX package. Chunked: r, k, v, logw [B,S,H,hd] (logw
 fp32 < 0), u [H,hd], state0 [B,H,hd,hd] -> y [B,S,H,hd] f32, state f32.
@@ -174,15 +178,18 @@ def wkv6_chunked_bwd_walk_plain(r, k, v, logw, u, state0, dy, ds_out):
     du and Q_T = sum_e ds_out * S_T; a backward walk of the adjoint lam
     gives dk, dv, dstate0 = lam_0 and dlogw_t = Q_t - a_t with a_t = k_t *
     (lam_t v_t), carrying Q_{t-1} = Q_t - a_t + b_t. No state of any step
-    is kept. The CPU tests hold it against ``wkv6_chunked_bwd_plain``."""
-    f = [t.float() for t in (r, k, v, logw)]
+    is kept. It computes in float32, or in float64 where r is float64. The
+    CPU tests hold it against ``wkv6_chunked_bwd_plain`` and, in float64,
+    against ``wkv6_chunked_bwd_passes_plain``."""
+    ct = torch.promote_types(r.dtype, torch.float32)
+    f = [t.to(ct) for t in (r, k, v, logw)]
     r_, k_, v_, lw = (t.permute(1, 0, 2, 3) for t in f)    # [S,B,H,hd]
     w = torch.exp(lw)
-    u = u.float()[None]
-    dyt = dy.permute(1, 0, 2, 3)
+    u = u.to(ct)[None]
+    dyt = dy.to(ct).permute(1, 0, 2, 3)
     S = r_.shape[0]
     vdy = (v_ * dyt).sum(-1, keepdim=True)                  # [S,B,H,1]
-    st = state0.float()
+    st = state0.to(ct)
     dr, b = torch.empty_like(r_), torch.empty_like(r_)
     for t in range(S):
         sdy = torch.einsum("bhde,bhe->bhd", st, dyt[t])
@@ -190,8 +197,8 @@ def wkv6_chunked_bwd_walk_plain(r, k, v, logw, u, state0, dy, ds_out):
         b[t] = r_[t] * sdy
         st = w[t][..., None] * st + k_[t][..., None] * v_[t][..., None, :]
     du = (r_ * k_ * vdy).sum((0, 1))
-    q = (ds_out * st).sum(-1)
-    lam = ds_out.float()
+    lam = ds_out.to(ct)
+    q = (lam * st).sum(-1)
     dk, dv, dlw = (torch.empty_like(r_) for _ in range(3))
     for t in range(S - 1, -1, -1):
         lv = torch.einsum("bhde,bhe->bhd", lam, v_[t])
@@ -206,6 +213,88 @@ def wkv6_chunked_bwd_walk_plain(r, k, v, logw, u, state0, dy, ds_out):
     def back(x, like):
         return x.permute(1, 0, 2, 3).to(like.dtype)
     return (back(dr, r), back(dk, k), back(dv, v), back(dlw, logw), du, lam)
+
+
+def wkv6_chunked_bwd_passes_plain(r, k, v, logw, u, state0, dy, ds_out,
+                                  chunk: int = 32):
+    """The B4-bwd kernels' own algorithm in plain PyTorch, B4's passes run
+    backwards over chunks of C = min(chunk, S) tokens: (1) each chunk's
+    state increment dS_c = k_carry^T v, decay w_c and adjoint increment
+    G_c = r_dec^T dy_c; (2) the two carries, elementwise in (d, e): the
+    adjoint lam_c = w_c * lam_{c+1} + G_c from lam_nc = ds_out down
+    (dstate0 = lam_0), then the state S_{c+1} = w_c * S_c + dS_c from
+    state0 up, with Q_c = sum_e lam_{c+1} * S_{c+1} per row; (3) each
+    chunk's gradients from S_c and lam_{c+1} alone, with M =
+    strictly_lower(dy v^T) and A B4's scores:
+    dr' = exp(cum_excl) (dy S_c^T + M k_inv),
+    dk' = exp(-cum) (M^T r_dec) + exp(cum_last - cum) (v lam_{c+1}^T),
+    dv = A^T dy + diag(r . (u k)) dy + k_carry lam_{c+1}, u's bonus added
+    to dr' and dk'; (4) dlogw_t = Q_t - a_t down the chunk from Q_c,
+    carrying Q_{t-1} = Q_t - a_t + b_t with a_t = k_t dk'_t and b_t = r_t
+    dr'_t. The ragged tail is zero (k = v = r = dy = 0, logw = 0), as the
+    kernels mask it at load. It computes in float32, or in float64 where
+    r is float64."""
+    B, S, H, hd = r.shape
+    ct = torch.promote_types(r.dtype, torch.float32)
+    C = min(chunk, S)
+    nc = -(-S // C)
+    pad = nc * C - S
+
+    def chunks(t):                                  # [B, H, nc, C, hd]
+        t = torch.nn.functional.pad(t.to(ct), (0, 0, 0, 0, 0, pad))
+        return t.reshape(B, nc, C, H, hd).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lw, gy = (chunks(t) for t in (r, k, v, logw, dy))
+    cum = torch.cumsum(lw, dim=3)
+    cum_excl = torch.nn.functional.pad(cum[..., :-1, :], (0, 0, 1, 0))
+    e_excl, e_inv = torch.exp(cum_excl), torch.exp(-cum)
+    e_carry = torch.exp(cum[..., -1:, :] - cum)
+    r_dec, k_inv, k_carry = rc * e_excl, kc * e_inv, kc * e_carry
+    # (1) chunk-parallel: increments and decays
+    w = torch.exp(cum[..., -1, :, None])            # [B, H, nc, hd, 1]
+    dS = torch.einsum("bhncd,bhnce->bhnde", k_carry, vc)
+    G = torch.einsum("bhncd,bhnce->bhnde", r_dec, gy)
+    # (2) the carries, chunk after chunk, elementwise in (d, e)
+    lam_next = torch.empty_like(G)                  # lam_{c+1}
+    lam = ds_out.to(ct)
+    for c in range(nc - 1, -1, -1):
+        lam_next[:, :, c] = lam
+        lam = w[:, :, c] * lam + G[:, :, c]
+    s_in = torch.empty_like(dS)
+    q = torch.empty_like(w[..., 0])                 # Q at each chunk's end
+    st = state0.to(ct)
+    for c in range(nc):
+        s_in[:, :, c] = st
+        st = w[:, :, c] * st + dS[:, :, c]
+        q[:, :, c] = (lam_next[:, :, c] * st).sum(-1)
+    # (3) chunk-parallel: gradients
+    strict = torch.tril(torch.ones(C, C, dtype=ct, device=r.device), -1)
+    A = torch.einsum("bhntd,bhnsd->bhnts", r_dec, k_inv) * strict
+    M = torch.einsum("bhnte,bhnse->bhnts", gy, vc) * strict
+    vdy = (vc * gy).sum(-1, keepdim=True)           # [B, H, nc, C, 1]
+    uk = u.to(ct)[None, :, None, None] * kc
+    bonus = (rc * uk).sum(-1, keepdim=True)
+    drp = e_excl * (torch.einsum("bhnte,bhnde->bhntd", gy, s_in)
+                    + torch.einsum("bhnts,bhnsd->bhntd", M, k_inv))
+    dkp = (e_inv * torch.einsum("bhnts,bhntd->bhnsd", M, r_dec)
+           + e_carry * torch.einsum("bhnte,bhnde->bhntd", vc, lam_next))
+    dv = (torch.einsum("bhnst,bhnse->bhnte", A, gy) + bonus * gy
+          + torch.einsum("bhntd,bhnde->bhnte", k_carry, lam_next))
+    dr = drp + uk * vdy
+    dk = dkp + rc * u.to(ct)[None, :, None, None] * vdy
+    du = (rc * kc * vdy).sum((0, 2, 3))
+    # (4) dlogw within each chunk, from the carried Q
+    a, b = kc * dkp, rc * drp
+    dlw = torch.empty_like(a)
+    for t in range(C - 1, -1, -1):
+        dlw[..., t, :] = q - a[..., t, :]
+        q = q - a[..., t, :] + b[..., t, :]
+
+    def back(x, like):
+        x = x.permute(0, 2, 3, 1, 4).reshape(B, nc * C, H, hd)[:, :S]
+        return x.to(like.dtype)
+    return (back(dr, r), back(dk, k), back(dv, v), back(dlw, logw),
+            du.to(u.dtype), lam.to(state0.dtype))
 
 
 class _Wkv6Chunked(torch.autograd.Function):
@@ -298,13 +387,15 @@ def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
                      chunk: int = 32):
     """(dr, dk, dv, dlogw, du, dstate0) of ``wkv6_chunked``'s (y, s_out)
     from their gradients dy [B,S,H,hd] and ds_out [B,H,hd,hd] (float32).
-    CUDA tensors launch the B4-bwd kernels (three device kernels a call:
-    a forward walk of the state by rows, a backward walk of its adjoint by
-    rows and one by columns; no atomics, the same bits on every call;
-    ``launches`` counts calls), with du's per-row sums added over the
-    batch beside them; CPU tensors take ``wkv6_chunked_bwd_plain``. The
-    kernels walk token by token, so ``chunk`` matters to the plain
-    version's rounding alone."""
+    CUDA tensors launch the B4-bwd kernels in chunks of C = min(chunk, S)
+    tokens, three device kernels a call in the passes of
+    ``wkv6_chunked_bwd_passes_plain``: every chunk's state and adjoint
+    increments, the two carries over the chunks (the adjoint down, the
+    state up), every chunk's gradients (no atomics, the same bits on every
+    call; ``launches`` counts calls), with du's per-chunk sums added over
+    the batch and the chunks beside them; CPU tensors take
+    ``wkv6_chunked_bwd_plain``. The kernels take hd and C up to
+    ``MAX_HEAD_DIM`` and ``MAX_CHUNK``, as B4's."""
     _check_chunked(r, k, v, logw, u, state0, chunk)
     if dy.shape != r.shape or ds_out.shape != state0.shape \
             or dy.dtype != torch.float32 or ds_out.dtype != torch.float32:
@@ -321,26 +412,37 @@ def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
                                       chunk=chunk)
     _launch_checks("wkv6_chunked_bwd", ts)
     B, S, H, hd = r.shape
-    if hd > MAX_HEAD_DIM:
+    C = min(chunk, S)
+    if hd > MAX_HEAD_DIM or C > MAX_CHUNK:
         raise ValueError(f"wkv6_chunked_bwd: the kernels take hd <= "
-                         f"{MAX_HEAD_DIM}; got {hd}")
+                         f"{MAX_HEAD_DIM} and chunks <= {MAX_CHUNK}; got "
+                         f"hd={hd}, chunk={C}")
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
     ds0 = torch.empty_like(state0)
-    du_part = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
-    q_last = torch.empty(B, H, hd, dtype=torch.float32, device=r.device)
+    # the kernels' workspace: each chunk's state increment, overwritten by
+    # the state entering it, and its adjoint increment, overwritten by the
+    # adjoint leaving it; each chunk's decay and Q row; rows padded to 4
+    n_chunks, hdp = -(-S // C), -(-hd // 4) * 4
+    du_part = torch.empty(B, H, n_chunks, hd, dtype=torch.float32,
+                          device=r.device)
+    ws_s, ws_l = (torch.empty(B * H * n_chunks * hdp * hdp,
+                              dtype=torch.float32, device=r.device)
+                  for _ in range(2))
+    wl, wq = (torch.empty(B * H * n_chunks * hdp, dtype=torch.float32,
+                          device=r.device) for _ in range(2))
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = lib.wkv6_chunked_bwd(
             *(t.data_ptr() for t in ts),
-            *(t.data_ptr() for t in (dr, dk, dv, dlogw, du_part, ds0,
-                                     q_last)),
-            B, S, H, hd, _DTYPES[r.dtype], stream)
+            *(t.data_ptr() for t in (dr, dk, dv, dlogw, du_part, ds0, ws_s,
+                                     ws_l, wl, wq)),
+            B, S, H, hd, C, _DTYPES[r.dtype], stream)
     _build.check(lib, err, "wkv6_chunked_bwd")
     wkv6_chunked_bwd.launches += 1
-    # the bonus's gradient, summed over the batch rows
-    return dr, dk, dv, dlogw, du_part.sum(0), ds0
+    # the bonus's gradient, summed over the batch rows and the chunks
+    return dr, dk, dv, dlogw, du_part.sum((0, 2)), ds0
 
 
 wkv6_chunked_bwd.launches = 0
@@ -398,6 +500,6 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("wkv6_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.wkv6_chunked_bwd.argtypes = [P] * 15 + [I] * 5 + [P]
+    lib.wkv6_chunked_bwd.argtypes = [P] * 18 + [I] * 6 + [P]
     lib.wkv6_chunked_bwd.restype = I
     return lib

@@ -1277,16 +1277,19 @@ def test_linear_scan_backward_matches_plain(cuda, B, T, D, N):
         torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("S", [1, 31, 33, 70])
+@pytest.mark.parametrize("chunk", [32, 16])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 63, 64, 65, 70, 300])
 @pytest.mark.parametrize("hd", [6, 8, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_backward_matches_plain(cuda, dtype, hd, S):
-    """B4-bwd (three walks a call) against autograd through the chunked
-    plain version on the same inputs, a nonzero state0 and a gradient on
-    the final state: every gradient within 1e-4 of its largest |value|
-    in fp32 (sums of up to S * hd terms in another order, dlogw through
-    a carried difference), within 1e-2 where bf16 gradients round; the
-    same bits on a second call; one launch."""
+def test_wkv6_backward_matches_plain(cuda, dtype, hd, S, chunk):
+    """B4-bwd (three chunk-parallel passes a call, in chunks of
+    min(chunk, S)) against autograd through the chunked plain version at
+    the same chunk, on the same inputs, a nonzero state0 and a gradient on
+    the final state, S on both sides of one and two chunks: every gradient
+    within 1e-4 of its largest |value| in fp32 (sums of up to S * hd terms
+    in another order, dlogw through a carried difference), within 1e-2
+    where bf16 gradients round; the same bits on a second call; one
+    launch."""
     rng = np.random.default_rng(hd * 100 + S)
     B, H = 2, 2
     r, k, v = (_randn(rng, B, S, H, hd).to(cuda, dtype) for _ in range(3))
@@ -1295,15 +1298,31 @@ def test_wkv6_backward_matches_plain(cuda, dtype, hd, S):
     dy, ds = _randn(rng, B, S, H, hd), _randn(rng, B, H, hd, hd)
     args = (r, k, v, *(t.to(cuda) for t in (logw, u, s0, dy, ds)))
     n = wkv6.wkv6_chunked_bwd.launches
-    got = wkv6.wkv6_chunked_bwd(*args)
+    got = wkv6.wkv6_chunked_bwd(*args, chunk=chunk)
     assert wkv6.wkv6_chunked_bwd.launches == n + 1
-    again = wkv6.wkv6_chunked_bwd(*args)
+    again = wkv6.wkv6_chunked_bwd(*args, chunk=chunk)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
-    want = wkv6.wkv6_chunked_bwd_plain(*args)
+    want = wkv6.wkv6_chunked_bwd_plain(*args, chunk=chunk)
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and x.shape == y.shape
         tol = 1e-2 if x.dtype == torch.bfloat16 else 1e-4
         assert _rel(x, y) <= tol
+
+
+def test_wkv6_backward_refuses_what_its_kernels_do_not_take(cuda):
+    """B4-bwd on the card refuses chunks past ``MAX_CHUNK`` and head dims
+    past ``MAX_HEAD_DIM``, as B4 does, naming the limit; no launch."""
+    rng = np.random.default_rng(0)
+    for S, hd, chunk in ((40, 8, 33), (4, 132, 32)):
+        r, k, v, logw, dy = (_randn(rng, 1, S, 1, hd).to(cuda)
+                             for _ in range(5))
+        u, s0, ds = (_randn(rng, *shape).to(cuda)
+                     for shape in ((1, hd), (1, 1, hd, hd), (1, 1, hd, hd)))
+        n = wkv6.wkv6_chunked_bwd.launches
+        with pytest.raises(ValueError, match="the kernels take hd <="):
+            wkv6.wkv6_chunked_bwd(r, k, v, -logw.abs(), u, s0, dy, ds,
+                                  chunk=chunk)
+        assert wkv6.wkv6_chunked_bwd.launches == n
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",

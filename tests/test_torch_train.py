@@ -386,6 +386,47 @@ def test_wkv6_backward_walk_equals_autograd():
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("chunk", [32, 16, 7])
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 64, 70, 130])
+def test_wkv6_backward_passes_match_autograd_reference_and_walk(S, chunk):
+    """The B4-bwd kernels' chunk-parallel algorithm
+    (``wkv6_chunked_bwd_passes_plain``), with a nonzero state0 and a
+    gradient on the final state, a ragged tail and S under the chunk
+    (C = min(chunk, S), as the reference takes): in fp32 within 1e-5 of
+    each gradient's largest |value| of autograd through the chunked form
+    (``wkv6_chunked_bwd_plain``) and of ``jax.grad`` of the reference's
+    ``wkv_chunked`` (fp32 sums in another order: on these inputs the
+    reference's own gradients lie up to 2.9e-6 of their largest from
+    float64, and gradients reach |30|, so an elementwise 1e-5 does not
+    hold for either); in float64 within 1e-12 of each gradient's largest
+    |value| of the token walk (``wkv6_chunked_bwd_walk_plain``, dlogw
+    through the carried Q)."""
+    B, H, hd = 2, 2, 8
+    ins = _wkv_inputs(S + chunk, B, S, H, hd)
+    dy, ds = _rnd(S + 90, B, S, H, hd), _rnd(S + 91, B, H, hd, hd)
+    args = [torch.from_numpy(x) for x in (*ins, dy, ds)]
+    got = wk.wkv6_chunked_bwd_passes_plain(*args, chunk=chunk)
+    auto = wk.wkv6_chunked_bwd_plain(*args, chunk=chunk)
+    for a, b in zip(got, auto):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+    def ref(*a):
+        y, s = jrwkv.wkv_chunked(*a, chunk=chunk)
+        return jnp.sum(y * dy) + jnp.sum(s * ds)
+    want = jax.jit(jax.grad(ref, argnums=tuple(range(6))))(
+        *map(jnp.asarray, ins))
+    for a, w in zip(got, want):
+        w = np.asarray(w)
+        assert np.abs(a.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+    got64 = wk.wkv6_chunked_bwd_passes_plain(
+        *(t.double() for t in args), chunk=chunk)
+    walk64 = wk.wkv6_chunked_bwd_walk_plain(*(t.double() for t in args))
+    for a, b in zip(got64, walk64):
+        assert a.dtype == b.dtype == torch.float64
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max())
+
+
 def test_wkv6_plain_in_float64_is_the_recurrence():
     """Given float64 inputs, ``wkv6_chunked_plain`` computes in float64
     (the reference chip_smoke.py holds B4 and B4-bwd to at a model's
