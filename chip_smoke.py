@@ -53,9 +53,9 @@ Phases, each printing one JSON object per line:
              fp32 (TF32 off; nemotron and chameleon at 1 layer, for
              time): prefill and decode on the card (kernels)
              against the CPU (plain path) on the same weights, danube also
-             at 1 layer on a 4500-token prompt past its window and 8 decode
-             steps around its ring slabs, and on an 8100-token one (the rotary
-             angles' bits at long positions); for the MoE models, any
+             at 1 layer on a 7000-token prompt past its window and 8 decode
+             steps around its ring slabs (the rotary angles' bits at long
+             positions); for the MoE models, any
              token whose top-k expert set differs between the two is
              reported with its router gap; for qwen3 and moonshot also a
              300-token prompt chained through ``prefill_chunk`` in 64-token
@@ -73,7 +73,12 @@ Phases, each printing one JSON object per line:
              full width and 8 of its 32 layers (its 103 GB of bf16
              weights do not fit one card), all in bf16: 8 requests,
              launch counts of the path's kernels, a second run that must
-             give identical streams (for rwkv6, danube, moonshot and jamba
+             give identical streams (qwen3's first run under the one-rank
+             cuda mesh's sharding policy, through ``make_engine``, its
+             second under NULL_POLICY with the digest recorded there, and
+             its params laid out on ``serve_shardings`` by
+             ``reshard_tree`` bit for bit; for rwkv6, danube, moonshot and
+             jamba
              a third with fewer pages, which parks and must agree too;
              for deepseek as well),
              and one decode span traced with torch.profiler (and rwkv6's
@@ -94,12 +99,20 @@ Phases, each printing one JSON object per line:
              under the margin rule with flips counted, logprobs within
              1e-5, bit for bit across calls and neighbours), one call's
              device µs and launches;
-   serve_sampled — qwen3-8b paged at full depth with the stochastic
-             sampler: t = 0 gives the greedy phase's digest; mixed
-             SamplingParams (logprobs on half) give the same streams
-             across runs, spans 1 and 8, parking and batch neighbours;
-             launches and host syncs held; a sampled traced span beside a
-             greedy one (the sampler's device share);
+   substrate — an ``MQState`` op sequence whose rings wrap, on the card
+             bit for bit against the CPU; ``batched_enqueue`` at
+             moonshot's prefill shape bit for bit against B7's kernel
+             (buffers and kept rows); one ``measure_ppu`` reading of B2 at
+             qwen3's S 1000 beside a ``Pipeline``'s H100 bound, with the
+             card's name and power limit; ``simulate`` at the reference
+             tests' configurations and their claims;
+   serve_sampled — qwen3-8b paged with the stochastic sampler: t = 0
+             at full depth gives the greedy phase's digest; then at
+             SAMPLED_LAYERS of its 36 layers, mixed SamplingParams
+             (logprobs on half) give the same streams across runs, spans
+             1 and 8, parking and batch neighbours; launches and host
+             syncs held; a sampled traced span beside a greedy one (the
+             sampler's device share);
    frontend — ``LocalFrontend`` over a poisson ``make_trace`` on the same
              engine with a VirtualClock: terminal outcomes, streams equal
              to ``tokens_out``, class 1 alone shed or rejected, two runs
@@ -130,8 +143,9 @@ Phases, each printing one JSON object per line:
              dense first layer and an MoE layer) at full width and 2
              layers, jamba-v0.1-52b at 1 (a Mamba layer), fp32: the loss
              and every gradient on the card against the CPU, the routed
-             experts compared; then rwkv6-1.6b at all 24 layers and
-             4096 tokens in fp32, B4 and B4-bwd at each layer's own
+             experts compared; then rwkv6-1.6b at RWKV_DEEP_LAYERS of
+             its 24 layers and 4096 tokens in fp32, B4 and B4-bwd at each
+             layer's own
              inputs against the plain version in float64, and the whole
              model's gradient with the WKV in four forms;
    train   — qwen3-8b at full width and TRAIN_LAYERS of its 36 layers,
@@ -140,10 +154,14 @@ Phases, each printing one JSON object per line:
              ``repro_torch.launch.train`` (seq 4096, batch 2 in 2
              microbatches, remat): every step's loss, grad norm, lr
              and seconds, tokens/s, peak memory, every kernel's launches
-             held to ``train_kernel_calls`` x microbatches x steps, the
+             held to ``train_kernel_calls`` x microbatches x steps (the
+             launcher trains under the one-rank cuda mesh's policy, its
+             params on ``train_shardings``; qwen3's losses and grad norms
+             equal to those recorded under NULL_POLICY), the
              loss falling on a repeated batch, one traced step (every
              B2-bwd call there on the tensor-core pair), and for
-             deepseek two gradients of one batch bit for bit; a run stopped
+             deepseek two gradients of one batch bit for bit (NULL_POLICY
+             against the launcher's policy); a run stopped
              at its step-4 checkpoint and resumed against the
              uninterrupted one (rwkv6-1.6b, 1 layer); the
              FaultTolerantTrainer's SR
@@ -1337,6 +1355,15 @@ def _to(tree, device):
     return tree.to(device)
 
 
+def _cpu_weights(torch, lm, cfg, seed, device):
+    """fp32 weights from ``seed`` on the CPU, drawn by ``device``'s
+    generator: the CPU's draws one value at a time on one core (~0.8 s
+    for 1e8 values), which took most of the model and model_grads
+    phases' time at full width."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return lm.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+
+
 def sync(torch, device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -1380,8 +1407,7 @@ def phase_model(torch, cfg, n_prompt=300, n_seq=2, steps=4, seed=0,
     from repro_torch.models.layers import rms_norm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    p_cpu = lm.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+    p_cpu = _cpu_weights(torch, lm, cfg, seed, device)
     p_gpu = _to(p_cpu, device)
     rng = np.random.default_rng(seed)
     tokens = rng.integers(1, cfg.vocab_size, size=(n_seq, n_prompt))
@@ -1631,15 +1657,17 @@ PROMPT_LENS = (37, 200, 333, 517, 1000, 1024, 1531, 1900)
 # mid-span, 4096 fills it exactly, the last three prefill through B2's
 # band and roll the ring
 DANUBE_PROMPT_LENS = (37, 1000, 3000, 4080, 4096, 4500, 6000, 7000)
+DANUBE_LONG = 7000      # the model phase's prompt past danube's window
 # the configs of ROADMAP item A6, each in the model phase at 2 layers
 DENSE_FAMILY = ("qwen1.5-4b", "nemotron-4-15b", "h2o-danube-3-4b",
                 "chameleon-34b", "musicgen-large")
 
 
 def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
-                sampling=None, req_ids=None):
+                sampling=None, req_ids=None, policy=None):
     """Serve ``prompts`` once (request i with ``sampling[i]``, default
-    greedy, and id ``req_ids[i]``, default i). Returns (engine,
+    greedy, and id ``req_ids[i]``, default i) on an engine from
+    ``make_engine`` under ``policy`` (None: NULL_POLICY). Returns (engine,
     completed, wall s, meas):
     ``meas`` holds the synchronized time spent in monolithic prefills
     and in prefill chunks (``prefill_s``), the number of monolithic
@@ -1647,9 +1675,8 @@ def _serve_once(torch, cfg, params, ecfg, prompts, max_new, device,
     not which kind ran) and each request's time to first token from the
     start of the run (``ttft_s``), all from wrappers that only measure."""
     from repro_torch.core.timing import Timer
-    from repro_torch.serve.api import Request
-    from repro_torch.serve.engine import ServingEngine
-    eng = ServingEngine(cfg, params, ecfg, device=device)
+    from repro_torch.serve.api import Request, make_engine
+    eng = make_engine(cfg, params, ecfg, device=device, policy=policy)
     meas = {"prefill_s": 0.0, "full_prefills": 0, "ttft_s": {}}
     run = [None]
 
@@ -1946,8 +1973,7 @@ def phase_model_grads(torch, cfg, n_seq=2, n_tok=200, seed=0,
     from repro_torch.train.train_step import value_and_grad
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    p_cpu = lm.init_params(cfg, gen, device="cpu", dtype=torch.float32)
+    p_cpu = _cpu_weights(torch, lm, cfg, seed, device)
     p_gpu = _to(p_cpu, device)
     toks = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, size=(n_seq, n_tok)).astype(np.int32)
@@ -1987,8 +2013,11 @@ def phase_model_grads(torch, cfg, n_seq=2, n_tok=200, seed=0,
     return rec
 
 
-# rwkv6-1.6b at the depth and length it trains at (all 24 layers, S 4096)
-RWKV_DEEP_LAYERS, RWKV_DEEP_SEQ = 24, 4096
+# rwkv6-1.6b at the length it trains at (S 4096) and 8 of its 24 layers:
+# all 24 took 70-77 s of the smoke; 8 still grow the output gradient
+# layer by layer down the stack, and each layer's B4 and B4-bwd are judged
+# at its own inputs
+RWKV_DEEP_LAYERS, RWKV_DEEP_SEQ = 8, 4096
 WKV_GRAD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
 
 
@@ -2137,16 +2166,32 @@ def phase_rwkv_deep_grads(torch, layers=RWKV_DEEP_LAYERS, seq=RWKV_DEEP_SEQ,
     return rec
 
 
+# qwen3-8b's launcher run (TRAIN_RUNS' shape, seed 0) under NULL_POLICY, as
+# every earlier run of this smoke on the H100 printed it: each step's loss and
+# grad norm
+QWEN3_TRAIN_RECORDED = {
+    "loss": [12.425285339355469, 12.389644622802734, 12.334150314331055,
+             12.34109115600586, 12.260810852050781, 12.313909530639648,
+             12.363676071166992, 12.286863327026367],
+    "grad_norm": [5.114385604858398, 5.342330455780029, 5.814235210418701,
+                  5.501197338104248, 6.119911193847656, 5.212170600891113,
+                  5.3128814697265625, 3.2933316230773926]}
+
+
 def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
                 device="cuda"):
     """``arch`` at full width, ``layers`` layers and ``seq`` tokens a row
     (``TRAIN_RUNS``' unless given) in
     bf16 through the train launcher's entry point: every step's loss,
     grad norm, lr and seconds; tokens/s; peak memory; the launches held
-    to ``train_kernel_calls`` x microbatches x steps. Then on one repeated
-    batch the loss must fall, and one train step is traced. qwen3-8b's
-    loss must also fall over its fresh batches; deepseek's gradient,
-    taken twice on one batch, must give the same bits."""
+    to ``train_kernel_calls`` x microbatches x steps. The launcher trains
+    under the one-rank cuda mesh's sharding policy, its params laid out
+    on ``train_shardings``; at TRAIN_RUNS' shape qwen3-8b's losses and
+    grad norms must be the ones recorded under NULL_POLICY. Then on one
+    repeated batch the loss must fall, and one train step is traced.
+    qwen3-8b's loss must also fall over its fresh batches; deepseek's
+    gradient of one batch under NULL_POLICY and under the launcher's
+    policy must give the same bits."""
     import shutil
     import numpy as np
     from repro_torch.configs.registry import get_config
@@ -2188,6 +2233,13 @@ def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
     if arch == "qwen3-8b":
         require(losses[-1] < losses[0],
                 f"train: the loss did not fall over {steps} steps: {losses}")
+    if arch == "qwen3-8b" and (layers, seq) == (run["layers"], run["seq"]):
+        got = {"loss": losses,
+               "grad_norm": [r["grad_norm"] for r in out["steps"]]}
+        rec["equals_null_policy_record"] = got == QWEN3_TRAIN_RECORDED
+        require(rec["equals_null_policy_record"],
+                f"train: under the smoke mesh's policy qwen3-8b gave "
+                f"{got}, not the NULL_POLICY record {QWEN3_TRAIN_RECORDED}")
     # one batch, repeated: the loss falls at every step
     params, opt = out["params"], out["opt_state"]
     del out
@@ -2218,15 +2270,20 @@ def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
     del opt, step
     if arch == "deepseek-v2-lite-16b":
         # no kernel of the path sums with atomics: two gradients of one
-        # batch, bit for bit
+        # batch, bit for bit, the first under NULL_POLICY and the second
+        # under the launcher's policy (the one-rank cuda mesh, sp, fsdp)
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.sharding import make_policy
+        policy = make_policy(make_smoke_mesh(device), sp=True, fsdp=True)
         half = toks[:TRAIN_BATCH // TRAIN_MICROBATCH]
         _, g1 = value_and_grad(params, half, cfg)
-        _, g2 = value_and_grad(params, half, cfg)
+        _, g2 = value_and_grad(params, half, cfg, policy=policy)
         rec["grads_bit_equal_twice"] = all(
             torch.equal(a, b) for a, b in zip(leaves(g1), leaves(g2)))
         del g1, g2
         require(rec["grads_bit_equal_twice"],
-                f"train {arch}: two gradients of one batch differ")
+                f"train {arch}: two gradients of one batch differ (NULL_"
+                f"POLICY against the smoke mesh's policy)")
     emit(rec)
     del params
     gc.collect()
@@ -2378,7 +2435,8 @@ GRAD_LAYERS = {"qwen3-8b": 2, "deepseek-v2-lite-16b": 2, "rwkv6-1.6b": 2,
 def train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
     """The training phases in their order, as (phase, label, fn, args):
     each arch's loss and gradients in fp32, card against CPU (at
-    ``GRAD_LAYERS``), and with rwkv6-1.6b B4-bwd at its 24-layer
+    ``GRAD_LAYERS``), and with rwkv6-1.6b B4-bwd at its
+    ``RWKV_DEEP_LAYERS``-layer
     model's inputs against float64; each arch at full width and
     ``TRAIN_RUNS``' depth and length (or ``layers`` and ``seq``), alone on
     the card; with ``RESUME_ARCH`` also its resume at 1 layer (each
@@ -2527,7 +2585,8 @@ def check_launches(cfg, path, launches, counts):
 
 
 def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
-                seed=0, device="cuda", park_pages=None, trace_prefill=None):
+                seed=0, device="cuda", park_pages=None, trace_prefill=None,
+                policy=None, want_digest=None):
     """Serve 8 requests with ``cfg`` (full width; the depth it gives).
     ``path`` (``serve_path``) maps each kernel the serving path must run
     to the counters its launches follow and the layers that launch it
@@ -2541,7 +2600,11 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     ``park_pages`` a third run with that many pages must park, unpark and
     give the same streams. One decode span is traced, and with
     ``trace_prefill`` (a prompt length of ``prompt_lens``) that prompt's
-    prefill too."""
+    prefill too. With a sharding ``policy`` the main run's engine serves
+    under it and the second run under NULL_POLICY: the same streams, and
+    with ``want_digest`` the digest recorded under NULL_POLICY; the params
+    laid out on ``serve_shardings`` by ``reshard_tree`` must keep their
+    bits."""
     import dataclasses
     import numpy as np
     from repro_torch.models import lm
@@ -2549,6 +2612,8 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = lm.init_params(cfg, gen, device=device)
     sync(torch, device)
+    sharding = None if policy is None else check_serve_shardings(
+        torch, cfg, params, policy, device)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).astype(np.int32)
                for n in prompt_lens]
@@ -2556,7 +2621,7 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     for w in wrappers.values():
         w.launches = 0
     eng, done, wall, meas = _serve_once(torch, cfg, params, ecfg, prompts,
-                                        max_new, device)
+                                        max_new, device, policy=policy)
     prefill_s = meas["prefill_s"]
     launches = {n: w.launches for n, w in wrappers.items()}
     st = eng.stats
@@ -2577,8 +2642,14 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
     eng2, done2, wall2, _ = _serve_once(torch, cfg, params, ecfg, prompts,
                                         max_new, device)
     streams2 = {r.req_id: list(r.tokens_out) for r in done2}
-    require(streams2 == streams, "serve: a second run gave other streams")
+    require(streams2 == streams, "serve: a second run gave other streams"
+            + ("" if policy is None else " (NULL_POLICY against the smoke "
+               "mesh's policy)"))
     del eng2
+    if want_digest is not None:
+        require(streams_digest(streams) == want_digest,
+                f"serve: digest {streams_digest(streams)[:8]} is not the "
+                f"one recorded under NULL_POLICY, {want_digest[:8]}")
     parking = None
     if park_pages is not None:
         eng3, done3, _, _ = _serve_once(
@@ -2627,11 +2698,46 @@ def phase_serve(torch, cfg, ecfg, path, prompt_lens=PROMPT_LENS, max_new=32,
            "streams_sha256": streams_digest(streams),
            "streams_identical_across_runs": True,
            "parking_run": parking, "traced_decode_span": traced,
-           "traced_prefill": traced_prefill}
+           "traced_prefill": traced_prefill, "sharding": sharding}
     if torch.device(device).type == "cuda":
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(rec)
     del params, eng
+    return rec
+
+
+# qwen3-8b paged's streams (seed 0, PROMPT_LENS, 32 new tokens, 36
+# layers) under NULL_POLICY, as every earlier run of this smoke on the H100
+# printed them
+QWEN3_PAGED_DIGEST = ("3a377b1bf4917aab3df352f6bfcff3d13f9952623d5a5cecd9"
+                      "55aa4134cada91")
+
+
+def check_serve_shardings(torch, cfg, params, policy, device="cuda"):
+    """``params`` laid out on ``serve_shardings(cfg, policy)`` by
+    ``reshard_tree``: every leaf on the mesh's device with its bits. The
+    copy is freed before the serve runs."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard_tree
+    from repro_torch.core.timing import Timer
+    from repro_torch.core.tree import leaves
+    from repro_torch.train.train_step import serve_shardings
+    t = Timer()
+    (p_sh, _, _), _ = serve_shardings(cfg, policy)
+    placed = reshard_tree(params, p_sh)
+    sync(torch, device)
+    seconds_ = t.elapsed()
+    pairs = list(zip(leaves(params), leaves(placed)))
+    equal = all(a.device == b.device and torch.equal(a, b)
+                for a, b in pairs)
+    rec = {"mesh": str(policy.mesh), "n_ranks": policy.n_ranks,
+           "backend": str(dist.get_backend()),
+           "leaves": len(pairs), "reshard_s": seconds_,
+           "bytes": sum(a.numel() * a.element_size() for a, _ in pairs),
+           "bit_equal": equal}
+    del placed, pairs
+    require(equal, f"serve: reshard_tree onto serve_shardings changed a "
+                   f"leaf: {rec}")
     return rec
 
 
@@ -2838,6 +2944,127 @@ def _sample_call(torch, ks, x):
             "tokens": tok, "logprobs": ks.token_logprob(x["logits"], tok)}
 
 
+# B7's shape at moonshot-v1-16b-a3b's 1900-token prefill: 6 routed experts
+# a token over 64, capacity 223 a queue
+SUBSTRATE_ENQUEUE = {"T": 11400, "D": 2048, "E": 64, "C": 223}
+
+
+def _mq_sequence(torch, device, ops_, n_q=4, cap=3, width=5):
+    """Every (item, ok, sizes) of an MQState op sequence on ``device``,
+    and the final state, on the host."""
+    from repro_torch.core import multiqueue as mq
+    st = mq.mq_init(n_q, cap, (width,), device=device)
+    out = []
+    for push, q, val in ops_:
+        qt = torch.tensor(q, dtype=torch.int32, device=device)
+        if push:
+            st, ok = mq.mq_push(st, qt, torch.full((width,), float(val),
+                                                   device=device))
+            item = None
+        else:
+            st, item, ok = mq.mq_pop(st, qt)
+        out.append((item, ok, mq.mq_sizes(st)))
+    host = [tuple(None if t is None else t.cpu() for t in o) for o in out]
+    return host, {n: getattr(st, n).cpu() for n in ("buf", "head", "tail")}
+
+
+def phase_substrate(torch, smi, device="cuda", seed=0):
+    """The JingZhao substrate on the card: (a) 2000 pushes and pops of an
+    ``MQState`` (4 queues of 3 slots: the rings wrap hundreds of times
+    and fill) bit for bit against the same sequence on the CPU; (b)
+    ``batched_enqueue`` at moonshot's prefill shape, on routing skewed so
+    that queues overflow, bit for bit against B7's kernel at its
+    positions, buffers and kept rows both; (c) one ``measure_ppu`` reading
+    of B2 at qwen3-8b's S 1000 (bf16), beside the H100 bound of a
+    one-stage ``Pipeline`` with its bytes and operations, printed with the
+    card's name and power limit; (d) ``simulate`` at the reference tests'
+    configurations (no miss and 100 % miss, VoQ and blocking) with their
+    claims: VoQ's bandwidth loss within 2.5 x the metadata ratio + 0.02,
+    the blocking design below 0.6 x VoQ's bandwidth with a longer p99."""
+    import numpy as np
+    from repro_torch.core import multiqueue as mq
+    from repro_torch.core.pipeline import PPU, Pipeline, Stage, measure_ppu
+    from repro_torch.core.simulation import (SimConfig, miss_overhead_model,
+                                             simulate)
+    from repro_torch.core.timing import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    t0 = Timer()
+    rng = np.random.default_rng(seed)
+    ops_ = [(bool(rng.random() < 0.55), int(rng.integers(0, 4)),
+             int(rng.integers(-1000, 1000))) for _ in range(2000)]
+    card, card_st = _mq_sequence(torch, device, ops_)
+    cpu, cpu_st = _mq_sequence(torch, "cpu", ops_)
+    same = all((a is None and b is None) or torch.equal(a, b)
+               for x, y in zip(card, cpu) for a, b in zip(x, y))
+    same = same and all(torch.equal(card_st[n], cpu_st[n]) for n in card_st)
+    wraps = int(card_st["tail"].min()) // 3
+    mq_rec = {"ops": len(ops_), "queues": 4, "capacity": 3,
+              "pushes_ok": int(sum(bool(o[1]) for o, (p, _, _)
+                                   in zip(card, ops_) if p)),
+              "min_wraps": wraps, "bit_equal_to_cpu": same}
+    require(same and wraps > 10, f"substrate: MQState on the card against "
+                                 f"the CPU: {mq_rec}")
+    T, D, E, C = (SUBSTRATE_ENQUEUE[k] for k in "TDEC")
+    probs = 1.0 / np.arange(1, E + 1) ** 0.3
+    ids = torch.from_numpy(rng.choice(E, size=T, p=probs / probs.sum())
+                           .astype(np.int32)).to(device)
+    items = torch.randn(T, D, generator=torch.Generator(device=device)
+                        .manual_seed(seed), device=device,
+                        dtype=torch.bfloat16)
+    buf, pos, kept = mq.batched_enqueue(items, ids, E, C)
+    b7 = md.moe_dispatch(items, ids, pos, E, C)
+    sync(torch, device)
+    enq_rec = {**SUBSTRATE_ENQUEUE, "dtype": "bfloat16",
+               "dropped": int((~kept).sum()),
+               "buffers_bit_equal_b7": bool(torch.equal(buf, b7)),
+               "kept_equal": bool(torch.equal(kept, pos < C))}
+    require(enq_rec["buffers_bit_equal_b7"] and enq_rec["kept_equal"]
+            and enq_rec["dropped"] > 0,
+            f"substrate: batched_enqueue against B7's kernel: {enq_rec}")
+    del buf, b7, items
+    B, H, KV, S, hd = 1, 32, 8, 1000, 128
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(B, h, S, hd, generator=g, device=device,
+                           dtype=torch.bfloat16) for h in (H, KV, KV))
+    n_bytes = 2 * (2 * B * H * S * hd + 2 * B * KV * S * hd)
+    n_flops = 4 * B * H * (S * (S + 1) // 2) * hd
+    pipe = Pipeline("prefill attention").add(Stage("B2", [PPU(
+        "flash_attention", lambda x: fa.flash_attention(*x),
+        bytes_per_call=lambda _: n_bytes,
+        flops_per_call=lambda _: n_flops)]))
+    run = pipe.jit()
+    us = measure_ppu(lambda a, b, c: run((a, b, c)), q, k, v)
+    stage, bound_s = pipe.bound_stage((q, k, v))
+    ppu_rec = {"kernel": "B2 flash_attention", "shape": [B, H, KV, S, hd],
+               "dtype": "bfloat16", "measure_ppu_us": us,
+               "bound_stage": stage, "bound_us": bound_s * 1e6,
+               "card": smi}
+    print(f"substrate: measure_ppu B2 qwen3-8b S {S} bf16 {us:.3f} us a "
+          f"call (bound_stage {stage} {bound_s * 1e6:.3f} us) on {smi}",
+          flush=True)
+    require(us > 0 and stage == "B2", f"substrate: {ppu_rec}")
+    sims = {f"{p}-{m}": simulate(SimConfig(miss_rate=m, policy=p))
+            for p in ("voq", "blocking") for m in (0.0, 1.0)}
+    loss = 1 - sims["voq-1.0"]["bandwidth_Gbps"] / sims["voq-0.0"][
+        "bandwidth_Gbps"]
+    claims = {"voq_loss": loss,
+              "voq_loss_ok": 0 < loss < 2.5 * miss_overhead_model(4096)
+              + 0.02,
+              "blocking_collapses": (
+                  sims["blocking-1.0"]["bandwidth_Gbps"]
+                  < 0.6 * sims["voq-1.0"]["bandwidth_Gbps"]
+                  and sims["blocking-1.0"]["p99_latency_us"]
+                  > sims["voq-1.0"]["p99_latency_us"])}
+    require(claims["voq_loss_ok"] and claims["blocking_collapses"],
+            f"substrate: simulate's claims: {claims} {sims}")
+    rec = {"phase": "substrate", "mq": mq_rec, "batched_enqueue": enq_rec,
+           "measure_ppu": ppu_rec, "simulate": sims, "claims": claims,
+           "seconds": t0.elapsed()}
+    emit(rec)
+    return rec
+
+
 def phase_sampling(torch, V=151936, device="cuda"):
     """``derive_keys``, ``sample_logits`` and ``token_logprob`` on the card
     against the port's CPU path, at B = 4 and qwen3's vocab: keys and
@@ -2956,22 +3183,31 @@ def _sampled_streams(done):
             {r.req_id: list(r.logprobs_out) for r in done})
 
 
+# the sampled runs' depth: the first SAMPLED_LAYERS of qwen3-8b's 36
+# layers (their weights, the same tensors); 36 took 84-106 s of the smoke
+SAMPLED_LAYERS = 9
+
+
 def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
-                        max_new=32, seed=0, device="cuda", park_pages=200):
+                        max_new=32, seed=0, device="cuda", park_pages=200,
+                        layers=SAMPLED_LAYERS):
     """qwen3-8b on the paged engine with ``sampler="stochastic"``: the
     qwen3 paged serve phase's EngineConfig, seed and prompts with only
     the sampler changed. (a) every request at t = 0 gives that phase's
-    greedy digest; with mixed SamplingParams (logprobs on half) (b) two
-    runs give the same streams and logprobs, (c) decode_span 1 and 8
+    greedy digest (all 36 layers, NULL_POLICY); then on the first
+    ``layers`` layers, with mixed SamplingParams (logprobs on half), (b)
+    two runs give the same streams and logprobs, (c) decode_span 1 and 8
     the same streams, (d) a run with ``park_pages`` pages parks and gives
-    the same streams, (e) one request alone and among three others the
-    same stream; (f) host_syncs == prefills + decode_spans in every run;
-    (g) B2 launches 36 x prefills and B1 36 x decode steps in the main
-    run, every count set to 0 just before it; (h) logprobs_out as long as
+    the same streams (pages count tokens, whatever the depth), (e) one
+    request alone and among three others the same stream; (f) host_syncs
+    == prefills + decode_spans in every run; (g) B2 launches ``layers``
+    x prefills and B1 ``layers`` x decode steps in the main run, every
+    count set to 0 just before it; (h) logprobs_out as long as
     tokens_out, finite and <= 0 where asked for, empty elsewhere. One
     decode span of sampled requests is traced beside one of greedy
     requests: the difference is the sampler's device time and launches a
-    step. Returns (record, params) for the front-end phase."""
+    step. Returns (record, the 36-layer params) for the front-end
+    phase."""
     import dataclasses
     import numpy as np
     from repro_torch.core.timing import Timer
@@ -2989,6 +3225,9 @@ def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
                             kv_layout="paged", prefill_chunk=0,
                             prefix_cache_entries=0, sampler="stochastic")
     n = len(prompts)
+    full_cfg, full_params = cfg, params
+    cut_cfg = cfg.scaled(n_layers=layers)
+    cut_params = dict(params, blocks=params["blocks"][:layers])
 
     def serve(e, sampling, ps=prompts, ids=None):
         eng, done, wall, meas = _serve_once(torch, cfg, params, e, ps,
@@ -3010,6 +3249,9 @@ def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
     require(digest0 == greedy_digest,
             f"serve_sampled: t = 0 under stochastic gave {digest0[:8]}, "
             f"not the greedy digest {greedy_digest[:8]}")
+    # the rest at the cut depth; its own greedy streams at t = 0 first
+    cfg, params = cut_cfg, cut_params
+    _, done0, _, _ = serve(ecfg, zero)
     # the main run: mixed sampling, every count set to 0 just before it
     sp = _mixed_sampling(api, n)
     wrappers = _wrappers()
@@ -3109,9 +3351,11 @@ def phase_serve_sampled(torch, cfg, greedy_digest, prompt_lens=PROMPT_LENS,
     if torch.device(device).type == "cuda":
         rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["seconds"] = t0.elapsed()
+    rec["reduced"] = {"n_layers": [full_cfg.n_layers, layers],
+                      "temp0_at_full_depth": True}
     emit(rec)
     emit({"phase": "serve_sampled", "seconds": rec["seconds"]})
-    return rec, params
+    return rec, full_params
 
 
 # the front end's engine (qwen3-8b paged, 36 layers): strict priority over
@@ -3744,7 +3988,9 @@ def main(argv=None) -> int:
         from repro_torch.configs.registry import get_config
         from repro_torch.core.timing import Timer
         from repro_torch.kernels import _build
+        from repro_torch.launch.mesh import make_smoke_mesh
         from repro_torch.serve.api import EngineConfig
+        from repro_torch.sharding import make_policy
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e}); run from the root "
               f"of a checkout", file=sys.stderr)
@@ -3814,17 +4060,15 @@ def main(argv=None) -> int:
                     get_config(name).scaled(n_layers=depth,
                                             dtype="float32"))
             gc.collect()
-        # (one layer each, for time: the CPU's O(S^2) attention dominates)
-        seconds("model", f"{dcfg.name} 4500", phase_model, torch,
-                dcfg.scaled(n_layers=1, dtype="float32"), n_prompt=4500,
-                n_seq=1, steps=8)
-        gc.collect()
-        # the rotary angles at long positions: since the frequencies carry
-        # the reference's bits, the card's K slab stays within 2e-3 of the
-        # CPU's at 8100 tokens
-        seconds("model", f"{dcfg.name} 8100", phase_model, torch,
-                dcfg.scaled(n_layers=1, dtype="float32"), n_prompt=8100,
-                n_seq=1, steps=8)
+        # one prompt past the window, at one layer (the CPU's banded
+        # attention dominates): B2's band, the rolled ring, 8 decode steps
+        # around it, and the rotary angles at long positions (since the
+        # frequencies carry the reference's bits, the card's K slab stays
+        # within 2e-3 of the CPU's); 7000 tokens, danube's longest served
+        # prompt, where a 4500- and an 8100-token run took 63-66 s
+        seconds("model", f"{dcfg.name} {DANUBE_LONG}", phase_model, torch,
+                dcfg.scaled(n_layers=1, dtype="float32"),
+                n_prompt=DANUBE_LONG, n_seq=1, steps=8)
         gc.collect()
         # deepseek-v2-lite-16b: its dense first layer and an MoE layer, MLA
         # prefill through B2's (192, 128) instance, decode through the
@@ -3872,10 +4116,15 @@ def main(argv=None) -> int:
                                 n_pages=n_pages, decode_span=8, eos_token=-1,
                                 kv_layout=layout, prefill_chunk=0,
                                 prefix_cache_entries=0)
+            # qwen3-8b paged serves under the one-rank cuda mesh's
+            # sharding policy, its second run under NULL_POLICY
+            main = c is cfg and layout == "paged"
             serves.append(seconds(
                 "serve", f"{c.name} {layout}", phase_serve, torch, c, ecfg,
                 serve_path(c, layout), prompt_lens=lens, park_pages=park,
-                trace_prefill=traced))
+                trace_prefill=traced,
+                policy=make_policy(make_smoke_mesh("cuda")) if main else None,
+                want_digest=QWEN3_PAGED_DIGEST if main else None))
         # chunked prefill and the prefix cache: qwen3-8b on paged at 5 and
         # on dense at 4 of its 36 layers (for time)
         for c, layout in ((cfg.scaled(n_layers=5), "paged"),
@@ -3891,6 +4140,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         phase_sampling(torch)
+        seconds("substrate", "", phase_substrate, torch, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
         sampled, params = phase_serve_sampled(
             torch, cfg, serves[0]["streams_sha256"])
         serves.append(sampled)
@@ -3912,6 +4164,11 @@ def main(argv=None) -> int:
     except Check as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        # the one-rank group the smoke mesh started (serve and train)
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,9 @@ file layout (``repro.checkpoint.checkpointer``).
   torch tensors of the template's dtypes and devices; `load` is the
   template-free read for payloads whose structure rides in the
   manifest's ``extra`` (`pack_tree`, the engine-snapshot path).
+- Reshard: `reshard_tree` lays a restored tree out on (new) shardings,
+  the elastic rescale: every rank holds the whole restored tree and keeps
+  its own shard of each leaf.
 
 Trees are dicts (flattened in sorted key order), lists and tuples; None
 holds no leaf; everything else is a leaf.
@@ -254,3 +257,26 @@ def latest_step(directory) -> Optional[int]:
     if not steps:
         return None
     return int(steps[-1].name.split("_")[1])
+
+
+def reshard_tree(tree: Any, shardings: Any) -> Any:
+    """Each leaf of ``tree`` laid out on its ``(mesh, placements)`` in
+    ``shardings`` (``Policy.named``, ``train_shardings``) by
+    ``distribute_tensor``: this rank's local shard, on the mesh's device
+    type. Every rank holds the whole tree (a restored checkpoint), so
+    each cuts its own shard with no collective (``src_data_rank=None``);
+    on a one-rank mesh the shard is the whole leaf, bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def walk(x, sh):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: walk(x[k], sh[k]) for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(a, b) for a, b in zip(x, sh))
+        mesh, placements = sh
+        return distribute_tensor(torch.as_tensor(x), mesh, list(placements),
+                                 src_data_rank=None).to_local()
+
+    return walk(tree, shardings)

@@ -1,17 +1,27 @@
-"""Resource Subsystem: the KV page pool (MTT) and the host bus model.
+"""Resource Subsystem: the KV page pool (MTT), the host bus model and the
+two-tier store with VoQ non-blocking misses.
 
-Copied from ``repro.core.resource`` (``PagePool`` and ``BusModel``): pure
-host bookkeeping, kept here so the port imports nothing of ``repro``.
-With the paged layout the pool's tables are the memory layout the decode
-kernel chases: row b of ``table_matrix`` names the pool pages holding
-slot b's KV, in token order.
+Copied from ``repro.core.resource`` (``BusModel``, ``FetchRequest``,
+``VoQResourceStore``, ``PagePool``): pure host bookkeeping, kept here so
+the port imports nothing of ``repro``. With the paged layout the pool's
+tables are the memory layout the decode kernel chases: row b of
+``table_matrix`` names the pool pages holding slot b's KV, in token
+order. ``VoQResourceStore`` is the paper's §4.1.1 design: a miss parks
+only its own connection on that connection's virtual output queue, while
+``blocking=True`` gives the Fig. 6 strawman, where one outstanding miss
+stalls every lookup; its clock is the port's (``core/timing.py``) unless
+the caller injects one.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.core.multiqueue import HostMultiQueue
+from repro_torch.core.timing import DEFAULT_CLOCK, sleep
 
 
 @dataclass
@@ -23,6 +33,95 @@ class BusModel:
 
     def transfer_time(self, nbytes: float) -> float:
         return self.latency_s + nbytes / self.bandwidth_Bps
+
+
+@dataclass
+class FetchRequest:
+    conn: int                 # connection / sequence id
+    key: Any                  # resource key (e.g. page id)
+    nbytes: float
+    issued_at: float = 0.0
+
+
+class VoQResourceStore:
+    """Fast-tier cache over a slow tier, miss handling per connection.
+
+    - ``lookup(conn, key)`` -> value | None (None = miss; the fetch is
+      queued on that connection's VoQ; other connections go on).
+    - ``poll()`` completes the fetches whose bus time has passed.
+    - ``blocking=True`` is the paper's Fig. 6 strawman: one in-flight
+      miss stalls every lookup (the benchmark's baseline).
+    """
+
+    def __init__(self, slow_get: Callable[[Any], np.ndarray],
+                 capacity_items: int, item_bytes: float,
+                 bus: Optional[BusModel] = None, blocking: bool = False,
+                 n_connections: int = 1024,
+                 now: Optional[Callable[[], float]] = None):
+        self._slow_get = slow_get
+        self._cache: Dict[Any, np.ndarray] = {}
+        self._lru: deque = deque()
+        self.capacity = capacity_items
+        self.item_bytes = item_bytes
+        self.bus = bus or BusModel()
+        self.blocking = blocking
+        self._pending: Dict[Any, float] = {}       # key -> ready time
+        self._voq = HostMultiQueue(n_connections, capacity=1 << 16)
+        self._now = now or DEFAULT_CLOCK
+        self.stats = {"hits": 0, "misses": 0, "stalled_lookups": 0,
+                      "bytes_fetched": 0.0}
+
+    # -- internal -------------------------------------------------------
+    def _evict_if_needed(self):
+        while len(self._cache) > self.capacity and self._lru:
+            old = self._lru.popleft()
+            self._cache.pop(old, None)
+
+    def _issue(self, conn: int, key: Any):
+        ready = self._now() + self.bus.transfer_time(self.item_bytes)
+        self._pending[key] = ready
+        self._voq.push(conn, FetchRequest(conn, key, self.item_bytes,
+                                          self._now()))
+        self.stats["bytes_fetched"] += self.item_bytes
+
+    # -- public ---------------------------------------------------------
+    def lookup(self, conn: int, key: Any) -> Optional[np.ndarray]:
+        if self.blocking and self._pending:
+            # head-of-line: any outstanding miss stalls every connection
+            self.stats["stalled_lookups"] += 1
+            return None
+        if key in self._cache:
+            self.stats["hits"] += 1
+            return self._cache[key]
+        self.stats["misses"] += 1
+        if key not in self._pending:
+            self._issue(conn, key)
+        return None
+
+    def poll(self) -> List[Any]:
+        """Complete the fetches whose (simulated) bus time has passed."""
+        now = self._now()
+        done = [k for k, t in self._pending.items() if t <= now]
+        for k in done:
+            self._pending.pop(k)
+            self._cache[k] = self._slow_get(k)
+            self._lru.append(k)
+        self._evict_if_needed()
+        return done
+
+    def wait_all(self):
+        while self._pending:
+            soonest = min(self._pending.values())
+            dt = soonest - self._now()
+            if dt > 0:
+                sleep(min(dt, 0.01))
+            self.poll()
+
+    def resident(self, key: Any) -> bool:
+        return key in self._cache
+
+    def invalidate(self, key: Any):
+        self._cache.pop(key, None)
 
 
 @dataclass

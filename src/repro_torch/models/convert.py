@@ -15,6 +15,11 @@ port's layers into the reference's layout (gradients too: they have the
 params' structure), each leaf a float32 array (bf16 widened, exactly),
 so tests compare trees leaf by leaf; ``opt_state_to_numpy`` and
 ``opt_state_from_numpy`` carry AdamW's ``{master, m, v, step}`` across.
+The bridge reads each leaf's shape as it is, so the reference's
+tp-aligned parameters (``init_params(..., tp=)``: query heads padded and
+KV heads duplicated to ``transformer.eff_heads``) cross unchanged.
+``unstack_layers`` orders any tree of the reference's stack layout
+(params, or spec and shape trees) by layer.
 """
 from __future__ import annotations
 
@@ -33,6 +38,18 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def unstack_layers(stack: dict, cfg: ModelConfig, take) -> list:
+    """The reference's ``{prefix, groups}`` stack -> one block per layer,
+    in layer order; ``take(leaf, g)`` reads group g of a stacked leaf."""
+    prefix, unit, n_groups = tf.plan_layers(cfg)
+    blocks = list(stack["prefix"])
+    for g in range(n_groups):
+        for j in range(len(unit)):
+            blocks.append(_map(lambda a: take(a, g),
+                               stack["groups"][f"b{j}"]))
+    return blocks
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
                       dtype=torch.float32) -> dict:
     """{embed, stack: {prefix, groups}, final_norm[, head]} numpy tree ->
@@ -48,13 +65,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None,
             np.ascontiguousarray(a.astype(np.float32))).to(
                 device=device, dtype=out)
 
-    prefix, unit, n_groups = tf.plan_layers(cfg)
-    stack = tree["stack"]
-    blocks = [_map(tensor, b) for b in stack["prefix"]]
-    for g in range(n_groups):
-        for j in range(len(unit)):
-            blocks.append(_map(lambda a: tensor(np.asarray(a)[g]),
-                               stack["groups"][f"b{j}"]))
+    blocks = [_map(tensor, b) for b in unstack_layers(
+        tree["stack"], cfg, lambda a, g: np.asarray(a)[g])]
     params = {"embed": tensor(tree["embed"]), "blocks": blocks,
               "final_norm": tensor(tree["final_norm"])}
     if "head" in tree:

@@ -140,6 +140,14 @@ def init_dense_mlp(normal, d_model: int, d_ff: int, act: str,
     return p
 
 
+def mlp_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_dense_mlp``'s leaves."""
+    s = {"w_up": (None, "ff"), "w_down": ("ff", None)}
+    if cfg.act == "swiglu":
+        s["w_gate"] = (None, "ff")
+    return s
+
+
 def dense_mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """Dense FFN: SwiGLU (silu(x @ w_gate) * (x @ w_up)) @ w_down, any
     other activation act(x @ w_up) @ w_down."""

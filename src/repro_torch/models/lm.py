@@ -37,6 +37,7 @@ from repro_torch.kernels import sampling as ksamp
 from repro_torch.models import mamba, mla, moe, rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_dense_mlp, rms_norm
+from repro_torch.sharding.policy import NULL_POLICY, Policy
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -46,7 +47,7 @@ def param_dtype(cfg: ModelConfig, dtype=None) -> torch.dtype:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
-                dtype=None) -> dict:
+                dtype=None, tp: int = 1) -> dict:
     """Random weights with the shapes and scales of the JAX
     ``lm.init_params``: normal draws from ``generator``, made on the
     generator's device and moved to ``device`` (``cuda`` unless given).
@@ -57,13 +58,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     hold ``{"moe": ...}`` (an fp32 router, experts and shared experts),
     the others ``{"mlp": ...}``.
     The two frameworks' generators differ, so the numbers do too; the
-    weight bridge (models/convert.py) carries JAX weights across."""
+    weight bridge (models/convert.py) carries JAX weights across.
+    Plain attention takes ``transformer.eff_heads(cfg, tp)`` heads, the
+    reference's alignment to ``tp`` model ranks. On the ``meta`` device
+    (``abstract_params``) no generator is read and no value is drawn."""
     device = resolve_device(device)
     dtype = param_dtype(cfg, dtype)
     d, V, hd, ff = cfg.d_model, cfg.vocab_size, cfg.head_dim, cfg.d_ff
-    H, KV = cfg.n_heads, cfg.n_kv_heads
+    H, KV = tf.eff_heads(cfg, tp)
+    meta = device.type == "meta"
 
     def normal(shape, scale, dt=dtype):
+        if meta:
+            return torch.empty(shape, dtype=dt, device=device)
         # scaled in place: at full width a MoE layer's expert tensor is
         # 369 MB (moonshot) or 1.88 GB (jamba), and no second copy of it
         # is ever alive
@@ -72,6 +79,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
         return x.mul_(scale).to(device)
 
     def uniform(shape, lo=0.0, hi=1.0):
+        if meta:
+            return torch.empty(shape, device=device)
         x = torch.rand(shape, generator=generator, device=generator.device)
         return x.mul_(hi - lo).add_(lo).to(device)
 
@@ -116,14 +125,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None,
     return params
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of every leaf of ``init_params``' tree."""
+    s = {"embed": ("vocab", None), "blocks": tf.stack_specs(cfg),
+         "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        s["head"] = (None, "vocab")
+    return s
+
+
+def abstract_params(cfg: ModelConfig, tp: int = 1) -> dict:
+    """``init_params``' tree as ``meta`` tensors: shapes and dtypes, no
+    memory."""
+    return init_params(cfg, None, device="meta", tp=tp)
+
+
 def embed(table, ids):
     """ids [...] -> [..., D]."""
     return table[ids.long()]
 
 
-def head_logits(x, head_w):
-    """x [B,D] -> logits [B,V]."""
-    return x @ head_w
+def head_logits(x, head_w, policy: Policy = NULL_POLICY):
+    """x [B,D] -> logits [B,V] (vocab-sharded under a mesh)."""
+    return policy.constrain(x @ head_w, "batch", "vocab")
 
 
 def _head_weight(params, cfg: ModelConfig):
@@ -165,7 +189,8 @@ def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK):
     return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
-def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
+def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True, *,
+                 policy: Policy = NULL_POLICY):
     """Next-token CE loss of tokens [B,S] (int32), the last position
     masked, plus ``router_aux_weight`` times the summed ``moe_aux`` for
     an MoE config, as the reference's. Returns (loss, metrics), metrics
@@ -174,7 +199,10 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
     after the reference's prefix is replayed in the backward
     (``transformer.apply_stack``). Every family trains: plain and MLA
     attention through B2 and B2-bwd, MoE through B7 and B7-bwd, Mamba
-    through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd."""
+    through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd. Every entry
+    point takes a sharding ``policy`` and refuses one whose mesh has more
+    than one rank."""
+    policy.require_one_rank("lm.forward_loss")
     x = embed(params["embed"], tokens)
     ctx = {"mode": "train", "remat": remat}
     x, stats = tf.apply_stack(params, x, cfg, ctx)
@@ -192,19 +220,21 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True):
 
 
 def prefill(params, tokens, cfg: ModelConfig,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, *,
+            policy: Policy = NULL_POLICY):
     """Run `tokens` [B,S]; returns (last_logits [B,V], state). Attention
     layers' caches are K/V zero-padded to ``cache_len`` ([B, cache_len,
     KV, hd]), or with a sliding window W the ring slab of ``min(W,
     cache_len)`` rows (``transformer.attn_forward``); Mamba layers' the
     final carry {conv, ssm}; RWKV layers' the final carry {wkv, shift_tm,
     shift_cm}."""
+    policy.require_one_rank("lm.prefill")
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
     ctx = {"mode": "prefill", "cache_len": cache_len or S}
     x, caches = tf.apply_stack(params, x, cfg, ctx, want_caches=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(x[:, -1], _head_weight(params, cfg))
+    logits = head_logits(x[:, -1], _head_weight(params, cfg), policy)
     dev = tokens.device
     state = {"caches": caches,
              "lengths": torch.full((B,), S, dtype=torch.int32, device=dev),
@@ -213,7 +243,7 @@ def prefill(params, tokens, cfg: ModelConfig,
 
 
 def prefill_chunk(params, tokens, caches, start: int, n_valid: int,
-                  cfg: ModelConfig):
+                  cfg: ModelConfig, *, policy: Policy = NULL_POLICY):
     """Chunked prefill: extend dense caches by one prompt chunk, IN PLACE.
 
     tokens: [B,C], the chunk at absolute positions start..start+C-1;
@@ -224,6 +254,7 @@ def prefill_chunk(params, tokens, caches, start: int, n_valid: int,
     and ``n_valid`` are host ints, so no index is read back from the
     device. Returns (logits [B,V] at the last valid chunk token, the
     caches). Chaining chunks over a prompt gives ``prefill``'s logits."""
+    policy.require_one_rank("lm.prefill_chunk")
     if not tf.chunked_prefill_supported(cfg):
         kinds = sorted(set(cfg.layer_kinds()))
         raise ValueError(
@@ -238,21 +269,23 @@ def prefill_chunk(params, tokens, caches, start: int, n_valid: int,
     ctx = {"mode": "prefill_chunk", "start": start}
     x, caches = tf.apply_stack(params, x, cfg, ctx, caches=caches)
     x = rms_norm(x[:, n_valid - 1], params["final_norm"], cfg.norm_eps)
-    return head_logits(x, _head_weight(params, cfg)), caches
+    return head_logits(x, _head_weight(params, cfg), policy), caches
 
 
-def decode_step(params, tokens, state, cfg: ModelConfig, active=None):
+def decode_step(params, tokens, state, cfg: ModelConfig, active=None, *,
+                policy: Policy = NULL_POLICY):
     """One decode step. tokens: [B] int32. Returns (logits [B,V], state).
     The caches in ``state`` (page pools, or per-slot slabs and carries)
     are written in place, inactive slots left as they were; ``lengths`` and
     ``positions`` advance only where ``active`` (all slots if None)."""
+    policy.require_one_rank("lm.decode_step")
     x = embed(params["embed"], tokens)
     ctx = {"mode": "decode", "positions": state["positions"],
            "lengths": state["lengths"], "active": active,
-           "page_table": state.get("page_table")}
+           "page_table": state.get("page_table"), "policy": policy}
     x, caches = tf.apply_stack(params, x, cfg, ctx, caches=state["caches"])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = head_logits(x, _head_weight(params, cfg))
+    logits = head_logits(x, _head_weight(params, cfg), policy)
     adv = 1 if active is None else active.to(torch.int32)
     new_state = {"caches": caches,
                  "lengths": state["lengths"] + adv,
@@ -264,7 +297,8 @@ def decode_step(params, tokens, state, cfg: ModelConfig, active=None):
 
 def decode_span(params, tokens, state, cfg: ModelConfig, active, budgets, *,
                 span: int, eos_token: int, cache_len: int, sample_fn=None,
-                sampler_params=None, rng=None, want_logprobs: bool = False):
+                sampler_params=None, rng=None, want_logprobs: bool = False,
+                policy: Policy = NULL_POLICY):
     """Run ``span`` decode steps with no host read inside.
 
     The counterpart of the JAX ``lax.scan``: the stop conditions (the
@@ -282,11 +316,13 @@ def decode_span(params, tokens, state, cfg: ModelConfig, active, budgets, *,
     ``want_logprobs`` (toks, emit, logprobs [span,B] float32, state);
     emit[t,i] marks a real emission of slot i at step t.
     """
+    policy.require_one_rank("lm.decode_span")
     toks, act, left = tokens, active, budgets
     ctr = rng[2] if rng is not None else None
     out_t, out_e, out_lp = [], [], []
     for _ in range(span):
-        logits, state = decode_step(params, toks, state, cfg, active=act)
+        logits, state = decode_step(params, toks, state, cfg, active=act,
+                                    policy=policy)
         step_rng = None if rng is None else (rng[0], rng[1], ctr)
         nxt, _ = select_token(logits, sample_fn, sampler_params, step_rng,
                               want_logprob=False)
@@ -367,3 +403,9 @@ def init_paged_serve_state(cfg: ModelConfig, batch: int, n_pages: int,
             "lengths": torch.zeros(batch, **i32),
             "positions": torch.zeros(batch, **i32),
             "page_table": torch.zeros(batch, max_pages, **i32)}
+
+
+def serve_state_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_serve_state``'s tree."""
+    return {"caches": tf.stack_cache_specs(cfg), "lengths": ("batch",),
+            "positions": ("batch",)}

@@ -65,6 +65,15 @@ def init_mamba(cfg: ModelConfig, normal, uniform, dtype, device) -> dict:
     }
 
 
+def mamba_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_mamba``'s leaves."""
+    return {"in_proj": (None, "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "x_proj": ("inner", None),
+            "dt_proj": (None, "inner"), "dt_bias": ("inner",),
+            "A_log": ("inner", None), "D_skip": ("inner",),
+            "out_proj": ("inner", None)}
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) +
     log1p(exp(-|x|)) (``F.softplus`` thresholds and differs by an ulp)."""

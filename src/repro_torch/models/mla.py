@@ -43,6 +43,13 @@ def init_mla(cfg: ModelConfig, normal, dtype, device) -> dict:
     }
 
 
+def mla_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_mla``'s leaves."""
+    return {"wq": (None, "heads"), "wkv_a": (None, None),
+            "kv_norm": (None,), "wkv_b": ("lora", "heads"),
+            "wo": ("heads", None)}
+
+
 def mla_prefill(x, p, cfg: ModelConfig, angles, want_cache: bool = False):
     """x: [B,S,D]; angles [S, rope/2]. Returns (out [B,S,D], cache|None),
     cache = {c_kv [B,S,lora], k_rope [B,S,rope]}."""

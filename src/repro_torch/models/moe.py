@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.moe_dispatch import moe_dispatch
-from repro_torch.models.layers import dense_mlp, init_dense_mlp, silu
+from repro_torch.models.layers import (dense_mlp, init_dense_mlp, mlp_specs,
+                                       silu)
 
 
 def init_moe(cfg: ModelConfig, normal, dtype) -> dict:
@@ -50,6 +51,16 @@ def init_moe(cfg: ModelConfig, normal, dtype) -> dict:
         p["shared"] = init_dense_mlp(normal, d, moe.n_shared * dE, cfg.act,
                                      dtype)
     return p
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_moe``'s leaves."""
+    s = {"router": (None, "experts"), "w_gate": ("experts", None, None),
+         "w_up": ("experts", None, None),
+         "w_down": ("experts", None, None)}
+    if cfg.moe.n_shared:
+        s["shared"] = mlp_specs(cfg)
+    return s
 
 
 def capacity(tokens_per_group: int, cfg: ModelConfig,

@@ -58,6 +58,17 @@ def init_rwkv(cfg: ModelConfig, normal, uniform, dtype, device) -> dict:
     }
 
 
+def rwkv_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of ``init_rwkv``'s leaves."""
+    return {"mu": (None, None), "w_base": (None,),
+            "w1": (None, None), "w2": (None, "inner"),
+            "wr": (None, "inner"), "wk": (None, "inner"),
+            "wv": (None, "inner"), "wg": (None, "inner"),
+            "wo": ("inner", None), "u": ("inner",), "ln_x": ("inner",),
+            "mu_cm": (None, None), "wk_cm": (None, "ff"),
+            "wv_cm": ("ff", None), "wr_cm": (None, "inner")}
+
+
 def _shift(x, prev=None):
     """Token shift: x_{t-1} (zeros / ``prev`` at t = 0). x: [B,S,D]."""
     if prev is None:

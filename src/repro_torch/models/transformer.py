@@ -53,8 +53,9 @@ from repro_torch.models.attention import (chunk_prefix_attention,
                                           chunked_causal_attention,
                                           decode_attention,
                                           paged_decode_attention)
-from repro_torch.models.layers import (apply_rope, dense_mlp, rms_norm,
-                                       rope_angles)
+from repro_torch.models.layers import (apply_rope, dense_mlp, mlp_specs,
+                                       rms_norm, rope_angles)
+from repro_torch.sharding.policy import NULL_POLICY
 
 
 def plan_layers(cfg: ModelConfig) -> Tuple[List, List, int]:
@@ -104,6 +105,61 @@ def recurrent_state_supported(cfg: ModelConfig) -> bool:
 # --------------------------------------------------------------------------
 # attention block
 # --------------------------------------------------------------------------
+
+def eff_heads(cfg: ModelConfig, tp: int = 1) -> Tuple[int, int]:
+    """(H_eff, KV_eff) after aligning the heads to ``tp`` model ranks, as
+    the reference's: with fewer KV heads than ``tp`` and ``tp`` a
+    multiple of them, KV heads are duplicated (Megatron's convention);
+    heads that do not divide ``tp`` are padded up to a multiple, and
+    KV_eff becomes H_eff where the grouping would not stay integral."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if tp <= 1:
+        return H, KV
+    H_eff = -(-H // tp) * tp
+    if KV < tp and tp % KV == 0 and H_eff == H:
+        KV_eff = tp
+    else:
+        KV_eff = -(-KV // tp) * tp
+    if H_eff % KV_eff:
+        KV_eff = H_eff
+    return H_eff, KV_eff
+
+
+def attn_specs(cfg: ModelConfig) -> dict:
+    """Logical sharding axes of a plain attention layer's leaves."""
+    s = {"wq": (None, "heads"), "wk": (None, "kv_heads"),
+         "wv": (None, "kv_heads"), "wo": ("heads", None)}
+    if cfg.qkv_bias:
+        s.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
+    if cfg.qk_norm:
+        s.update(q_norm=(None,), k_norm=(None,))
+    return s
+
+
+def block_specs(cfg: ModelConfig, kind: str, mlp_kind: str) -> dict:
+    """Logical sharding axes of one block's leaves."""
+    s: Dict = {"norm1": (None,), "norm2": (None,)}
+    if kind == "attn":
+        s["attn"] = (mla.mla_specs(cfg) if cfg.mla is not None
+                     else attn_specs(cfg))
+    elif kind == "mamba":
+        s["mamba"] = mamba.mamba_specs(cfg)
+    elif kind == "rwkv":
+        s["rwkv"] = rwkv.rwkv_specs(cfg)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind != "rwkv":
+        s["mlp" if mlp_kind == "dense" else "moe"] = (
+            mlp_specs(cfg) if mlp_kind == "dense" else moe.moe_specs(cfg))
+    return s
+
+
+def stack_specs(cfg: ModelConfig) -> List[dict]:
+    """``block_specs`` of every layer, in layer order (the reference's
+    ``stack_specs`` without the group axis its stacked leaves carry)."""
+    return [block_specs(cfg, kind, mlp)
+            for kind, mlp in zip(cfg.layer_kinds(), cfg.mlp_kinds())]
+
 
 def _qkv(x, p, cfg: ModelConfig):
     """x: [..., D] -> q [..., H, hd], k/v [..., KV, hd] (normed, no rope)."""
@@ -209,8 +265,12 @@ def attn_decode_paged(x, p, cfg: ModelConfig, ctx, cache):
     k_new = apply_rope(k_new[:, None], ang[:, None])[:, 0]
     paged_append(cache["k"], cache["v"], k_new, v_new, table, positions,
                  active=ctx.get("active"))
-    out = paged_decode_attention(q.contiguous(), table, cache["k"],
-                                 cache["v"], lengths + 1)
+    policy = ctx.get("policy", NULL_POLICY)
+    q = policy.constrain(q, "batch", "heads", None)
+    k_pages = policy.constrain(cache["k"], "pages", None, "kv_heads", None)
+    v_pages = policy.constrain(cache["v"], "pages", None, "kv_heads", None)
+    out = paged_decode_attention(q.contiguous(), table, k_pages, v_pages,
+                                 lengths + 1)
     return out.reshape(x.shape[0], -1) @ p["wo"], cache
 
 
@@ -242,8 +302,12 @@ def attn_decode(x, p, cfg: ModelConfig, ctx, cache):
            else None)
     for n, val in new.items():
         cache[n].index_put_((rows, slot), val.to(cache[n].dtype))
-    out = decode_attention(q, cache["k"], cache["v"],
-                           torch.clamp(lengths + 1, max=Smax))
+    policy = ctx.get("policy", NULL_POLICY)
+    out = decode_attention(
+        policy.constrain(q, "batch", "heads", None),
+        policy.constrain(cache["k"], "batch", "kv_seq", "kv_heads", None),
+        policy.constrain(cache["v"], "batch", "kv_seq", "kv_heads", None),
+        torch.clamp(lengths + 1, max=Smax))
     if active is not None:
         keep = active[:, None, None]
         for n, val in new.items():
@@ -506,6 +570,29 @@ def init_stack_caches(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     """Per-slot state of every layer, in layer order."""
     return [init_block_cache(cfg, kind, batch, cache_len, dtype, device)
             for kind in cfg.layer_kinds()]
+
+
+def cache_specs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
+    """Logical sharding axes of one layer's per-slot state."""
+    if kind == "attn":
+        if cfg.mla is not None:
+            # the latent cache has no head dim: along the sequence
+            return {"c_kv": ("batch", "mla_seq", None),
+                    "k_rope": ("batch", "mla_seq", None)}
+        return {"k": ("batch", "kv_seq", "kv_heads", None),
+                "v": ("batch", "kv_seq", "kv_heads", None)}
+    if kind == "mamba":
+        return {"conv": ("batch", None, "inner"),
+                "ssm": ("batch", "inner", None)}
+    if kind == "rwkv":
+        return {"wkv": ("batch", "inner", None, None),
+                "shift_tm": ("batch", None), "shift_cm": ("batch", None)}
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def stack_cache_specs(cfg: ModelConfig) -> List[Dict[str, tuple]]:
+    """``cache_specs`` of every layer, in layer order."""
+    return [cache_specs(cfg, kind) for kind in cfg.layer_kinds()]
 
 
 def init_paged_stack_caches(cfg: ModelConfig, n_pages: int, page_size: int,

@@ -7,17 +7,19 @@ moments and the params IN PLACE and returns the same tensors: JAX
 returns new arrays, but a second copy of the fp32 state would not fit
 one card at full width (qwen3-8b's embedding and head alone hold 1.24 B
 parameters). The arithmetic is the reference's, op for op, in fp32.
-ZeRO-1's sharded state (``_zero1_axes``, ``opt_state_specs``) waits for
-sharding (ROADMAP A13b).
+``opt_state_specs`` gives the state's logical sharding axes, with
+ZeRO-1's placement of the fp32 state over the data axis
+(``_zero1_axes``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core.tree import leaves, map_tree
+from repro_torch.sharding.policy import map_specs
 
 
 @dataclass(frozen=True)
@@ -87,3 +89,33 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
         p.copy_(ma)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _zero1_axes(axes: Tuple, shape: Tuple[int, ...], dp_size: int,
+                dp_name: str = "data") -> Tuple:
+    """Put the data axis on the largest free dim that ``dp_size``
+    divides (ZeRO-1); ``axes`` as they are when none does."""
+    best, best_dim = None, -1
+    for i, (ax, n) in enumerate(zip(axes, shape)):
+        if ax is None and n % dp_size == 0 and n > best_dim:
+            best, best_dim = i, n
+    if best is None:
+        return axes
+    out = list(axes)
+    out[best] = dp_name
+    return tuple(out)
+
+
+def opt_state_specs(pspecs, params_shape, zero1: bool = False,
+                    dp_size: int = 1) -> dict:
+    """Logical axes of ``adamw_init``'s state from the params' spec tree
+    (``lm.param_specs``) and a tree of the params' shapes (tensors, e.g.
+    ``lm.abstract_params``'); with ``zero1`` the fp32 leaves also take
+    the data axis."""
+    if zero1:
+        f32_axes = map_specs(
+            lambda ax, sh: _zero1_axes(ax, tuple(sh.shape), dp_size),
+            pspecs, params_shape)
+    else:
+        f32_axes = pspecs
+    return {"master": f32_axes, "m": f32_axes, "v": f32_axes, "step": ()}

@@ -428,15 +428,18 @@ def slo_budget(cls: int, budgets: Tuple[float, ...]) -> Optional[float]:
     return float(b) if b > 0 else None
 
 
-def make_engine(cfg, params, ecfg: EngineConfig, device=None,
+def make_engine(cfg, params, ecfg: EngineConfig, device=None, policy=None,
                 scheduler: Optional[Scheduler] = None,
                 kv_backend: Optional[StateBackend] = None,
                 transport: Optional[ParkingTransport] = None,
                 sampler: Optional[Sampler] = None):
     """A ServingEngine with parts resolved by name from `ecfg`, or
-    injected directly; on ``cuda`` unless `device` says otherwise."""
+    injected directly; on ``cuda`` unless `device` says otherwise, under
+    the sharding `policy` (``NULL_POLICY`` if None)."""
     from repro_torch.serve.engine import ServingEngine
+    from repro_torch.sharding.policy import NULL_POLICY
     return ServingEngine(cfg, params, ecfg, device=device,
+                         policy=policy if policy is not None else NULL_POLICY,
                          scheduler=scheduler, kv_backend=kv_backend,
                          transport=transport, sampler=sampler)
 

@@ -58,6 +58,7 @@ from repro_torch.serve.api import (EngineConfig, ParkingTransport, Request,
                                    request_to_state)
 from repro_torch.serve.parking import HostParkingTransport
 from repro_torch.serve.prefix_cache import PrefixCache
+from repro_torch.sharding.policy import NULL_POLICY, Policy
 
 
 def _wrap_i32(v: int) -> np.int32:
@@ -76,7 +77,7 @@ class ServingEngine:
     # input that never changes).
     _SNAPSHOT_FIELDS = {
         "cfg": "config", "params": "config", "ecfg": "config",
-        "device": "config", "sampler": "config",
+        "device": "config", "policy": "config", "sampler": "config",
         "clock": "captured", "kv": "captured", "state": "captured",
         "sched": "captured", "transport": "captured",
         "active": "captured", "running": "captured",
@@ -88,7 +89,8 @@ class ServingEngine:
     }
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
-                 device=None, scheduler: Optional[Scheduler] = None,
+                 device=None, policy: Policy = NULL_POLICY,
+                 scheduler: Optional[Scheduler] = None,
                  kv_backend: Optional[StateBackend] = None,
                  transport: Optional[ParkingTransport] = None,
                  sampler: Optional[Sampler] = None):
@@ -104,6 +106,9 @@ class ServingEngine:
         self.params = params
         self.ecfg = ecfg
         self.device = resolve_device(device)
+        # the sharding policy every model call takes; one rank
+        policy.require_one_rank("ServingEngine")
+        self.policy = policy
         B = ecfg.slots
         self.clock = ecfg.clock
         self.kv = kv_backend or make_state_backend(ecfg.kv_layout, cfg,
@@ -301,7 +306,8 @@ class ServingEngine:
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)
         logits, st = lm.prefill(self.params, prompt[None], self.cfg,
-                                cache_len=self.ecfg.cache_len)
+                                cache_len=self.ecfg.cache_len,
+                                policy=self.policy)
         self.state = self.kv.prefill_into_slot(
             self.state, slot, req.req_id, st["caches"], len(req.prompt))
         self.stats["prefill_tokens"] += len(req.prompt)
@@ -366,7 +372,7 @@ class ServingEngine:
         caches = self.kv.slot_caches(self.state, slot, req.req_id)
         logits, caches = lm.prefill_chunk(
             self.params, torch.as_tensor(chunk[None], device=self.device),
-            caches, pos, n_valid, self.cfg)
+            caches, pos, n_valid, self.cfg, policy=self.policy)
         self.state = self.kv.store_chunk(
             self.state, slot, req.req_id, caches, pos, n_valid)
         self.prefill_pos[slot] = pos + n_valid
@@ -639,7 +645,8 @@ class ServingEngine:
             eos_token=self.ecfg.eos_token, cache_len=self.ecfg.cache_len,
             sample_fn=self.sampler.sample,
             sampler_params=self._sampler_params(self.slot_req),
-            rng=self._sampler_rng(self.slot_req), want_logprobs=want_lp)
+            rng=self._sampler_rng(self.slot_req), want_logprobs=want_lp,
+            policy=self.policy)
         self.state = out[-1]
         self.stats["decode_steps"] += span_exec
         self.stats["decode_spans"] += 1

@@ -18,7 +18,9 @@ tile edges), and a SMOKE train step on the card against the CPU; the
 other backward kernels (B2-bwd at (192, 128), B7-bwd, B6-bwd,
 B4-bwd) against their plain versions on shape sweeps, bit for bit across
 calls, and the gradients of SMOKE moonshot, deepseek, rwkv6 and jamba on
-the card against the CPU.
+the card against the CPU; the device multiqueue on the card against the
+CPU, ``batched_enqueue`` against B7's kernel, and ``reshard_tree`` on a
+one-rank ``cuda`` mesh.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -1375,3 +1377,84 @@ def test_family_gradients_on_card_match_cpu(cuda, arch):
     for a, b in zip(_leaves(gg), _leaves(gc_)):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(
             float(b.abs().max()), 1e-30)
+
+
+def _mq_run(device, ops_, cap=3, n_q=4):
+    """The items, oks and sizes of an op sequence, on ``device``."""
+    from repro_torch.core import multiqueue as mq
+    st = mq.mq_init(n_q, cap, (3,), device=device)
+    out = []
+    for push, q, val in ops_:
+        qt = torch.tensor(q, dtype=torch.int32, device=device)
+        if push:
+            st, ok = mq.mq_push(st, qt, torch.full((3,), float(val),
+                                                   device=device))
+            out.append((ok,))
+        else:
+            st, item, ok = mq.mq_pop(st, qt)
+            out.append((item, ok))
+        out.append((mq.mq_sizes(st),))
+    return [tuple(t.cpu() for t in o) for o in out], st
+
+
+def test_mq_on_card_matches_cpu(cuda):
+    """400 pushes and pops on 4 queues of capacity 3 (the rings wrap many
+    times and fill): every item, ok and size, and the final buffers and
+    counters, equal the CPU's."""
+    rng = np.random.default_rng(3)
+    ops_ = [(bool(rng.random() < 0.55), int(rng.integers(0, 4)),
+             int(rng.integers(-100, 100))) for _ in range(400)]
+    got, st = _mq_run(cuda, ops_)
+    want, st_cpu = _mq_run(torch.device("cpu"), ops_)
+    assert all(torch.equal(a, b) for g, w in zip(got, want)
+               for a, b in zip(g, w))
+    for n in ("buf", "head", "tail"):
+        assert torch.equal(getattr(st, n).cpu(), getattr(st_cpu, n))
+    assert int(st.tail.max()) > 3 * 3          # wrapped
+
+
+@pytest.mark.parametrize("T,D,E,C,dtype", [
+    (11400, 2048, 64, 223, torch.bfloat16),
+    (600, 64, 16, 40, torch.float32)])
+def test_batched_enqueue_matches_b7_kernel(cuda, T, D, E, C, dtype):
+    """At moonshot's prefill shape and at a small one, on routing skewed
+    so that the first queues overflow: the buffers of ``batched_enqueue``
+    equal B7's kernel at its positions, bit for bit, and its kept rows are
+    those with a position below C."""
+    from repro_torch.core.multiqueue import batched_enqueue
+    rng = np.random.default_rng(4)
+    items = _randn(rng, T, D).to(cuda, dtype)
+    probs = 1.0 / np.arange(1, E + 1) ** 0.3
+    ids = torch.from_numpy(rng.choice(E, size=T, p=probs / probs.sum())
+                           .astype(np.int32)).to(cuda)
+    buf, pos, kept = batched_enqueue(items, ids, E, C)
+    n = md.moe_dispatch.launches
+    b7 = md.moe_dispatch(items, ids, pos, E, C)
+    assert md.moe_dispatch.launches == n + 1
+    assert torch.equal(buf, b7)
+    assert torch.equal(kept, pos < C) and bool((~kept).any())
+    cpu = batched_enqueue(items.cpu(), ids.cpu(), E, C)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip((buf, pos, kept),
+                                                        cpu))
+
+
+def test_reshard_tree_on_a_one_rank_cuda_mesh(cuda):
+    """SMOKE qwen3's params and AdamW state, made on the CPU, laid out on
+    train_shardings over the (1, 1) cuda smoke mesh: every leaf on the
+    card, bit for bit."""
+    from repro_torch.checkpoint import reshard_tree
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import make_policy
+    from repro_torch.train.train_step import train_shardings
+    cfg = SMOKE_CONFIGS["qwen3-8b"]
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    opt = adamw_init(params)
+    pol = make_policy(make_smoke_mesh("cuda"), fsdp=True)
+    (p_sh, o_sh, _), _ = train_shardings(cfg, pol)
+    placed = reshard_tree((params, opt), (p_sh, o_sh))
+    for a, b in zip(leaves((params, opt)), leaves(placed)):
+        assert b.is_cuda and b.dtype == a.dtype
+        assert torch.equal(a, b.cpu())

@@ -762,5 +762,7 @@ def test_launcher_resume_continues_the_run(tmp_path):
 
 
 def test_launcher_refuses_multipod():
-    with pytest.raises(NotImplementedError, match="A13b"):
+    """``--multipod`` asks for the 512-rank production mesh: one process
+    raises the world-size error, naming what it needs and found."""
+    with pytest.raises(ValueError, match="needs 512 ranks; found 1"):
         launcher.main(LAUNCH + ["--multipod"])
