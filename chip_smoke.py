@@ -7,7 +7,8 @@
 The second builds the kernels and runs only the backward kernels' rows
 (B2-bwd at qwen3-8b's train shape; the others for the other --arch
 configs) and the training phases (8 below) of the --arch configs (all
-four of TRAIN_ARCHS if none is given), printing no result line.
+four of TRAIN_ARCHS if none is given), then the dryrun phase over them,
+printing no result line.
 
 Phases, each printing one JSON object per line:
 
@@ -166,7 +167,18 @@ Phases, each printing one JSON object per line:
              uninterrupted one (rwkv6-1.6b, 1 layer); the
              FaultTolerantTrainer's SR
              and GBN recovery on the trainer demo against its no-failure
-             params;
+             params; one qwen3-8b step also under the cost walk on the
+             card, whose kernel calls and work must equal the dry run's
+             walk of that step on meta;
+   dryrun  — ``repro_torch.launch.dryrun``'s walk on meta of each train
+             run's step, its predicted peak within 5% of the peak the
+             train phase measured, beside the walk's bound seconds and the
+             measured step seconds; the same for a 36-layer qwen3-8b
+             prefill of 1900 tokens run here; the deepest qwen3-8b and
+             deepseek-v2-lite-16b that fit the card's free bytes at the
+             train runs' shape (``fit_depth``); the CUDA context, the
+             libraries' memory and the cuBLAS workspace, which the walk
+             leaves out;
 9. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
@@ -190,10 +202,6 @@ ROOT = Path(__file__).resolve().parent
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"]
 
-# H100 SXM peaks (NVIDIA data sheet, dense): device memory rate and the
-# rate for each input type's operations
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # ~50 µs of spinning at the H100's 1.98 GHz boost clock (time_ms)
 SPIN_CYCLES = 100_000
@@ -303,11 +311,19 @@ def time_ms(fn, torch, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, dtype_name: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+def _work():
+    """``repro_torch/kernels/work.py``: each kernel call's bytes and
+    operations, the one count of the smoke, the dry run and the walk."""
+    from repro_torch.kernels import work
+    return work
+
+
+def bound(work):
+    """(ms, "bytes" or "operations") of a kernel call's work, priced at
+    the H100 SXM's data-sheet peaks (dense): device memory rate and each
+    input type's rate."""
+    kw = _work()
+    return kw.bound_s(work) * 1e3, kw.bound_by(work)
 
 
 # --------------------------------------------------------------------------
@@ -356,11 +372,8 @@ def check_flash(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
     ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
         and repeats
     ok = ok and out.shape == (B, H, S, hd_v)
-    pairs = sum(min(i + 1, window) if window > 0 else i + 1
-                for i in range(S))
-    b_ms, b_by = bound(q.element_size() * (q.numel() + out.numel()
-                                           + k.numel() + v.numel()),
-                       2.0 * (hd + hd_v) * B * H * pairs, name)
+    b_ms, b_by = bound(_work().flash_attention(B, H, KV, S, hd, hd_v,
+                                               window, name))
     shape = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window}
     if hd_v != hd:
         shape["hd_v"] = hd_v
@@ -427,11 +440,6 @@ def check_flash_padded(torch, fa, B, H, KV, S, hd, hd_v, dtype, seed=0):
     return rec
 
 
-def _pairs(S, window):
-    """(query, key) pairs of the causal (+SWA) band."""
-    return sum(min(i + 1, window) if window > 0 else i + 1 for i in range(S))
-
-
 def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
                     timed=True, tol=None, hd_v=None):
     """B2's lse and B2-bwd against their plain versions on the same
@@ -472,14 +480,10 @@ def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
     repeats = all(torch.equal(a, b) for a, b in zip(grads, again))
     same_out = bool(torch.equal(out, plain_out))
     ok = max(errs.values()) <= tol and repeats and same_out
-    # the function's work: five products a band pair (scores and dq, dk
-    # over hd; dp and dv over hd_v); q, k, v, out, dout and lse read once,
-    # dq, dk, dv written once
-    pairs = _pairs(S, window)
-    nbytes = (q.element_size() * (2 * q.numel() + 2 * k.numel()
-                                  + 2 * v.numel() + 2 * do.numel())
-              + lse.numel() * 4)
-    b_ms, b_by = bound(nbytes, (6.0 * hd + 4.0 * hd_v) * B * H * pairs, name)
+    # the function's work: five products a band pair; q, k, v, out, dout
+    # and lse read once, dq, dk, dv written once
+    b_ms, b_by = bound(_work().flash_attention_bwd(B, H, KV, S, hd, hd_v,
+                                                   window, name))
     shape = {"B": B, "H": H, "KV": KV, "S": S, "hd": hd, "window": window}
     if hd_v != hd:
         shape["hd_v"] = hd_v
@@ -502,9 +506,8 @@ def check_flash_bwd(torch, fa, B, H, KV, S, hd, dtype, window=0, seed=0,
         rec["fwd_plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
             q, k, v, window=window, return_lse=True), torch)
         rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
-            q.element_size() * (q.numel() + k.numel() + v.numel()
-                                + out.numel()) + lse.numel() * 4,
-            2.0 * (hd + hd_v) * B * H * pairs, name)
+            _work().flash_attention(B, H, KV, S, hd, hd_v, window, name,
+                                    lse=True))
         rec["library_ms"] = None
         if window == 0:
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -569,10 +572,8 @@ def check_flash_band(torch, fa, B, H, KV, S, hd, window, dtype, seed=0):
     ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
         and repeats and bool(torch.equal(kernel()[..., hd:],
                                          torch.zeros_like(qp[..., hd:])))
-    pairs = sum(min(i + 1, window) for i in range(S))
-    b_ms, b_by = bound(q.element_size() * (2 * q.numel() + k.numel()
-                                           + v.numel()),
-                       4.0 * hd * B * H * pairs, name)
+    b_ms, b_by = bound(_work().flash_attention(B, H, KV, S, hd, hd, window,
+                                               name))
     pos = torch.arange(S, device="cuda")
     band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
 
@@ -630,10 +631,8 @@ def check_paged(torch, pa, B, H, KV, hd, NP, page, MP, dtype, seed=0,
     ok = bool(torch.allclose(out.float(), ref, atol=tol, rtol=tol)) \
         and repeats and empty_zero
     live = int(torch.clamp(lengths, max=MP * page).sum())
-    esize = q.element_size()
-    b_ms, b_by = bound(esize * (2 * live * KV * hd + 2 * q.numel())
-                       + 4 * (table.numel() + lengths.numel()),
-                       4.0 * H * hd * live, name)
+    b_ms, b_by = bound(_work().paged_decode_attention(B, H, KV, hd, MP, page,
+                                                      name, live=live))
     rec = {"phase": "kernels", "kernel": "paged_decode_attention",
            "shape": {"B": B, "H": H, "KV": KV, "hd": hd, "NP": NP,
                      "page": page, "MP": MP}, "dtype": name,
@@ -690,16 +689,10 @@ def check_wkv_chunked(torch, wk, B, S, H, hd, dtype, chunk=32, seed=0,
     tol_y, tol_s = WKV_TOL["y"], WKV_TOL["state"]
     ok = bool(torch.allclose(y, ey, atol=tol_y, rtol=tol_y)
               and torch.allclose(s, es, atol=tol_s, rtol=tol_s))
-    # what these inputs need, chunk by chunk (c valid tokens): the
-    # strictly-lower scores and their product with v, 2*c*(c-1)*hd; the
-    # carried state read and updated, 4*c*hd^2; fp32 math, fp32 peak
+    # what these inputs need, chunk by chunk; fp32 math, fp32 peak
     C = min(chunk, S)
-    cs = [C] * (S // C) + ([S % C] if S % C else [])
-    flops = B * H * sum(2 * c * (c - 1) * hd + 4 * c * hd * hd for c in cs)
-    nbytes = (B * S * H * hd * (3 * r.element_size() + 4 + 4)
-              + 4 * u.numel() + 2 * 4 * s0.numel())
-    b_ms, b_by = bound(nbytes, flops, "float32")
     name = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(_work().wkv6_chunked(B, S, H, hd, C, name))
     rec = {"phase": "kernels", "kernel": "wkv6_chunked",
            "shape": {"B": B, "S": S, "H": H, "hd": hd, "chunk": C},
            "dtype": name, "max_err": _max_err(torch, ((y, ey), (s, es))),
@@ -740,9 +733,8 @@ def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
               and torch.allclose(cs, s, atol=WKV_TOL["state"],
                                  rtol=WKV_TOL["state"]))
     # read r, k, v, w, u and the state once, write y and the new state
-    nbytes = (B * H * hd * (3 * r.element_size() + 4 + 4)
-              + 4 * u.numel() + 2 * 4 * s0.numel())
-    b_ms, b_by = bound(nbytes, 7.0 * B * H * hd * hd, "float32")
+    b_ms, b_by = bound(_work().wkv6_decode(B, H, hd,
+                                           str(dtype).split(".")[-1]))
     rec = {"phase": "kernels", "kernel": "wkv6_decode",
            "shape": {"B": B, "H": H, "hd": hd},
            "dtype": str(dtype).split(".")[-1],
@@ -802,8 +794,9 @@ def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True,
     kept = int(keep.sum())
     # kept rows read once, ids and positions read once, the whole buffer
     # written once; no arithmetic
-    b_ms, b_by = bound(toks.element_size() * D * (kept + E * C) + 8 * T,
-                       0.0, str(dtype).split(".")[-1])
+    b_ms, b_by = bound(_work().moe_dispatch(T, D, E, C,
+                                            str(dtype).split(".")[-1],
+                                            kept=kept))
     rec = {"phase": "kernels", "kernel": "moe_dispatch",
            "shape": {"T": T, "D": D, "E": E, "C": C},
            "positions": positions, "kept": kept,
@@ -845,8 +838,7 @@ def check_linear_scan(torch, ls, B, T, D, N, seed=0, timed=True):
               and torch.allclose(hl, ehl, atol=SSM_TOL, rtol=SSM_TOL))
     # a and b read once, every h_t written once, h0 read and h_last
     # written once; a multiply and an add per element and step
-    b_ms, b_by = bound(4 * (3 * a.numel() + 2 * h0.numel()),
-                       2.0 * a.numel(), "float32")
+    b_ms, b_by = bound(_work().linear_scan(B, T, D, N))
     rec = {"phase": "kernels", "kernel": "linear_scan",
            "shape": {"B": B, "T": T, "D": D, "N": N}, "dtype": "float32",
            "max_err": _max_err(torch, ((hs, ehs), (hl, ehl))),
@@ -897,9 +889,7 @@ def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True,
     # h and dA read once, h' written once, dtx, B and C read once, y
     # written once; per state element two multiplies and an add for h',
     # a multiply and an add for y
-    b_ms, b_by = bound(4 * (3 * h.numel() + 2 * dtx.numel()
-                            + Bs.numel() + Cs.numel()),
-                       5.0 * h.numel(), "float32")
+    b_ms, b_by = bound(_work().ssm_decode_step(B, Di, N))
     rec = {"phase": "kernels", "kernel": "ssm_decode_step",
            "shape": {"B": B, "Di": Di, "N": N}, "dtype": "float32",
            "offset": offset,
@@ -938,8 +928,7 @@ def check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=0,
     # each kept row's slot read once, ids and positions read once, every
     # row of the gradient written once; no arithmetic
     name = str(dtype).split(".")[-1]
-    b_ms, b_by = bound(dbuf.element_size() * D * (kept + T) + 8 * T, 0.0,
-                       name)
+    b_ms, b_by = bound(_work().moe_dispatch_bwd(T, D, E, C, name, kept=kept))
     rec = {"phase": "kernels", "kernel": "moe_dispatch_bwd",
            "shape": {"T": T, "D": D, "E": E, "C": C},
            "positions": positions, "kept": kept, "dtype": name,
@@ -993,8 +982,7 @@ def check_linear_scan_bwd(torch, ls, B, T, D, N, seed=0, timed=True):
     # a, h_all and the gradient of h_all read once, da and db written once;
     # h0 and g_last read, dh0 written; an add and two multiplies an element
     # and step
-    b_ms, b_by = bound(4 * (5 * a.numel() + 3 * h0.numel()),
-                       3.0 * a.numel(), "float32")
+    b_ms, b_by = bound(_work().linear_scan_bwd(B, T, D, N))
     rec = {"phase": "kernels", "kernel": "linear_scan_bwd",
            "shape": {"B": B, "T": T, "D": D, "N": N}, "dtype": "float32",
            "max_err": _max_err(torch, zip(got, ref)),
@@ -1046,16 +1034,10 @@ def check_wkv6_bwd(torch, wk, B, S, H, hd, dtype, chunk=32, seed=0,
             for n, x in zip(names, got)}
     repeats = all(torch.equal(x, y) for x, y in zip(got, again))
     ok = repeats and all(errs[n] <= tols[n] for n in names)
-    # what these inputs need: a state update, an adjoint update and the
-    # three products of a row or column (dr, dk, dv), ~10 hd^2 flops a
-    # token and head (the function's count, not the chunk form's larger
-    # one); r, k, v, logw, dy read and their gradients written
-    # once, u, state0 and the state's gradient read, du and dstate0 written
-    esz = r.element_size()
-    nbytes = (B * S * H * hd * (6 * esz + 12) + 8 * u.numel()
-              + 12 * s0.numel())
-    b_ms, b_by = bound(nbytes, 10.0 * hd * hd * B * H * S, "float32")
+    # what these inputs need: ~10 hd^2 flops a token and head (the
+    # function's count, not the chunk form's larger one)
     name = str(dtype).split(".")[-1]
+    b_ms, b_by = bound(_work().wkv6_chunked_bwd(B, S, H, hd, name))
     rec = {"phase": "kernels", "kernel": "wkv6_chunked_bwd",
            "shape": {"B": B, "S": S, "H": H, "hd": hd,
                      "chunk": min(chunk, S)}, "dtype": name,
@@ -2257,6 +2239,9 @@ def phase_train(torch, arch="qwen3-8b", layers=None, seq=None,
     require(all(b < a for a, b in zip(rep, rep[1:])),
             f"train {arch}: the loss on a repeated batch did not fall: "
             f"{rep}")
+    if arch == "qwen3-8b":
+        rec["walk_on_card"] = check_walk_on_card(torch, cfg, step, params,
+                                                 opt, toks)
     win = _profile(torch, device, lambda: step(params, opt, toks))
     rec["trace"] = _traced(torch, win)
     bwd_calls = rec["trace"]["wrapper_calls"].get("flash_attention_bwd", 0)
@@ -2460,14 +2445,18 @@ def train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
     return out
 
 
-def run_train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None):
+def run_train_phases(torch, archs=TRAIN_ARCHS, layers=None, seq=None,
+                     train_recs=None):
     """Run ``train_phases``, freeing the card between them; returns the
-    train phases' launch records for ``kernel_line``."""
+    train phases' launch records for ``kernel_line``, and puts each
+    ``phase_train`` record into ``train_recs`` by arch."""
     paths = []
     for phase, label, fn, args in train_phases(torch, archs, layers, seq):
         out = seconds(phase, label, fn, *args)
         if phase == "train":
             paths.append(out[0])
+        if fn is phase_train and train_recs is not None:
+            train_recs[label] = out[1]
         gc.collect()
         torch.cuda.empty_cache()
     return paths
@@ -3825,6 +3814,157 @@ def phase_crash_layout(torch, cfg, layout, n_pages, cache_len, lens,
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the dry run (repro_torch.launch.dryrun) against the card
+# --------------------------------------------------------------------------
+
+# a predicted peak within this share of the measured one
+DRYRUN_TOL = 0.05
+DRYRUN_PREFILL = 1900       # tokens of the 36-layer qwen3-8b prefill
+FIT_ARCHS = ("qwen3-8b", "deepseek-v2-lite-16b")
+
+
+def _meta_walk(cfg, kind, batch, seq, microbatch=0):
+    """The dry run's walk of ``cfg``'s train or prefill step on meta, at
+    ``batch`` rows of ``seq`` tokens."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    step, args = dryrun.build_step(cfg, ShapeConfig(kind, kind, seq, batch),
+                                   batch, microbatch)
+    return dryrun.walk_step(step, args)
+
+
+def check_walk_on_card(torch, cfg, step, params, opt, toks):
+    """One real train step under the cost walk on the card counts the
+    same kernel calls, with the same work, as the dry run's walk of that
+    step on meta."""
+    from repro_torch.launch import dryrun
+    card = dryrun.walk_step(step, (params, opt, toks))
+    meta = _meta_walk(cfg, "train", toks.shape[0], toks.shape[1],
+                      TRAIN_MICROBATCH)
+    rec = {"kernel_calls": card["kernel_calls"],
+           "meta_kernel_calls": meta["kernel_calls"],
+           "kernel_work_equal": card["kernel_work"] == meta["kernel_work"],
+           "card_walk_peak_gb": card["memory"]["peak_bytes"] / 1e9,
+           "meta_walk_peak_gb": meta["memory"]["peak_bytes"] / 1e9,
+           "card_walk_flops": card["flops"], "meta_walk_flops": meta["flops"],
+           "card_walk_hbm_bytes": card["hbm_bytes"],
+           "meta_walk_hbm_bytes": meta["hbm_bytes"]}
+    require(card["kernel_calls"] == meta["kernel_calls"]
+            and rec["kernel_work_equal"] and card["kernel_calls"],
+            f"the card's walk of a {cfg.name} train step and the meta "
+            f"walk differ: {rec}")
+    return rec
+
+
+def _peak_row(label, meta, measured_bytes, step_s):
+    pred = meta["memory"]["peak_bytes"]
+    row = {"phase": "dryrun", "config": label,
+           "predicted_peak_gb": pred / 1e9,
+           "measured_peak_gb": measured_bytes / 1e9,
+           "ratio": pred / measured_bytes,
+           "walk_bound_s": meta["bound_s"], "walk_op_bound_s":
+           meta["op_bound_s"], "measured_step_s": step_s,
+           "walk_kernel_calls": meta["kernel_calls"],
+           "walk_seconds": meta["walk_s"]}
+    emit(row)
+    require(abs(row["ratio"] - 1) <= DRYRUN_TOL,
+            f"dryrun: {label}'s predicted peak is not within {DRYRUN_TOL} "
+            f"of the measured one: {row}")
+    return row
+
+
+def _prefill_peak(torch, device="cuda"):
+    """qwen3-8b at full depth prefills one ``DRYRUN_PREFILL``-token
+    prompt for real: its peak (the params and tokens, as the walk counts
+    its arguments, plus the allocator's high-water mark above them) and
+    seconds, beside the dry run's walk of the same step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.timing import Timer
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import lm
+    cfg = get_config("qwen3-8b")
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=device)
+    toks = torch.randint(1, cfg.vocab_size, (1, DRYRUN_PREFILL),
+                         generator=gen, device=device, dtype=torch.int32)
+    args = sum(t.untyped_storage().nbytes() for t in leaves(params)) \
+        + toks.untyped_storage().nbytes()
+    sync(torch, device)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = Timer()
+    out = lm.prefill(params, toks, cfg)
+    sync(torch, device)
+    secs = t.elapsed()
+    measured = torch.cuda.max_memory_allocated() - base + args
+    del out, params
+    meta = _meta_walk(cfg, "prefill", 1, DRYRUN_PREFILL)
+    return _peak_row(f"qwen3-8b prefill ({cfg.n_layers} layers, "
+                     f"{DRYRUN_PREFILL} tokens)", meta, measured, secs)
+
+
+def _outside_walk(torch):
+    """What the walk leaves out: the CUDA context and the libraries'
+    memory outside PyTorch's allocator (the card's used bytes less the
+    allocator's reserved ones, with its cache emptied), and the cuBLAS
+    workspace a first product on a new stream allocates."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    outside = total - free - torch.cuda.memory_reserved()
+    stream = torch.cuda.Stream()
+    x = torch.ones(256, 256, device="cuda", dtype=torch.bfloat16)
+    base = torch.cuda.memory_allocated()
+    with torch.cuda.stream(stream):
+        y = x @ x
+    stream.synchronize()
+    ws = torch.cuda.memory_allocated() - base - y.untyped_storage().nbytes()
+    del x, y
+    return {"context_and_libraries_gb": outside / 1e9,
+            "cublas_workspace_mb": ws / 1e6, "total_gb": total / 1e9}
+
+
+def phase_dryrun(torch, train_recs):
+    """The dry run beside the card: each train run's peak and step
+    seconds (``train_recs``, from ``phase_train``) against the dry run's
+    walk of the same step on meta, and the same for a 36-layer qwen3-8b
+    prefill run here; then ``fit_depth`` of FIT_ARCHS at TRAIN_RUNS'
+    shape against the card's free bytes, and what the walk leaves out."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    rows = []
+    for arch, rec in train_recs.items():
+        cfg = get_config(arch).scaled(n_layers=rec["layers"])
+        meta = _meta_walk(cfg, "train", rec["batch"], rec["seq"],
+                          rec["microbatch"])
+        rows.append(_peak_row(f"{arch} train ({rec['layers']} layers, "
+                              f"{rec['batch']} x {rec['seq']})", meta,
+                              rec["peak_gb"] * 1e9, rec["steady_step_s"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(_prefill_peak(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    outside = _outside_walk(torch)
+    emit({"phase": "dryrun", "outside_walk": outside})
+    free = float(torch.cuda.mem_get_info()[0])
+    for arch in FIT_ARCHS:
+        if arch not in train_recs:
+            continue
+        rec = train_recs[arch]
+        full = get_config(arch)
+        fit = dryrun.fit_depth(
+            full, ShapeConfig("train", "train", rec["seq"], rec["batch"]),
+            rec["batch"], rec["microbatch"], free)
+        emit({"phase": "dryrun", "fit": arch, "budget_gb": free / 1e9,
+              "depth": fit["depth"], "of": full.n_layers,
+              "trained_at": rec["layers"],
+              "peaks_gb": {d: p / 1e9 for d, p in fit["peaks"].items()}})
+    return rows
+
+
 def ptxas_summary(log: str):
     """nvcc's ``-Xptxas -v`` output per compiled kernel: [entry (mangled,
     cut to 90 characters), spill line, registers and shared memory]."""
@@ -4020,8 +4160,10 @@ def main(argv=None) -> int:
                         torch, fa)
             if set(archs) - {"qwen3-8b"}:
                 seconds("kernels", "bwd", phase_kernels_bwd, torch)
+            train_recs = {}
             run_train_phases(torch, archs, args.train_layers,
-                             args.train_seq)
+                             args.train_seq, train_recs)
+            seconds("dryrun", "", phase_dryrun, torch, train_recs)
             emit({"phase": "total", "seconds": total.elapsed()})
             print(smi, flush=True)
             return 0
@@ -4158,7 +4300,9 @@ def main(argv=None) -> int:
                                          *rest)
         gc.collect()
         torch.cuda.empty_cache()
-        serves += run_train_phases(torch)
+        train_recs = {}
+        serves += run_train_phases(torch, train_recs=train_recs)
+        seconds("dryrun", "", phase_dryrun, torch, train_recs)
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

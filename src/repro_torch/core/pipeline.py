@@ -9,8 +9,8 @@ pipeline's throughput is its slowest stage, the paper's §6.1 analysis:
 ``bound_stage`` prices each stage on one NVIDIA H100 80GB HBM3 at its
 700 W power limit, ``HBM_BYTES_PER_S`` and ``BF16_FLOPS_PER_S`` being
 NVIDIA's data-sheet peaks for the SXM part (3.35 TB/s of HBM, 989
-TFLOP/s dense bf16). ``measure_ppu`` times one PPU: CUDA events on the
-card, the port's clock on the CPU.
+TFLOP/s dense bf16), as ``kernels/work.py`` holds them. ``measure_ppu``
+times one PPU: CUDA events on the card, the port's clock on the CPU.
 """
 from __future__ import annotations
 
@@ -20,9 +20,9 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 from repro_torch.core.timing import Timer
+from repro_torch.kernels.work import HBM_BYTES_PER_S, PEAK_FLOPS
 
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS_PER_S = 989e12
+BF16_FLOPS_PER_S = PEAK_FLOPS["bfloat16"]
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,8 @@ shared library with a plain C interface, loaded through ``ctypes``. The
 build runs at first use, into ``build/repro_torch/<hash>/`` at the root
 of the checkout, keyed by a hash of every source and the compiler flags,
 so an edited source never loads a stale library. ``build_all`` starts
-one ``nvcc`` per source, all at once.
+one ``nvcc`` per source, all at once. ``route`` sends each wrapper's
+call to its plain version, its kernel or its ``meta`` shapes.
 """
 from __future__ import annotations
 
@@ -119,6 +120,24 @@ def load(name: str) -> ctypes.CDLL:
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def route(name: str, *ts) -> str:
+    """Where a wrapper's call goes, from its first tensor's device:
+    ``cpu`` (the plain version), ``cuda`` (the kernel) or ``meta`` (the
+    dry run: the kernel's outputs and scratch allocated with their shapes
+    and dtypes, nothing computed, launched or loaded, and no launch
+    counted; not a fallback, since meta holds no values). Any other
+    device raises, and so do non-contiguous inputs on cuda or meta."""
+    dev = ts[0].device.type
+    if dev == "cpu":
+        return dev
+    if dev not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda, cpu or meta, not "
+                         f"{ts[0].device}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} needs contiguous inputs")
+    return dev
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

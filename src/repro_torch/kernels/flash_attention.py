@@ -16,7 +16,9 @@ the autograd Function of B2 with its lse and B2-bwd.
 same functions in plain PyTorch (O(S^2) masked softmaxes, the
 ``ref.flash_attention_ref`` oracle and the VJP's formulas): each wrapper
 takes its plain version only for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernels against them.
+``chip_smoke.py`` hold the kernels against them. On ``meta`` tensors
+each wrapper returns its kernel's outputs as shapes alone, for the dry
+run; each call's work (``kernels/work.py``) goes to the cost walk.
 
 Layouts follow the JAX package: q [B,H,S,hd], k [B,KV,S,hd], v
 [B,KV,S,hd_v] -> [B,H,S,hd_v]. The TPU kernel takes one hd for all four;
@@ -32,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -131,18 +133,6 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def _on_card(name: str, *ts) -> bool:
-    """True for CUDA tensors, False for CPU ones; raise for any other
-    device, or for CUDA tensors the kernels cannot take."""
-    if ts[0].device.type == "cpu":
-        return False
-    if ts[0].device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {ts[0].device}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} needs contiguous inputs")
-    return True
-
-
 def _aligned(*ts):
     """The bf16 kernels copy 16-byte chunks: a view at an odd offset (a
     one-token prompt's slice of a projection) is copied first."""
@@ -180,7 +170,9 @@ def flash_attention(q, k, v, *, window: int = 0,
     returns ``(out, lse)``, lse [B,H,S] float32 written by the same
     launch; without it the kernel writes out alone. With grad on and an
     input that requires it the call goes through ``FlashAttention``
-    (its lse is saved, not returned: asking for it then raises)."""
+    (its lse is saved, not returned: asking for it then raises). Meta
+    tensors give out (and lse) with the kernel's shapes and dtypes and
+    compute nothing: the dry run's path, never a fallback."""
     _check(q, k, v)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -193,15 +185,22 @@ def flash_attention(q, k, v, *, window: int = 0,
 
 
 def _flash_fwd(q, k, v, window, scale, return_lse):
-    if not _on_card("flash_attention", q, k, v):
+    where = _build.route("flash_attention", q, k, v)
+    if where == "cpu":
         return flash_attention_plain(q, k, v, window=window, scale=scale,
                                      return_lse=return_lse)
-    q, k, v = _aligned(q, k, v)
     B, H, S, hd = q.shape
     hd_v = v.shape[3]
+    work.report("flash_attention", work.flash_attention(
+        B, H, k.shape[1], S, hd, hd_v, int(window), work.dtype_name(q),
+        lse=return_lse))
+    if where == "cuda":
+        q, k, v = _aligned(q, k, v)
     out = q.new_empty((B, H, S, hd_v))
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if where == "meta":
+        return (out, lse) if return_lse else out
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -227,8 +226,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
     launch the B2-bwd kernels, a dk/dv pass and a dq pass with no
     atomics (the same bits on every call): bf16 on the tensor cores (P
     and dS rounded to bf16 before their products, fp32 sums), fp32 on
-    the CUDA cores; CPU tensors take ``flash_attention_bwd_plain``.
-    Anything else raises."""
+    the CUDA cores; CPU tensors take ``flash_attention_bwd_plain``; meta
+    tensors give dq, dk, dv (and allocate delta) with the kernels' shapes
+    and compute nothing (the dry run). Anything else raises."""
     _check(q, k, v)
     B, H, S, hd = q.shape
     hd_v = v.shape[3]
@@ -241,15 +241,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, window: int = 0,
     if lse.shape != (B, H, S) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be [{B},{H},{S}] float32; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    if not _on_card("flash_attention_bwd", q, k, v, out, lse, dout):
+    where = _build.route("flash_attention_bwd", q, k, v, out, lse, dout)
+    if where == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          window=window, scale=scale)
+    work.report("flash_attention_bwd", work.flash_attention_bwd(
+        B, H, k.shape[1], S, hd, hd_v, int(window), work.dtype_name(q)))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    q, k, v, dout = _aligned(q, k, v, dout)
+    if where == "cuda":
+        q, k, v, dout = _aligned(q, k, v, dout)
     # D_i = rowsum(dout * out) over the hd_v columns, one elementwise
     # reduction beside the kernels
     delta = (dout.float() * out.float()).sum(-1)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if where == "meta":
+        return dq, dk, dv
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -5,7 +5,8 @@
 ``repro.kernels.linear_scan.linear_scan``. ``linear_scan_plain`` is the
 sequential loop of the ``ref.linear_scan_ref`` oracle in plain PyTorch:
 the wrapper takes it only for CPU tensors, and the tests and
-``chip_smoke.py`` hold the kernel against it.
+``chip_smoke.py`` hold the kernel against it; ``meta`` tensors get the
+kernel's outputs as shapes alone, for the dry run.
 
 Contract (the TPU kernel's): a, b [B, T, D, N] and h0 [B, D, N], float32
 -> (h_all [B, T, D, N], h_last [B, D, N]), float32. The Mamba layer
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 
 def linear_scan_plain(a, b, h0):
@@ -96,8 +97,9 @@ class _LinearScan(torch.autograd.Function):
 def linear_scan(a, b, h0):
     """h_all, h_last of the recurrence. CUDA tensors launch the B6 kernel
     (one thread per (b, d, n) element, looping over t); CPU tensors take
-    ``linear_scan_plain``. With grad on and an input that requires it,
-    the call goes through ``_LinearScan``."""
+    ``linear_scan_plain``; meta tensors give (h_all, h_last) as shapes
+    and compute nothing (the dry run). With grad on and an input that
+    requires it, the call goes through ``_LinearScan``."""
     _check(a, b, h0)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad
                                     or h0.requires_grad):
@@ -106,15 +108,15 @@ def linear_scan(a, b, h0):
 
 
 def _scan(a, b, h0):
-    if a.device.type == "cpu":
+    where = _build.route("linear_scan", a, b, h0)
+    if where == "cpu":
         return linear_scan_plain(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_scan runs on cuda or cpu, not {a.device}")
-    if not all(t.is_contiguous() for t in (a, b, h0)):
-        raise ValueError("linear_scan needs contiguous inputs")
     Bt, T, D, N = a.shape
+    work.report("linear_scan", work.linear_scan(Bt, T, D, N))
     h_all = torch.empty_like(a)
     h_last = torch.empty_like(h0)
+    if where == "meta":
+        return h_all, h_last
     lib = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
@@ -133,7 +135,8 @@ def linear_scan_bwd(a, h0, h_all, g_all, g_last):
     """(da, db, dh0) of the recurrence from the saved a, h0, h_all and the
     gradients g_all [B,T,D,N] and g_last [B,D,N], all float32. CUDA
     tensors launch the B6-bwd kernel (one thread per (b, d, n) element,
-    t looping downwards); CPU tensors take ``linear_scan_bwd_plain``."""
+    t looping downwards); CPU tensors take ``linear_scan_bwd_plain``;
+    meta tensors give (da, db, dh0) as shapes and compute nothing."""
     _check(a, g_all, h0)
     if h_all.shape != a.shape or g_last.shape != h0.shape \
             or h_all.dtype != torch.float32 or g_last.dtype != torch.float32:
@@ -144,16 +147,15 @@ def linear_scan_bwd(a, h0, h_all, g_all, g_last):
     ts = (a, h0, h_all, g_all, g_last)
     if len({t.device for t in ts}) != 1:
         raise ValueError("linear_scan_bwd: all inputs must be on one device")
-    if a.device.type == "cpu":
+    where = _build.route("linear_scan_bwd", *ts)
+    if where == "cpu":
         return linear_scan_bwd_plain(*ts)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_scan_bwd runs on cuda or cpu, not "
-                         f"{a.device}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("linear_scan_bwd needs contiguous inputs")
     Bt, T, D, N = a.shape
+    work.report("linear_scan_bwd", work.linear_scan_bwd(Bt, T, D, N))
     da, db, dh0 = torch.empty_like(a), torch.empty_like(a), \
         torch.empty_like(h0)
+    if where == "meta":
+        return da, db, dh0
     lib = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):

@@ -7,7 +7,8 @@ same function in plain PyTorch, as ``ref.moe_dispatch_ref`` computes it
 (``index_put_`` into a zeroed ``[E, C+1, D]`` whose row C takes the
 dropped rows, then a slice): the wrapper takes it only for CPU tensors,
 and the tests and ``chip_smoke.py`` hold the kernel against it, for
-exact equality. ``moe_dispatch_tiles_plain`` is the kernel's own
+exact equality; ``meta`` tensors get the kernel's output as a shape
+alone, for the dry run. ``moe_dispatch_tiles_plain`` is the kernel's own
 algorithm in plain PyTorch (per tile of slots, the row that lands in
 each slot, then one write of every slot), which the CPU tests hold
 equal to both.
@@ -34,7 +35,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -138,8 +139,9 @@ def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
                  capacity: int):
     """tokens [T,D] -> per-expert capacity buffers [E,C,D]. CUDA tensors
     launch the B7 kernel (one launch that writes every slot once, T = 0
-    included); CPU tensors take ``moe_dispatch_plain``. With grad on and
-    tokens that require it, the call goes through ``_MoeDispatch``."""
+    included); CPU tensors take ``moe_dispatch_plain``; meta tensors give
+    the buffers as a shape and compute nothing (the dry run). With grad
+    on and tokens that require it, the call goes through ``_MoeDispatch``."""
     _check(tokens, expert_ids, positions, n_experts, capacity)
     if torch.is_grad_enabled() and tokens.requires_grad:
         return _MoeDispatch.apply(tokens, expert_ids, positions, n_experts,
@@ -148,17 +150,18 @@ def moe_dispatch(tokens, expert_ids, positions, n_experts: int,
 
 
 def _dispatch(tokens, expert_ids, positions, n_experts, capacity):
-    if tokens.device.type == "cpu":
+    where = _build.route("moe_dispatch", tokens, expert_ids, positions)
+    if where == "cpu":
         return moe_dispatch_plain(tokens, expert_ids, positions, n_experts,
                                   capacity)
-    if tokens.device.type != "cuda":
-        raise ValueError(f"moe_dispatch runs on cuda or cpu, not "
-                         f"{tokens.device}")
-    if not all(t.is_contiguous() for t in (tokens, expert_ids, positions)):
-        raise ValueError("moe_dispatch needs contiguous inputs")
     T, D = tokens.shape
+    # as many rows kept as the buffer holds: the ids stay on the device
+    work.report("moe_dispatch", work.moe_dispatch(
+        T, D, n_experts, capacity, work.dtype_name(tokens)))
     out = torch.empty(n_experts, capacity, D, dtype=tokens.dtype,
                       device=tokens.device)
+    if where == "meta":
+        return out
     lib = _lib()
     stream = torch.cuda.current_stream(tokens.device).cuda_stream
     with torch.cuda.device(tokens.device):
@@ -177,7 +180,8 @@ moe_dispatch.launches = 0
 def moe_dispatch_bwd(dbuf, expert_ids, positions):
     """The tokens' gradient [T,D] from the buffer's dbuf [E,C,D]. CUDA
     tensors launch the B7-bwd kernel (one launch, a warp a row, every row
-    written once); CPU tensors take ``moe_dispatch_bwd_plain``."""
+    written once); CPU tensors take ``moe_dispatch_bwd_plain``; meta
+    tensors give the gradient as a shape and compute nothing."""
     if dbuf.dim() != 3 or expert_ids.dim() != 1 \
             or positions.shape != expert_ids.shape:
         raise ValueError(f"want dbuf [E,C,D], expert_ids and positions [T]; "
@@ -193,15 +197,15 @@ def moe_dispatch_bwd(dbuf, expert_ids, positions):
                         f"{positions.dtype}")
     if {t.device for t in (dbuf, expert_ids, positions)} != {dbuf.device}:
         raise ValueError("all inputs must be on one device")
-    if dbuf.device.type == "cpu":
+    where = _build.route("moe_dispatch_bwd", dbuf, expert_ids, positions)
+    if where == "cpu":
         return moe_dispatch_bwd_plain(dbuf, expert_ids, positions)
-    if dbuf.device.type != "cuda":
-        raise ValueError(f"moe_dispatch_bwd runs on cuda or cpu, not "
-                         f"{dbuf.device}")
-    if not all(t.is_contiguous() for t in (dbuf, expert_ids, positions)):
-        raise ValueError("moe_dispatch_bwd needs contiguous inputs")
     T = expert_ids.shape[0]
+    work.report("moe_dispatch_bwd", work.moe_dispatch_bwd(
+        T, D, E, C, work.dtype_name(dbuf)))
     out = torch.empty(T, D, dtype=dbuf.dtype, device=dbuf.device)
+    if where == "meta":
+        return out
     lib = _lib()
     stream = torch.cuda.current_stream(dbuf.device).cuda_stream
     with torch.cuda.device(dbuf.device):

@@ -8,7 +8,8 @@ in ``csrc/paged_attention.cu``, which replaces the Pallas TPU kernel
 ``ref.paged_decode_attention_ref`` oracle with the kernel's l == 0 guard,
 so a row of length 0 returns 0): the wrapper takes it only for CPU
 tensors, and the tests and ``chip_smoke.py`` hold the kernel against it.
-The kernel splits each slot's table into partitions of
+On ``meta`` tensors the wrapper returns the kernel's output as a shape
+alone, for the dry run. The kernel splits each slot's table into partitions of
 ``partition_pages(MP, page)`` pages (a split pass and a reduce pass);
 ``paged_decode_split_plain`` is that algorithm in plain PyTorch, for the
 tests only.
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,25 +155,26 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
                            scale: Optional[float] = None):
     """Single-token attention through a page table. CUDA tensors launch
     the B1 kernels (split pass, then reduce pass; ``launches`` counts
-    calls); CPU tensors take ``paged_decode_plain``. The kernel reads
-    min(length, MP * page) positions of each slot and never reads the
-    table past MP."""
+    calls); CPU tensors take ``paged_decode_plain``; meta tensors give
+    the output (and allocate the partials) with the kernel's shapes and
+    compute nothing (the dry run). The kernel reads min(length, MP *
+    page) positions of each slot and never reads the table past MP."""
     _check(q, k_pages, v_pages, page_table, lengths)
-    if q.device.type == "cpu":
+    where = _build.route("paged_decode_attention", q, k_pages, v_pages,
+                         page_table, lengths)
+    if where == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, page_table, lengths,
                                   scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention runs on cuda or cpu, "
-                         f"not {q.device}")
-    ts = (q, k_pages, v_pages, page_table, lengths)
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("paged_decode_attention needs contiguous inputs")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_decode_attention reads the pools in 16-byte "
-                         "loads: they must be 16-byte aligned")
     B, H, hd = q.shape
     NP, page, KV, _ = k_pages.shape
     MP = page_table.shape[1]
+    if where == "cuda" and (k_pages.data_ptr() % 16
+                            or v_pages.data_ptr() % 16):
+        raise ValueError("paged_decode_attention reads the pools in 16-byte "
+                         "loads: they must be 16-byte aligned")
+    # every position the table can hold: the lengths stay on the device
+    work.report("paged_decode_attention", work.paged_decode_attention(
+        B, H, KV, hd, MP, page, work.dtype_name(q)))
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     pp = partition_pages(MP, page)
     splits = -(-MP // pp)
@@ -180,6 +182,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths, *,
     # partials of the split pass: acc [B,H,splits,hd], then (m, l)
     scratch = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
                           device=q.device)
+    if where == "meta":
+        return out
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

@@ -6,7 +6,8 @@
 ``repro.kernels.ssm_decode.ssm_decode_step``. ``ssm_decode_step_plain``
 is the ``ref.ssm_decode_step_ref`` oracle in plain PyTorch: the wrapper
 takes it only for CPU tensors, and the tests and ``chip_smoke.py`` hold
-the kernel against it.
+the kernel against it; ``meta`` tensors get the kernel's outputs as
+shapes alone, for the dry run.
 
 Contract (the TPU kernel's): h, dA [B, Di, N]; dtx (dt * x_conv) [B, Di];
 B_ssm, C_ssm [B, N], all float32 -> (y [B, Di], h' [B, Di, N]) float32
@@ -22,7 +23,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 
 def ssm_decode_step_plain(h, dA, dtx, B_ssm, C_ssm):
@@ -70,20 +71,20 @@ def ssm_decode_step(h, dA, dtx, B_ssm, C_ssm):
     """(y, h') of one token. CUDA tensors launch the B5 kernel (four n of
     one (b, d) a thread, or one where N < 4 or a pointer is not 16-byte
     aligned; y reduced over N with warp shuffles), which writes h' to a
-    fresh tensor; CPU tensors take ``ssm_decode_step_plain``."""
+    fresh tensor; CPU tensors take ``ssm_decode_step_plain``; meta
+    tensors give (y, h') as shapes and compute nothing (the dry run)."""
     _check(h, dA, dtx, B_ssm, C_ssm)
-    if h.device.type == "cpu":
-        return ssm_decode_step_plain(h, dA, dtx, B_ssm, C_ssm)
-    if h.device.type != "cuda":
-        raise ValueError(f"ssm_decode_step runs on cuda or cpu, not "
-                         f"{h.device}")
     ts = (h, dA, dtx, B_ssm, C_ssm)
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("ssm_decode_step needs contiguous inputs")
+    where = _build.route("ssm_decode_step", *ts)
+    if where == "cpu":
+        return ssm_decode_step_plain(h, dA, dtx, B_ssm, C_ssm)
     B, Di, N = h.shape
     kernel_sizes_fit(B, Di, N)
+    work.report("ssm_decode_step", work.ssm_decode_step(B, Di, N))
     y = torch.empty(B, Di, dtype=torch.float32, device=h.device)
     h_out = torch.empty_like(h)
+    if where == "meta":
+        return y, h_out
     lib = _lib()
     stream = torch.cuda.current_stream(h.device).cuda_stream
     with torch.cuda.device(h.device):

@@ -9,7 +9,8 @@ CUDA kernels in ``csrc/wkv6.cu``, which replace the Pallas TPU kernels
 ``wkv6_decode_plain`` the einsums of its decode step (the
 ``ref.wkv6_decode_ref`` oracle), in plain PyTorch: the wrappers take them
 only for CPU tensors, and the tests and ``chip_smoke.py`` hold the
-kernels against them. ``wkv6_chunked_passes_plain`` is the B4 kernel's
+kernels against them; ``meta`` tensors get the kernels' outputs as
+shapes alone, for the dry run. ``wkv6_chunked_passes_plain`` is the B4 kernel's
 own chunk-parallel algorithm (every chunk's state increment, a scan of
 the carry over the chunks, every chunk's output) in plain PyTorch, which
 the CPU tests hold against the chunk-serial version and the JAX package.
@@ -40,7 +41,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128      # B4 keeps a chunk's tiles and S_c on chip
@@ -150,14 +151,6 @@ def _check_common(name, rkv, f32s, u, state):
     if len(devs) != 1:
         raise ValueError(f"{name}: all inputs must be on one device; got "
                          f"{devs}")
-
-
-def _launch_checks(name, ts):
-    dev = ts[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError(f"{name} needs contiguous inputs")
 
 
 def wkv6_chunked_bwd_plain(r, k, v, logw, u, state0, dy, ds_out,
@@ -339,8 +332,10 @@ def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
     kernel, three device kernels a call in the passes of
     ``wkv6_chunked_passes_plain`` (the ragged tail is masked in the
     kernel, no padded copy; ``launches`` counts calls); CPU tensors take
-    ``wkv6_chunked_plain``. With grad on and an input that requires it,
-    the call goes through ``_Wkv6Chunked``."""
+    ``wkv6_chunked_plain``; meta tensors give (y, s_out) as shapes (and
+    allocate the workspace) and compute nothing (the dry run). With grad
+    on and an input that requires it, the call goes through
+    ``_Wkv6Chunked``."""
     _check_chunked(r, k, v, logw, u, state0, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state0)):
@@ -350,15 +345,17 @@ def wkv6_chunked(r, k, v, logw, u, state0, *, chunk: int = 32):
 
 def _chunked(r, k, v, logw, u, state0, chunk):
     B, S, H, hd = r.shape
-    if r.device.type == "cpu":
-        return wkv6_chunked_plain(r, k, v, logw, u, state0, chunk=chunk)
     ts = (r, k, v, logw, u, state0)
-    _launch_checks("wkv6_chunked", ts)
+    where = _build.route("wkv6_chunked", *ts)
+    if where == "cpu":
+        return wkv6_chunked_plain(r, k, v, logw, u, state0, chunk=chunk)
     C = min(chunk, S)
     if hd > MAX_HEAD_DIM or C > MAX_CHUNK:
         raise ValueError(f"wkv6_chunked: the kernel takes hd <= "
                          f"{MAX_HEAD_DIM} and chunks <= {MAX_CHUNK}; got "
                          f"hd={hd}, chunk={C}")
+    work.report("wkv6_chunked", work.wkv6_chunked(B, S, H, hd, C,
+                                                  work.dtype_name(r)))
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(state0)
     # the kernel's workspace: each chunk's state increment, overwritten by
@@ -368,6 +365,8 @@ def _chunked(r, k, v, logw, u, state0, chunk):
                      device=r.device)
     wl = torch.empty(B * H * n_chunks * hdp, dtype=torch.float32,
                      device=r.device)
+    if where == "meta":
+        return y, s_out
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
@@ -394,8 +393,9 @@ def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
     state up), every chunk's gradients (no atomics, the same bits on every
     call; ``launches`` counts calls), with du's per-chunk sums added over
     the batch and the chunks beside them; CPU tensors take
-    ``wkv6_chunked_bwd_plain``. The kernels take hd and C up to
-    ``MAX_HEAD_DIM`` and ``MAX_CHUNK``, as B4's."""
+    ``wkv6_chunked_bwd_plain``; meta tensors give the gradients as shapes
+    (and allocate the workspace) and compute nothing. The kernels take hd
+    and C up to ``MAX_HEAD_DIM`` and ``MAX_CHUNK``, as B4's."""
     _check_chunked(r, k, v, logw, u, state0, chunk)
     if dy.shape != r.shape or ds_out.shape != state0.shape \
             or dy.dtype != torch.float32 or ds_out.dtype != torch.float32:
@@ -407,16 +407,18 @@ def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
     if len({t.device for t in ts}) != 1:
         raise ValueError("wkv6_chunked_bwd: all inputs must be on one "
                          "device")
-    if r.device.type == "cpu":
+    where = _build.route("wkv6_chunked_bwd", *ts)
+    if where == "cpu":
         return wkv6_chunked_bwd_plain(r, k, v, logw, u, state0, dy, ds_out,
                                       chunk=chunk)
-    _launch_checks("wkv6_chunked_bwd", ts)
     B, S, H, hd = r.shape
     C = min(chunk, S)
     if hd > MAX_HEAD_DIM or C > MAX_CHUNK:
         raise ValueError(f"wkv6_chunked_bwd: the kernels take hd <= "
                          f"{MAX_HEAD_DIM} and chunks <= {MAX_CHUNK}; got "
                          f"hd={hd}, chunk={C}")
+    work.report("wkv6_chunked_bwd", work.wkv6_chunked_bwd(
+        B, S, H, hd, work.dtype_name(r)))
     dr, dk, dv = (torch.empty_like(t) for t in (r, k, v))
     dlogw = torch.empty_like(logw)
     ds0 = torch.empty_like(state0)
@@ -431,6 +433,9 @@ def wkv6_chunked_bwd(r, k, v, logw, u, state0, dy, ds_out, *,
                   for _ in range(2))
     wl, wq = (torch.empty(B * H * n_chunks * hdp, dtype=torch.float32,
                           device=r.device) for _ in range(2))
+    if where == "meta":
+        # the bonus's gradient, summed as on the card
+        return dr, dk, dv, dlogw, du_part.sum((0, 2)), ds0
     lib = _bwd_lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
@@ -452,7 +457,8 @@ def wkv6_decode(r, k, v, w, u, state):
     """One WKV-6 token per (batch, head). CUDA tensors launch the B3
     kernel (a block per 16 value columns of one (batch, head)), which
     writes the new state to a fresh tensor; CPU tensors take
-    ``wkv6_decode_plain``."""
+    ``wkv6_decode_plain``; meta tensors give (y, state) as shapes and
+    compute nothing (the dry run)."""
     if r.dim() != 3 or any(t.shape != r.shape for t in (k, v, w)):
         raise ValueError(f"wkv6_decode: want r, k, v, w [B,H,hd]; got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")
@@ -462,15 +468,19 @@ def wkv6_decode(r, k, v, w, u, state):
                          f"[{B},{H},{hd},{hd}]; got {tuple(u.shape)}, "
                          f"{tuple(state.shape)}")
     _check_common("wkv6_decode", (r, k, v), (w,), u, state)
-    if r.device.type == "cpu":
+    where = _build.route("wkv6_decode", r, k, v, w, u, state)
+    if where == "cpu":
         return wkv6_decode_plain(r, k, v, w, u, state)
-    ts = (r, k, v, w, u, state)
-    _launch_checks("wkv6_decode", ts)
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"wkv6_decode: the kernel takes hd <= "
                          f"{MAX_HEAD_DIM}; got {hd}")
+    work.report("wkv6_decode", work.wkv6_decode(B, H, hd,
+                                                work.dtype_name(r)))
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s_out = torch.empty_like(state)
+    if where == "meta":
+        return y, s_out
+    ts = (r, k, v, w, u, state)
     lib = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):

@@ -409,3 +409,40 @@ def serve_state_specs(cfg: ModelConfig) -> dict:
     """Logical sharding axes of ``init_serve_state``'s tree."""
     return {"caches": tf.stack_cache_specs(cfg), "lengths": ("batch",),
             "positions": ("batch",)}
+
+
+# --------------------------------------------------------------------------
+# dry-run input specs
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape, tp: int = 1,
+                batch: Optional[int] = None, kv_layout: str = "dense",
+                page_size: int = 16) -> dict:
+    """The step's inputs for a ``configs.shapes.ShapeConfig`` as ``meta``
+    tensors (the reference's ``lm.input_specs``): tokens [B,S] int32 for
+    train and prefill, tokens [B] and ``init_serve_state(cfg, B, S)`` for
+    decode. ``batch`` is B (the shape's ``global_batch`` if not given).
+    ``kv_layout="paged"`` gives decode ``init_paged_serve_state``'s page
+    pools instead, S tokens of pages a slot (plain attention or MLA
+    stacks; others raise). The port's serving state holds the unsharded
+    KV heads, so decode takes ``tp`` 1 only."""
+    B = shape.global_batch if batch is None else batch
+    S = shape.seq_len
+    meta = dict(dtype=torch.int32, device="meta")
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": torch.empty((B, S), **meta)}
+    if shape.kind != "decode":
+        raise ValueError(shape.kind)
+    if tp != 1:
+        raise ValueError(f"input_specs: the port's serving state holds "
+                         f"every KV head (tp 1), not tp {tp}")
+    if kv_layout == "dense":
+        state = init_serve_state(cfg, B, S, device="meta")
+    elif kv_layout == "paged":
+        mp = -(-S // page_size)
+        state = init_paged_serve_state(cfg, B, B * mp, page_size, mp,
+                                       device="meta")
+    else:
+        raise ValueError(f"input_specs: kv_layout is dense or paged, not "
+                         f"{kv_layout!r}")
+    return {"tokens": torch.empty((B,), **meta), "state": state}

@@ -1458,3 +1458,41 @@ def test_reshard_tree_on_a_one_rank_cuda_mesh(cuda):
     for a, b in zip(leaves((params, opt)), leaves(placed)):
         assert b.is_cuda and b.dtype == a.dtype
         assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b",
+                                  "deepseek-v2-lite-16b", "rwkv6-1.6b",
+                                  "jamba-v0.1-52b"])
+def test_card_walk_counts_the_meta_walks_kernel_calls(cuda, arch):
+    """A SMOKE train step on the card under the cost walk (batch 2 in 2
+    microbatches of 300 tokens): each wrapper launches its kernel once a
+    call the walk counts, and the calls and their work equal the dry
+    run's walk of the same step on meta, which launches nothing."""
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.train_step import make_train_step
+    cfg = SMOKE_CONFIGS[arch]
+    wrappers = {"flash_attention": fa.flash_attention,
+                "flash_attention_bwd": fa.flash_attention_bwd,
+                "moe_dispatch": md.moe_dispatch,
+                "moe_dispatch_bwd": md.moe_dispatch_bwd,
+                "linear_scan": ls.linear_scan,
+                "linear_scan_bwd": ls.linear_scan_bwd,
+                "wkv6_chunked": wkv6.wkv6_chunked,
+                "wkv6_chunked_bwd": wkv6.wkv6_chunked_bwd}
+    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, size=(2, 300)).astype(np.int32), device=cuda)
+    step = make_train_step(cfg, microbatch=2)
+    before = {n: w.launches for n, w in wrappers.items()}
+    card = dryrun.walk_step(step, (params, adamw_init(params), toks))
+    launched = {n: w.launches - before[n] for n, w in wrappers.items()
+                if w.launches != before[n]}
+    meta_params = lm.abstract_params(cfg)
+    before = {n: w.launches for n, w in wrappers.items()}
+    meta = dryrun.walk_step(step, (meta_params, adamw_init(meta_params),
+                                   torch.empty_like(toks, device="meta")))
+    assert {n: w.launches for n, w in wrappers.items()} == before
+    assert card["kernel_calls"] == launched == meta["kernel_calls"]
+    assert card["kernel_work"] == meta["kernel_work"]

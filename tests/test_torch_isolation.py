@@ -37,6 +37,7 @@ def test_no_jax_or_repro_imports():
 def test_engine_and_launcher_import_without_jax_or_repro():
     code = ("import sys\n"
             "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
