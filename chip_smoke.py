@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only train [--train-layers N] [--arch A ...]
+    python3 chip_smoke.py --only examples
 
 The second builds the kernels and runs only the backward kernels' rows
 (B2-bwd at qwen3-8b's train shape; the others for the other --arch
 configs) and the training phases (8 below) of the --arch configs (all
 four of TRAIN_ARCHS if none is given), then the dryrun phase over them,
-printing no result line.
+printing no result line; the third builds the kernels and runs only the
+examples phase, printing no result line.
 
 Phases, each printing one JSON object per line:
 
@@ -179,6 +181,23 @@ Phases, each printing one JSON object per line:
              train runs' shape (``fit_depth``); the CUDA context, the
              libraries' memory and the cuBLAS workspace, which the walk
              leaves out;
+   examples — the six scripts of examples_torch/, each through its
+             ``run`` on the card and, in worker processes meanwhile, on
+             the CPU from the same weights and inputs: the quickstart on
+             all ten SMOKE configs in fp32 (TF32 off; loss 1e-5, grad
+             norm 1e-4, tokens under the margin rule) and at full width
+             in bf16 for the six configs trained nowhere else here, at
+             the depth (up to 2) the dry run's walk fits into the free
+             bytes, the peak within 5% of the walk's, 4 steps on a
+             repeated batch with the loss falling; serve_kv on SMOKE
+             qwen3-8b in fp32 on both layouts, the three schedulers,
+             prefill chunks 0 and 16, greedy and t = 0.8 (streams under
+             the margin rule, every counter equal); serve_live,
+             crash_recovery and ft_demo at their own sizes (outcomes,
+             streams, crash logs, FT counters equal); train_lm's main at
+             its 200 steps (the loss falling, tokens/s); the quickstart's
+             main on its default device; every run's launches held to
+             the model calls and gradients it made;
 9. the kernels line, the total wall time, the nvidia-smi line, and the
    final ok line.
 
@@ -3965,6 +3984,562 @@ def phase_dryrun(torch, train_recs):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the examples phase: examples_torch/ on the card against the CPU
+# --------------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples_torch"
+# the quickstart's train step, card against CPU in fp32 with TF32 off:
+# the loss within this share of max(1, |loss|), the grad norm within the
+# next (fp32 sums in another order over one step)
+QS_LOSS_TOL = 1e-5
+QS_GRAD_NORM_TOL = 1e-4
+# the margin rule for greedy tokens: the card's may differ from the CPU's
+# only where the CPU's top-1 logit leads its top-2 by less than this (a
+# sampled draw by less than DRAW_TIE); the streams are compared up to the
+# first such token
+GREEDY_TIE = 1e-3
+# the configs no train step had run for on the card before this phase:
+# trained at full width in bf16 at the quickstart's shapes, at the
+# deepest of up to QS_FULL_DEPTH layers that the dry run's walk fits
+QS_FULL = ("qwen1.5-4b", "nemotron-4-15b", "h2o-danube-3-4b",
+           "chameleon-34b", "musicgen-large", "moonshot-v1-16b-a3b")
+QS_FULL_DEPTH = 2
+# serve_kv's runs: (kv layout, scheduler, prefill chunk, temperature)
+SERVE_KV_RUNS = tuple((layout, sched, chunk, temp)
+                      for layout in ("paged", "dense")
+                      for sched in ("fcfs", "priority", "round_robin")
+                      for chunk in (0, 16) for temp in (0.0, 0.8))
+EXAMPLE_CPU_WORKERS = 6
+EXAMPLES_CKPT = ROOT / "build" / "smoke_examples"
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _numpy_tree(tree):
+    """CPU tensors -> (float32 array, dtype name) leaves: numpy has no
+    bfloat16, and float32 holds a bfloat16 exactly."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return tree.float().numpy(), str(tree.dtype).split(".")[1]
+
+
+def _torch_tree(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_torch_tree(torch, v) for v in tree]
+    array, dtype = tree
+    return torch.from_numpy(array).to(getattr(torch, dtype))
+
+
+def _cpu_worker_init():
+    """A CPU worker of the examples phase: one torch thread (these
+    SMOKE-sized runs only lose to more)."""
+    import torch
+    torch.set_num_threads(1)
+
+
+def example_on_cpu(name, cfg, weights, inputs, opts):
+    """``examples_torch/<name>.run`` on the CPU in a worker process, on
+    ``weights`` (a numpy tree of fp32 CPU params)."""
+    import torch
+    params = _torch_tree(torch, weights)
+    return load_example(name).run(cfg, params, inputs, "cpu", **opts)
+
+
+class model_calls:
+    """Count the model entry points' calls while open (measurement only):
+    ``lm.prefill`` (``full_prefills``, and the 256-token scan chunks of
+    its prompts), ``lm.prefill_chunk`` and ``lm.decode_step``, the
+    counters ``serve_path``'s launches follow. The engine and
+    ``lm.decode_span`` look these up in ``lm`` at each call."""
+
+    NAMES = {"prefill": "full_prefills", "prefill_chunk": "prefill_chunks",
+             "decode_step": "decode_steps"}
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        from repro_torch.models.mamba import CHUNK
+        self.lm = lm
+        self.inner = {n: getattr(lm, n) for n in self.NAMES}
+        self.calls = dict.fromkeys((*self.NAMES.values(), "scan_chunks"), 0)
+
+        def counted(name):
+            def call(params, tokens, *a, **kw):
+                self.calls[self.NAMES[name]] += 1
+                if name == "prefill":
+                    self.calls["scan_chunks"] += -(-tokens.shape[1] // CHUNK)
+                return self.inner[name](params, tokens, *a, **kw)
+            return call
+        for name in self.NAMES:
+            setattr(lm, name, counted(name))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for name, fn in self.inner.items():
+            setattr(self.lm, name, fn)
+
+
+def hold_example_launches(label, cfg, layout, wrappers, calls, grads=0,
+                          grad_seq=0, forwards=0):
+    """Every kernel launched exactly as ``serve_path(cfg, layout)`` x the
+    model calls counted, plus ``train_kernel_calls(cfg, grad_seq)`` x
+    ``grads`` gradients and B2 once an attention layer for each of
+    ``forwards`` no-grad forwards; every other kernel never. Returns the
+    record ``kernel_line`` reads."""
+    launches = {n: w.launches for n, w in wrappers.items()}
+    want = {n: sum(k * calls[c] for c, k in per.items())
+            for n, per in serve_path(cfg, layout).items()}
+    for n, c in (train_kernel_calls(cfg, grad_seq).items()
+                 if grads else ()):
+        want[n] = want.get(n, 0) + c * grads
+    if forwards:
+        want["flash_attention"] = (want.get("flash_attention", 0) + forwards
+                                   * cfg.layer_kinds().count("attn"))
+    want = {n: c for n, c in want.items() if c}
+    # (a run may launch none: dense decode and prefill chunks attend in
+    # plain PyTorch, as the reference does in jnp)
+    require(all(launches[n] == want.get(n, 0) for n in launches),
+            f"examples {label}: launches {launches} != {want} (model calls "
+            f"{calls}, {grads} gradients on {grad_seq} tokens, {forwards} "
+            f"forwards)")
+    return {"label": f"examples {label}", "launches": launches,
+            "launch_path": {n: {"calls": c} for n, c in want.items()},
+            "mla": False}
+
+
+def _rel_err(a, b):
+    return abs(a - b) / max(1.0, abs(b))
+
+
+def _first_difference(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None
+
+
+def _cpu_margin(torch, cfg, params, prompt, stream, i, temperature=0.0,
+                top_k=0, top_p=1.0, seed=0, req_id=0):
+    """The CPU's lead of its token ``i`` over the runner-up, from the
+    prompt and the stream before it prefilled at once: the raw logits'
+    top-1 minus top-2 for a greedy token, for a sampled one the same of
+    the Gumbel-perturbed masked logits the draw takes its argmax of
+    (keys ``(seed, req_id, i)``). Returns (margin, the tie it must be
+    under)."""
+    import numpy as np
+    from repro_torch.kernels import sampling as ks
+    from repro_torch.models import lm
+    toks = np.concatenate([prompt, np.asarray(stream[:i], np.int32)])
+    logits, _ = lm.prefill(params, torch.as_tensor(toks)[None], cfg)
+    if temperature <= 0:
+        top = torch.topk(logits[0].float(), 2).values
+        return float(top[0] - top[1]), GREEDY_TIE
+    keys = ks.derive_keys(torch.tensor([seed]), torch.tensor([req_id]),
+                          torch.tensor([i]))
+    z = ks.gumbel(keys, logits.shape[1]) + ks.masked_logits(
+        logits, torch.tensor([temperature]),
+        torch.tensor([top_k], dtype=torch.int32), torch.tensor([top_p]))
+    top = torch.topk(z[0], 2).values
+    return float(top[0] - top[1]), DRAW_TIE
+
+
+def streams_under_margin(torch, label, cfg, params, prompts, card, cpu,
+                         **sampling):
+    """Each request's card stream equals the CPU's up to its first
+    differing token, where the CPU's margin must be under the tie;
+    returns those flips as [req_id, index, margin]."""
+    flips = []
+    require(set(card) == set(cpu),
+            f"examples {label}: other requests on the card")
+    for rid in sorted(cpu):
+        i = _first_difference(card[rid], cpu[rid])
+        require(len(card[rid]) == len(cpu[rid]),
+                f"examples {label}: request {rid}'s stream length differs")
+        if i is None:
+            continue
+        margin, tie = _cpu_margin(torch, cfg, params, prompts[rid], cpu[rid],
+                                  i, req_id=rid, **sampling)
+        require(margin < tie,
+                f"examples {label}: request {rid}'s token {i} is "
+                f"{card[rid][i]} on the card, {cpu[rid][i]} on the CPU, "
+                f"margin {margin} >= {tie}")
+        flips.append([rid, i, margin])
+    return flips
+
+
+def _quickstart_smoke(torch, qs, arch, p_cpu, inputs, cpu):
+    """The quickstart on SMOKE ``arch`` in fp32 on the card against the
+    CPU's run (``cpu``) from the same weights and inputs."""
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
+    p_gpu = _to(p_cpu, "cuda")
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        card = qs.run(cfg, p_gpu, inputs, "cuda")
+    sync(torch, "cuda")
+    path = hold_example_launches(f"quickstart {arch}", cfg, "dense",
+                                 wrappers, calls, grads=1,
+                                 grad_seq=qs.TRAIN_SHAPE[1])
+    cpu = cpu.result()
+    errs = {"loss": _rel_err(card["loss"], cpu["loss"]),
+            "grad_norm": _rel_err(card["grad_norm"], cpu["grad_norm"])}
+    require(errs["loss"] <= QS_LOSS_TOL
+            and errs["grad_norm"] <= QS_GRAD_NORM_TOL,
+            f"examples quickstart {arch}: card {card['loss']}, "
+            f"{card['grad_norm']} against the CPU's {cpu['loss']}, "
+            f"{cpu['grad_norm']}")
+    i = _first_difference(card["tokens"], cpu["tokens"])
+    require(i is None or cpu["margins"][i] < GREEDY_TIE,
+            f"examples quickstart {arch}: token {i} differs at margin "
+            f"{None if i is None else cpu['margins'][i]}: "
+            f"{card['tokens']} against {cpu['tokens']}")
+    require(card["params_m"] == cpu["params_m"],
+            f"examples quickstart {arch}: parameter counts differ")
+    emit({"phase": "examples", "example": "quickstart", "arch": arch,
+          "dtype": "float32", "tf32": False, "card": {
+              k: card[k] for k in ("loss", "grad_norm", "tokens")},
+          "cpu": {k: cpu[k] for k in ("loss", "grad_norm", "tokens")},
+          "rel_err": errs, "first_token_flip": i,
+          "launches": path["launches"]})
+    return path
+
+
+def _quickstart_full(torch, qs, arch, smi):
+    """The quickstart at full width in bf16 on the card: the depth (up to
+    QS_FULL_DEPTH) whose peak the dry run's walk fits into the card's
+    free bytes less DRYRUN_TOL, the walk's prediction made before the
+    run and the measured peak within DRYRUN_TOL of it; a finite loss,
+    launches exact, and 4 steps on the repeated train batch, the loss
+    falling at each."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.core.timing import Timer
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = qs.TRAIN_SHAPE
+    full = get_config(arch)
+    budget = float(torch.cuda.mem_get_info()[0]) / (1 + DRYRUN_TOL)
+    fit = dryrun.fit_depth(full.scaled(n_layers=min(QS_FULL_DEPTH,
+                                                    full.n_layers)),
+                           ShapeConfig("train", "train", S, B), B, 0, budget)
+    require(fit["depth"] > 0, f"examples quickstart {arch}: one layer does "
+            f"not fit {budget / 1e9} GB: {fit}")
+    cfg = full.scaled(n_layers=fit["depth"])
+    meta = _meta_walk(cfg, "train", B, S)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+    inputs = qs.make_inputs(cfg.vocab_size)
+    wrappers = _reset_launches()
+    t = Timer()
+    with model_calls() as calls:
+        out = qs.run(cfg, params, inputs, "cuda")
+    sync(torch, "cuda")
+    run_s = t.elapsed()
+    peak = torch.cuda.max_memory_allocated() - base
+    path = hold_example_launches(f"quickstart {arch} full width", cfg,
+                                 "dense", wrappers, calls, grads=1,
+                                 grad_seq=S)
+    require(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]),
+            f"examples quickstart {arch}: not finite: {out}")
+    # the quickstart's own lr at its first step (1e-3 over 100 warmup
+    # steps), held: at 3e-4 nemotron-4-15b's loss fell from 11.2 to 0.09
+    # in one step and rose after (NVIDIA H100 80GB HBM3, 700 W)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-5, warmup_steps=0,
+                                            total_steps=100))
+    opt = adamw_init(params)
+    toks = torch.as_tensor(inputs["train_tokens"], device="cuda")
+    wrappers = _reset_launches()
+    losses, step_s = [], []
+    for _ in range(4):
+        t = Timer()
+        params, opt, m = step(params, opt, toks)
+        losses.append(float(m["loss"]))
+        step_s.append(t.elapsed())
+    sync(torch, "cuda")
+    rep = hold_example_launches(f"quickstart {arch} repeated batch", cfg,
+                                "dense", wrappers, dict.fromkeys(
+                                    ("full_prefills", "prefill_chunks",
+                                     "decode_steps", "scan_chunks"), 0),
+                                grads=4, grad_seq=S)
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            f"examples quickstart {arch}: the loss on a repeated batch did "
+            f"not fall: {losses}")
+    del params, opt, step
+    row = _peak_row(f"{arch} quickstart train ({cfg.n_layers} layers, "
+                    f"{B} x {S})", meta, peak, statistics.median(step_s[1:]))
+    emit({"phase": "examples", "example": "quickstart", "arch": arch,
+          "dtype": "bfloat16", "layers": cfg.n_layers,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "fit": {"budget_gb": budget / 1e9, "depth": fit["depth"],
+                  "peaks_gb": {d: p / 1e9 for d, p in fit["peaks"].items()}},
+          "loss": out["loss"], "grad_norm": out["grad_norm"],
+          "tokens": out["tokens"], "run_s": run_s,
+          "repeated_batch_losses": losses, "step_s": step_s,
+          "predicted_peak_gb": row["predicted_peak_gb"],
+          "measured_peak_gb": row["measured_peak_gb"],
+          "launches": path["launches"], "nvidia_smi": smi})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [path, rep]
+
+
+def _serve_kv(torch, kv, cfg, p_cpu, p_gpu, prompts, run, cpu):
+    layout, sched, chunk, temp = run
+    opts = dict(kv_layout=layout, scheduler=sched, prefill_chunk=chunk,
+                temperature=temp)
+    label = f"serve_kv {layout} {sched} chunk {chunk} t {temp}"
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        card = kv.run(cfg, p_gpu, prompts, "cuda", **opts)
+    sync(torch, "cuda")
+    path = hold_example_launches(label, cfg, layout, wrappers, calls)
+    cpu = cpu.result()
+    require(card["completed"] == cpu["completed"] == len(prompts),
+            f"examples {label}: {card['completed']} completed")
+    for key in ("stats", "order", "prefix_hit_rate", "shared_identical"):
+        require(card[key] == cpu[key],
+                f"examples {label}: {key} {card[key]} against the CPU's "
+                f"{cpu[key]}")
+    require(temp > 0 or card["shared_identical"],
+            f"examples {label}: greedy shared-prompt outputs differ")
+    flips = streams_under_margin(torch, label, cfg, p_cpu, prompts,
+                                 card["streams"], cpu["streams"],
+                                 temperature=temp)
+    return path, {"run": list(run), "seconds": card["seconds"],
+                  "cpu_seconds": cpu["seconds"], "stats": card["stats"],
+                  "hit_rate": card["prefix_hit_rate"],
+                  "shared_identical": card["shared_identical"],
+                  "flips": flips, "streams_sha256": streams_digest(
+                      card["streams"])}
+
+
+def _serve_live(torch, live, cfg, p_cpu, p_gpu, inputs, cpu):
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        card = live.run(cfg, p_gpu, inputs, "cuda")
+    sync(torch, "cuda")
+    path = hold_example_launches("serve_live", cfg, "paged", wrappers, calls)
+    cpu = cpu.result()
+    strip = [{k: v for k, v in h.items() if k != "streamed"}
+             for h in card["handles"]]
+    require(strip == [{k: v for k, v in h.items() if k != "streamed"}
+                      for h in cpu["handles"]],
+            f"examples serve_live: outcomes or TTFTs differ: {strip}")
+    for key in ("steps", "shed", "premium_all_completed", "frontend_stats",
+                "engine_stats"):
+        require(card[key] == cpu[key], f"examples serve_live: {key} "
+                f"{card[key]} against the CPU's {cpu[key]}")
+    prompts = {rid: p for _, rid, p, _, _ in inputs}
+    flips = streams_under_margin(
+        torch, "serve_live", cfg, p_cpu, prompts,
+        {h["req_id"]: h["streamed"] for h in card["handles"]},
+        {h["req_id"]: h["streamed"] for h in cpu["handles"]})
+    require(card["shed"] and card["premium_all_completed"],
+            f"examples serve_live: {card['shed']} shed")
+    return path, {"arrivals": card["arrivals"], "steps": card["steps"],
+                  "shed": card["shed"], "flips": flips,
+                  "outcomes": [h["outcome"] for h in card["handles"]]}
+
+
+def _crash_recovery(torch, cr, cfg, p_cpu, p_gpu, inputs, cpu):
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        card = cr.run(cfg, p_gpu, inputs, "cuda")
+    sync(torch, "cuda")
+    path = hold_example_launches("crash_recovery", cfg, "paged", wrappers,
+                                 calls)
+    cpu = cpu.result()
+    for key in ("clean_steps", "outcomes", "boundaries", "snapshot_bytes",
+                "sweep_crash_logs", "policies", "disk"):
+        require(card[key] == cpu[key], f"examples crash_recovery: {key} "
+                f"{card[key]} against the CPU's {cpu[key]}")
+    prompts = {rid: p for _, rid, p, _, _ in inputs}
+    flips = streams_under_margin(torch, "crash_recovery", cfg, p_cpu,
+                                 prompts, card["streams"], cpu["streams"])
+    return path, {"clean_steps": card["clean_steps"],
+                  "boundaries": card["boundaries"],
+                  "snapshot_bytes": card["snapshot_bytes"],
+                  "policies": {k: {x: v[x] for x in ("restored_from",
+                                                     "replayed",
+                                                     "extra_steps")}
+                               for k, v in card["policies"].items()},
+                  "disk": card["disk"], "flips": flips}
+
+
+FT_KEYS = ("steps", "failures", "microbatches_recomputed", "steps_replayed",
+           "checkpoints_restored", "goodput", "grad_calls")
+
+
+def _ft_demo(torch, ft, cfg, params, inputs, cpu):
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        card = ft.run(cfg, params, inputs, "cuda")
+    sync(torch, "cuda")
+    grads = card["no_failure_grad_calls"] + sum(card[p]["grad_calls"]
+                                                for p in ("sr", "gbn"))
+    path = hold_example_launches("ft_demo", cfg, "dense", wrappers, calls,
+                                 grads=grads, grad_seq=inputs["seq_len"])
+    cpu = cpu.result()
+    for pol in ("sr", "gbn"):
+        got = {k: card[pol][k] for k in FT_KEYS}
+        want = {k: cpu[pol][k] for k in FT_KEYS}
+        require(got == want, f"examples ft_demo {pol}: {got} against the "
+                f"CPU's {want}")
+    # GBN replays the same steps from restored bits: no drift (the
+    # reference test's 1e-6)
+    require(card["gbn"]["param_drift_vs_no_failure"] <= 1e-6,
+            f"examples ft_demo: GBN drifted {card['gbn']}")
+    return path, {pol: {**card[pol], "cpu_param_drift_vs_no_failure":
+                        cpu[pol]["param_drift_vs_no_failure"]}
+                  for pol in ("sr", "gbn")}
+
+
+def _train_lm(torch, tl, smi):
+    """examples_torch/train_lm.py's main at its defaults on the card (its
+    default device): 200 steps, the loss falling."""
+    import shutil
+    shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    wrappers = _reset_launches()
+    with model_calls() as calls:
+        out = tl.main(["--ckpt-dir", str(EXAMPLES_CKPT / "train_lm")])
+    sync(torch, "cuda")
+    shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    cfg = tl.model_config()
+    path = hold_example_launches("train_lm", cfg, "dense", wrappers, calls,
+                                 grads=out["grad_calls"], grad_seq=256,
+                                 forwards=2)
+    require(out["final_loss"] < out["initial_loss"],
+            f"examples train_lm: the loss did not fall: {out}")
+    return path, {**out, "nvidia_smi": smi}
+
+
+def phase_examples(torch, smi):
+    """The six scripts of examples_torch/ on the card, each through its
+    ``run`` (train_lm and one quickstart through ``main``, on the card by
+    default) and, except train_lm, against the same ``run`` on the CPU
+    from the same weights and inputs, in worker processes while the card
+    runs. Every kernel's count is set to 0 just before each card run and
+    read just after (``hold_example_launches``)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs.registry import ARCH_NAMES, SMOKE_CONFIGS
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {n: load_example(n) for n in (
+        "quickstart", "serve_kv", "serve_live", "crash_recovery", "ft_demo",
+        "train_lm")}
+    qs, kv = mods["quickstart"], mods["serve_kv"]
+    paths, recs = [], {}
+
+    def weights(cfg):
+        return _cpu_weights(torch, lm, cfg, 0, "cuda")
+
+    qwen = SMOKE_CONFIGS["qwen3-8b"].scaled(dtype="float32")
+    cr_cfg = mods["crash_recovery"].model_config()
+    ft_cfg = mods["ft_demo"].model_config()
+    w = {"qwen3": weights(qwen), "crash": weights(cr_cfg)}
+    # the demo's own bf16 weights, drawn on the CPU for both sides
+    w["ft"] = lm.init_params(ft_cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    qs_cfgs = {a: SMOKE_CONFIGS[a].scaled(dtype="float32")
+               for a in ARCH_NAMES}
+    qs_w = {a: weights(c) for a, c in qs_cfgs.items()}
+    qs_in = {a: qs.make_inputs(c.vocab_size) for a, c in qs_cfgs.items()}
+    prompts = kv.make_inputs(qwen.vocab_size)
+    live_in = mods["serve_live"].make_inputs(qwen.vocab_size)
+    cr_in = mods["crash_recovery"].make_inputs(cr_cfg.vocab_size)
+    ft_in = mods["ft_demo"].make_inputs(ft_cfg.vocab_size)
+    with concurrent.futures.ProcessPoolExecutor(
+            EXAMPLE_CPU_WORKERS, multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init) as pool:
+        def on_cpu(name, cfg, params, inputs, **opts):
+            return pool.submit(example_on_cpu, name, cfg,
+                               _numpy_tree(_to(params, "cpu")), inputs, opts)
+        # the slowest CPU runs first
+        cpu = {"ft": on_cpu("ft_demo", ft_cfg, w["ft"], ft_in),
+               "crash": on_cpu("crash_recovery", cr_cfg, w["crash"], cr_in),
+               "live": on_cpu("serve_live", qwen, w["qwen3"], live_in)}
+        cpu["qs"] = {a: on_cpu("quickstart", qs_cfgs[a], qs_w[a], qs_in[a])
+                     for a in ARCH_NAMES}
+        cpu["kv"] = {
+            run: on_cpu("serve_kv", qwen, w["qwen3"], prompts,
+                        kv_layout=run[0], scheduler=run[1],
+                        prefill_chunk=run[2], temperature=run[3])
+            for run in SERVE_KV_RUNS}
+        # the card's runs with no CPU side first, while the workers start
+        # and take their runs
+        for arch in QS_FULL:
+            paths += seconds("examples", f"quickstart {arch} full width",
+                             _quickstart_full, torch, qs, arch, smi)
+        # the quickstart's own main, on the card by default
+        wrappers = _reset_launches()
+        with model_calls() as calls:
+            out = qs.main([])
+        sync(torch, "cuda")
+        paths.append(hold_example_launches(
+            "quickstart main", SMOKE_CONFIGS["qwen3-8b"], "dense", wrappers,
+            calls, grads=1, grad_seq=qs.TRAIN_SHAPE[1]))
+        require(len(out["tokens"]) == qs.DECODE_STEPS + 1,
+                f"examples quickstart main: {out}")
+        for arch in ARCH_NAMES:
+            paths.append(seconds("examples", f"quickstart {arch}",
+                                 _quickstart_smoke, torch, qs, arch,
+                                 qs_w[arch], qs_in[arch], cpu["qs"][arch]))
+        p_gpu = _to(w["qwen3"], "cuda")
+        kv_recs = []
+        for run in SERVE_KV_RUNS:
+            path, rec = _serve_kv(torch, kv, qwen, w["qwen3"], p_gpu, prompts,
+                                  run, cpu["kv"][run])
+            paths.append(path)
+            kv_recs.append(rec)
+        recs["serve_kv"] = kv_recs
+        emit({"phase": "examples", "example": "serve_kv", "runs": kv_recs})
+        path, recs["serve_live"] = seconds(
+            "examples", "serve_live", _serve_live, torch,
+            mods["serve_live"], qwen, w["qwen3"], p_gpu, live_in,
+            cpu["live"])
+        paths.append(path)
+        del p_gpu
+        path, recs["crash_recovery"] = seconds(
+            "examples", "crash_recovery", _crash_recovery, torch,
+            mods["crash_recovery"], cr_cfg, w["crash"],
+            _to(w["crash"], "cuda"), cr_in, cpu["crash"])
+        paths.append(path)
+        path, recs["ft_demo"] = seconds(
+            "examples", "ft_demo", _ft_demo, torch, mods["ft_demo"], ft_cfg,
+            _to(w["ft"], "cuda"), ft_in, cpu["ft"])
+        paths.append(path)
+    for name in ("serve_live", "crash_recovery", "ft_demo"):
+        emit({"phase": "examples", "example": name, **recs[name]})
+    # host-bound (800 gradients of a 6M-parameter model): after the CPU
+    # workers are gone
+    path, rec = seconds("examples", "train_lm", _train_lm, torch,
+                        mods["train_lm"], smi)
+    paths.append(path)
+    emit({"phase": "examples", "example": "train_lm", **rec})
+    return paths
+
+
 def ptxas_summary(log: str):
     """nvcc's ``-Xptxas -v`` output per compiled kernel: [entry (mangled,
     cut to 90 characters), spill line, registers and shared memory]."""
@@ -4100,10 +4675,11 @@ def kernel_line(main, serves):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--only", choices=("train",),
+    ap.add_argument("--only", choices=("train", "examples"),
                     help="build, then run only these phases (train: the "
                          "backward kernels' rows and the training phases "
-                         "of the --arch configs); prints no result line")
+                         "of the --arch configs; examples: the examples "
+                         "phase); prints no result line")
     ap.add_argument("--train-layers", type=int,
                     help="with --only train: the depth of every --arch "
                          "config in the train phase (default: TRAIN_RUNS')")
@@ -4152,6 +4728,11 @@ def main(argv=None) -> int:
         # registers: any spill is a regression
         require_no_spill(_build.build_log("flash_attention_bwd"),
                          FLASH_BWD_BF16_KERNELS)
+        if args.only == "examples":
+            seconds("examples", "", phase_examples, torch, smi)
+            emit({"phase": "total", "seconds": total.elapsed()})
+            print(smi, flush=True)
+            return 0
         if args.only == "train":
             from repro_torch.kernels import flash_attention as fa
             archs = tuple(dict.fromkeys(args.arch or TRAIN_ARCHS))
@@ -4303,6 +4884,9 @@ def main(argv=None) -> int:
         train_recs = {}
         serves += run_train_phases(torch, train_recs=train_recs)
         seconds("dryrun", "", phase_dryrun, torch, train_recs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serves += seconds("examples", "", phase_examples, torch, smi)
         emit(kernel_line(main_shapes, serves))
         emit({"phase": "total", "seconds": total.elapsed()})
     except Check as e:

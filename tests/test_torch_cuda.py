@@ -1496,3 +1496,72 @@ def test_card_walk_counts_the_meta_walks_kernel_calls(cuda, arch):
     assert {n: w.launches for n, w in wrappers.items()} == before
     assert card["kernel_calls"] == launched == meta["kernel_calls"]
     assert card["kernel_work"] == meta["kernel_work"]
+
+
+def _example(name):
+    """``examples_torch/<name>.py``, loaded by path."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples_torch" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"examples_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "moonshot-v1-16b-a3b",
+                                  "rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_quickstart_example_on_the_card_matches_the_cpu(cuda, arch):
+    """examples_torch/quickstart.py's run on fp32 SMOKE weights, TF32
+    off: the card's loss within 1e-5 and grad norm within 1e-4 of the
+    CPU's, tokens equal up to a CPU margin under 1e-3."""
+    qs = _example("quickstart")
+    cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    inputs = qs.make_inputs(cfg.vocab_size)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = qs.run(cfg, _to(p_cpu, cuda), inputs, cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = qs.run(cfg, p_cpu, inputs, "cpu")
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(card[key] - cpu[key]) <= tol * max(1.0, abs(cpu[key]))
+    for i, (a, b) in enumerate(zip(card["tokens"], cpu["tokens"])):
+        if a != b:
+            assert cpu["margins"][i] < 1e-3, (i, card, cpu)
+            break
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_serve_kv_example_on_the_card_matches_the_cpu(cuda, layout):
+    """examples_torch/serve_kv.py's run (chunk 16, span 8, 28 pages) on
+    fp32 SMOKE qwen3-8b: completion order, every counter and the streams
+    equal the CPU's, the shared prompts' greedy outputs identical."""
+    kv = _example("serve_kv")
+    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(dtype="float32")
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    prompts = kv.make_inputs(cfg.vocab_size)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = kv.run(cfg, _to(p_cpu, cuda), prompts, cuda, kv_layout=layout)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = kv.run(cfg, p_cpu, prompts, "cpu", kv_layout=layout)
+    for key in ("completed", "order", "stats", "prefix_hit_rate",
+                "shared_identical", "streams"):
+        assert card[key] == cpu[key], key
+    assert card["shared_identical"]
+
+
+def test_examples_run_on_the_card_by_default(cuda, capsys):
+    """With no --device, the scripts' mains run on the card."""
+    out = _example("quickstart").main(["--arch", "jamba-v0.1-52b"])
+    assert "ok" in capsys.readouterr().out and len(out["tokens"]) == 9
+    out = _example("serve_live").main([])
+    assert out["arrivals"] == 14 and out["premium_all_completed"]

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX and nothing of ``repro`` in
-``src/repro_torch`` or ``chip_smoke.py``, and a missing card is an error
-unless the caller asks for the CPU."""
+``src/repro_torch``, ``examples_torch/`` or ``chip_smoke.py``, and a
+missing card is an error unless the caller asks for the CPU."""
 import ast
 import os
 import subprocess
@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+EXAMPLES = REPO / "examples_torch"
 
 
 def _imported_roots(path: Path):
@@ -26,7 +27,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_jax_or_repro_imports():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.glob("*.py"))
+             + [REPO / "chip_smoke.py"])
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), line, root)
            for f in files for line, root in _imported_roots(f)
@@ -230,3 +232,23 @@ def test_training_needs_cuda_unless_asked_for_cpu(tmp_path):
                       str(tmp_path / "b")])
     assert out["params"]["embed"].device.type == "cpu"
     assert len(out["steps"]) == 1
+
+
+def test_examples_import_without_jax_or_repro():
+    """The six scripts of examples_torch/, the reference's examples'
+    counterparts by name, load by path without pulling in JAX or
+    ``repro``."""
+    names = sorted(p.name for p in EXAMPLES.glob("*.py"))
+    assert names == sorted(p.name for p in (REPO / "examples").glob("*.py"))
+    code = ("import importlib.util, sys\n"
+            f"for name in {[n[:-3] for n in names]!r}:\n"
+            f"    spec = importlib.util.spec_from_file_location(\n"
+            f"        name, {str(EXAMPLES)!r} + '/' + name + '.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
