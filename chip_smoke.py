@@ -4,13 +4,15 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only train [--train-layers N] [--arch A ...]
     python3 chip_smoke.py --only examples
+    python3 chip_smoke.py --only ranks
 
 The second builds the kernels and runs only the backward kernels' rows
 (B2-bwd at qwen3-8b's train shape; the others for the other --arch
 configs) and the training phases (8 below) of the --arch configs (all
 four of TRAIN_ARCHS if none is given), then the dryrun phase over them,
-printing no result line; the third builds the kernels and runs only the
-examples phase, printing no result line.
+printing no result line; the third and fourth build the kernels and run
+only the examples phase or only the ranks phase, printing no result
+line.
 
 Phases, each printing one JSON object per line:
 
@@ -181,6 +183,20 @@ Phases, each printing one JSON object per line:
              train runs' shape (``fit_depth``); the CUDA context, the
              libraries' memory and the cuBLAS workspace, which the walk
              leaves out;
+   ranks   — four processes (``launch.mesh.spawn``) on a (2, 2)
+             ("data", "model") mesh, all on the one card over gloo (NCCL
+             takes one GPU per rank), the kernels loaded from the build
+             phase's directory: SMOKE qwen3-8b, qwen1.5-4b and
+             moonshot-v1-16b-a3b in fp32 (TF32 off), FSDP off and on,
+             forward_loss's loss, stats and gathered gradients against the
+             mean over the data shards of one-rank runs on the card (loss
+             1e-5 relative, gradients 1e-4 of each leaf's largest); then
+             qwen3-8b and moonshot at full width, 2 layers, bf16, batch 4
+             x 1024, FSDP and ZeRO-1, 4 steps on a repeated batch: losses
+             finite and falling, step 1 within 2e-2 of the one-rank card
+             run's, each rank's step seconds, peak memory and a step's
+             collectives with their bytes; every rank's B2, B2-bwd, B7 and
+             B7-bwd launches held to its gradient calls;
    examples — the six scripts of examples_torch/, each through its
              ``run`` on the card and, in worker processes meanwhile, on
              the CPU from the same weights and inputs: the quickstart on
@@ -773,13 +789,33 @@ def check_wkv_decode(torch, wk, B, H, hd, dtype, seed=0, timed=True):
     return rec
 
 
-def _dispatch_rows(torch, g, T, E, C, positions, seed):
+def _dispatch_rows(torch, g, T, E, C, positions, seed, groups=1, tp=1):
     """Expert ids and queue positions. ``cumsum``: ids uniform over the
     experts, positions their cumsum, as the MoE layer computes them.
     ``sparse``: ids over E + E // 4 + 1 values (the rest out of range),
     and each expert's rows at distinct positions drawn at random from
-    [0, max(2 C, its rows)): not dense from 0, permuted, some past C."""
+    [0, max(2 C, its rows)): not dense from 0, permuted, some past C.
+    ``mesh``: the last of ``tp`` model ranks on the expert-parallel path
+    (``moe._routed_experts``): ``groups`` sequences of T / groups rows,
+    each row's expert uniform over all tp * E / groups experts and its
+    position that expert's cumsum in its sequence; a row the rank keeps
+    takes queue g * E_loc + its local expert, any other (another rank's
+    expert, or past C) queue E."""
     import numpy as np
+    if positions == "mesh":
+        e_loc, n = E // groups, T // groups
+        ids = torch.randint(0, e_loc * tp, (groups, n), generator=g,
+                            device="cuda")
+        onehot = (ids[..., None] == torch.arange(e_loc * tp,
+                                                 device="cuda")).to(
+            torch.int32)
+        pos = torch.cumsum(onehot, 1, dtype=torch.int32).gather(
+            -1, ids[..., None])[..., 0] - 1
+        local = ids - e_loc * (tp - 1)
+        keep = (pos < C) & (local >= 0) & (local < e_loc)
+        queue = torch.where(keep, local + e_loc * torch.arange(
+            groups, device="cuda")[:, None], E)
+        return queue.to(torch.int32).reshape(-1), pos.reshape(-1)
     if positions == "cumsum":
         eids = torch.randint(0, E, (T,), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -799,12 +835,13 @@ def _dispatch_rows(torch, g, T, E, C, positions, seed):
 
 
 def check_moe_dispatch(torch, md, T, D, E, C, dtype, seed=0, timed=True,
-                       positions="cumsum"):
+                       positions="cumsum", groups=1, tp=1):
     """Exact equality with the plain version, on rows placed as
     ``_dispatch_rows`` says."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     toks = torch.randn(T, D, generator=g, device="cuda").to(dtype)
-    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed)
+    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed, groups,
+                               tp)
     out = md.moe_dispatch(toks, eids, pos, E, C)
     torch.cuda.synchronize()
     ref = md.moe_dispatch_plain(toks, eids, pos, E, C)
@@ -930,12 +967,13 @@ def check_ssm_decode(torch, ls, sd, B, Di, N, seed=0, timed=True,
 
 
 def check_moe_dispatch_bwd(torch, md, T, D, E, C, dtype, seed=0,
-                           timed=True, positions="cumsum"):
+                           timed=True, positions="cumsum", groups=1, tp=1):
     """B7-bwd equal to its plain gather, on rows placed as
     ``_dispatch_rows`` says; two calls give the same bits."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dbuf = torch.randn(E, C, D, generator=g, device="cuda").to(dtype)
-    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed)
+    eids, pos = _dispatch_rows(torch, g, T, E, C, positions, seed, groups,
+                               tp)
     out = md.moe_dispatch_bwd(dbuf, eids, pos)
     again = md.moe_dispatch_bwd(dbuf, eids, pos)
     torch.cuda.synchronize()
@@ -4540,6 +4578,299 @@ def phase_examples(torch, smi):
     return paths
 
 
+# --------------------------------------------------------------------------
+# ranks: training on a ("data", "model") mesh of four ranks on the one card
+# --------------------------------------------------------------------------
+
+# four ranks share the card over gloo (NCCL takes one GPU per rank); the
+# fp32 SMOKE configs are held to one-rank runs on the card, the full-width
+# bf16 ones train a few steps at 2 layers on a repeated batch
+RANKS_MESH = (2, 2)
+RANKS_BACKEND = "gloo"
+RANKS_SMOKE = ("qwen3-8b", "qwen1.5-4b", "moonshot-v1-16b-a3b")
+RANKS_FULL = ("qwen3-8b", "moonshot-v1-16b-a3b")
+RANKS_SMOKE_SHAPE = (4, 64)
+RANKS_FULL_SHAPE = (4, 1024)
+RANKS_LAYERS = 2
+RANKS_STEPS = 4
+RANKS_TIMEOUT = 600
+
+
+def ranks_kernel_shapes():
+    """What B2, B2-bwd, B7 and B7-bwd take on one rank of the ranks
+    phase, from the configs as ``ranks_main`` runs them: B2 [b, H_eff/tp,
+    KV_eff/tp, S, hd] on the rank's b = B/dp rows and local heads
+    (``eff_heads``); B7 [T = b S K, d_model] into b E/tp queues of
+    capacity(S) slots. One row a config: arch, dtype, flash, moe (None
+    without MoE)."""
+    from repro_torch.configs.registry import SMOKE_CONFIGS, get_config
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import eff_heads
+    dp, tp = RANKS_MESH
+    rows = []
+    for archs, (B, S), dtype, of in (
+            (RANKS_SMOKE, RANKS_SMOKE_SHAPE, "float32",
+             SMOKE_CONFIGS.__getitem__),
+            (RANKS_FULL, RANKS_FULL_SHAPE, "bfloat16", get_config)):
+        for arch in archs:
+            cfg, b = of(arch), B // dp
+            H, KV = eff_heads(cfg, tp)
+            moe = cfg.moe and (b * S * cfg.moe.top_k, cfg.d_model,
+                               b * cfg.moe.n_experts // tp,
+                               capacity(S, cfg))
+            rows.append({"arch": arch, "dtype": dtype,
+                         "flash": (b, H // tp, KV // tp, S, cfg.head_dim),
+                         "moe": moe})
+    return rows
+
+
+def check_ranks_kernels(torch):
+    """B2, B2-bwd, B7 and B7-bwd against their plain versions at one
+    rank's shapes in the ranks phase (``ranks_kernel_shapes``), the
+    dispatch's rows placed as the expert-parallel path places them
+    (``_dispatch_rows``' ``mesh``: half the rows another rank's); timed
+    at the full-width bf16 shapes. Returns the timed records by key."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_dispatch as md
+    tp = RANKS_MESH[1]
+    main, seen = {}, set()
+    for row in ranks_kernel_shapes():
+        dtype, arch = getattr(torch, row["dtype"]), row["arch"]
+        timed = dtype == torch.bfloat16
+        recs = {}
+        if (row["flash"], dtype) not in seen:
+            seen.add((row["flash"], dtype))
+            recs["flash_ranks"] = check_flash(torch, fa, *row["flash"],
+                                              dtype, timed=timed)
+            recs["flash_bwd_ranks"] = check_flash_bwd(
+                torch, fa, *row["flash"], dtype, timed=timed)
+        if row["moe"] and (row["moe"], dtype) not in seen:
+            seen.add((row["moe"], dtype))
+            T, D, Q, C = row["moe"]
+            b = row["flash"][0]
+            recs["moe_dispatch_ranks"] = check_moe_dispatch(
+                torch, md, T, D, Q, C, dtype, timed=timed,
+                positions="mesh", groups=b, tp=tp)
+            recs["moe_dispatch_bwd_ranks"] = check_moe_dispatch_bwd(
+                torch, md, T, D, Q, C, dtype, timed=timed,
+                positions="mesh", groups=b, tp=tp)
+        if timed:
+            main.update({(k, arch): r for k, r in recs.items()})
+    return main
+
+
+def _mesh_reference(torch, cfg, params, toks, dp, grads: bool):
+    """What a ("data", "model") mesh with ``dp`` data ranks computes, on
+    one rank: the mean over the data shards of each shard's one-rank
+    loss, metrics (and gradients, fp32), since the mesh averages the MoE
+    stats over the data shards and every shard has as many tokens."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import value_and_grad
+    b = toks.shape[0] // dp
+    loss, mets, acc = 0.0, {}, None
+    for d in range(dp):
+        rows = toks[d * b:(d + 1) * b]
+        if grads:
+            (l, m), g = value_and_grad(params, rows, cfg)
+            g = [x.double() / dp for x in leaves(g)]
+            acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+        else:
+            with torch.no_grad():
+                l, m = lm.forward_loss(params, rows, cfg, remat=False)
+        loss += float(l) / dp
+        for k, v in m.items():
+            mets[k] = mets.get(k, 0.0) + float(v) / dp
+    return loss, mets, acc
+
+
+def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
+    """SMOKE ``arch`` in fp32 (TF32 off) on the mesh: forward_loss's
+    loss, stats and gathered gradients on the rank's shards, each rank's
+    B2/B2-bwd/B7/B7-bwd launches held to one gradient call; on rank 0
+    against ``_mesh_reference`` on the card: loss and stats within 1e-5
+    relative, every gradient within 1e-4 of its leaf's largest |value|."""
+    from repro_torch.configs.registry import SMOKE_CONFIGS
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import make_policy
+    from repro_torch.train import train_step as ts
+    cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
+    pol = make_policy(mesh, fsdp=fsdp)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    whole = lm.init_params(cfg, gen, device="cuda", tp=pol.tp_size)
+    B, S = RANKS_SMOKE_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed + 1)
+                         ).cuda()
+    params, _ = ts.place_train_state(whole, cfg, pol)
+    d, b = col.axis_index(pol, "data"), B // pol.dp_size
+    wrappers = _reset_launches()
+    (loss, mets), grads = ts.value_and_grad(params, toks[d * b:(d + 1) * b],
+                                            cfg, policy=pol)
+    torch.cuda.synchronize()
+    label = f"ranks {arch} fp32 fsdp={fsdp}"
+    path = _train_launches(label, wrappers, cfg, S, 1)
+    grads = ts.gathered_grads(grads, cfg, pol)
+    rec = {"arch": arch, "fsdp": fsdp, "loss": float(loss),
+           **{k: float(v) for k, v in mets.items()}, "path": path}
+    if rank == 0:
+        ref_loss, ref_mets, ref_g = _mesh_reference(torch, cfg, whole, toks,
+                                                    pol.dp_size, True)
+        errs = {"loss": abs(float(loss) - ref_loss) / abs(ref_loss)}
+        for k, v in ref_mets.items():
+            errs[k] = abs(rec[k] - v) / max(abs(v), 1e-30) if v else \
+                abs(rec[k])
+        g_errs = [_err_of_max(g, r) for g, r in zip(leaves(grads), ref_g)]
+        names = _leaf_names(whole)
+        worst = max(range(len(g_errs)), key=g_errs.__getitem__)
+        rec.update(ref_loss=ref_loss, errors=errs,
+                   grad_err=g_errs[worst], grad_worst=names[worst])
+        require(all(e <= 1e-5 for e in errs.values()),
+                f"{label}: loss or stats off the one-rank card run: {errs}")
+        require(g_errs[worst] <= 1e-4,
+                f"{label}: gradient {names[worst]} off by {g_errs[worst]} "
+                f"of its largest")
+    return rec
+
+
+def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
+    """``arch`` at full width and RANKS_LAYERS layers in bf16 on the
+    mesh, ZeRO-1 and FSDP, RANKS_STEPS steps on one repeated
+    RANKS_FULL_SHAPE batch: each step's loss and seconds, the rank's peak
+    memory, its B2/B2-bwd/B7/B7-bwd launches held to one gradient call a
+    step, one step's collectives and bytes; on rank 0 the losses finite
+    and falling, step 1's within 2e-2 of ``_mesh_reference`` on the
+    card."""
+    import math
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.timing import Timer
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import collectives as col
+    from repro_torch.sharding import make_policy
+    from repro_torch.train import train_step as ts
+    cfg = get_config(arch).scaled(n_layers=RANKS_LAYERS)
+    pol = make_policy(mesh, fsdp=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    whole = lm.init_params(cfg, gen, device="cuda", tp=pol.tp_size)
+    B, S = RANKS_FULL_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed + 1)
+                         ).cuda()
+    ref = None
+    if rank == 0:
+        ref = _mesh_reference(torch, cfg, whole, toks, pol.dp_size,
+                              False)[0]
+    params, opt = ts.place_train_state(whole, cfg, pol)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = ts.make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=1,
+                                               total_steps=100), policy=pol)
+    wrappers = _reset_launches()
+    losses, secs, colls = [], [], None
+    for _ in range(RANKS_STEPS):
+        torch.cuda.synchronize()
+        col.reset_counts()
+        t = Timer()
+        params, opt, m = step(params, opt, toks)
+        losses.append(float(m["loss"]))
+        secs.append(t.elapsed())
+        colls = col.counts()
+    label = f"ranks {arch} bf16"
+    path = _train_launches(label, wrappers, cfg, S, RANKS_STEPS)
+    rec = {"arch": arch, "layers": RANKS_LAYERS, "batch": B, "seq": S,
+           "losses": losses, "step_s": secs,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "collectives_a_step": colls, "path": path}
+    if rank == 0:
+        rec["ref_loss"] = ref
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0],
+                f"{label}: losses {losses} not finite and falling")
+        require(abs(losses[0] - ref) <= 2e-2 * abs(ref),
+                f"{label}: step 1's loss {losses[0]} against the one-rank "
+                f"card run's {ref}")
+    return rec
+
+
+def ranks_main(rank, store, smoke=RANKS_SMOKE, full=RANKS_FULL):
+    """One rank of the ranks phase: the mesh over ``cuda`` (rank r on
+    card r % count: all on the one card here), then the fp32 SMOKE
+    comparisons and the full-width bf16 runs."""
+    import torch
+    from repro_torch.core.timing import Timer
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import collectives as col
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = Timer()
+    mesh = make_mesh(RANKS_MESH, device="cuda", backend=RANKS_BACKEND,
+                     store=store, rank=rank)
+    out = {"rank": rank, "torch": torch.__version__, "smoke": [],
+           "full": [], "ops": {}, "mesh_s": t.elapsed(),
+           "device": f"cuda:{torch.cuda.current_device()}"}
+    for arch in smoke:
+        for fsdp in (False, True):
+            col.reset_counts()
+            t = Timer()
+            out["smoke"].append(_ranks_smoke(torch, mesh, arch, fsdp, rank))
+            out["smoke"][-1]["seconds"] = t.elapsed()
+            for k, v in col.counts().items():
+                out["ops"][k] = out["ops"].get(k, 0) + v["calls"]
+    for arch in full:
+        t = Timer()
+        out["full"].append(_ranks_full(torch, mesh, arch, rank))
+        out["full"][-1]["seconds"] = t.elapsed()
+        for k, v in out["full"][-1]["collectives_a_step"].items():
+            out["ops"][k] = out["ops"].get(k, 0) + v["calls"]
+    return out
+
+
+def phase_ranks(torch, smi, smoke=RANKS_SMOKE, full=RANKS_FULL):
+    """Four processes on a (2, 2) ("data", "model") mesh sharing the card
+    over gloo (``launch.mesh.spawn``; the kernels built by the build
+    phase, loaded from its directory): the fp32 SMOKE comparisons and the
+    full-width bf16 training of ``ranks_main``. A rank that fails fails
+    the phase. Returns the ranks' paths, with their launches summed, for
+    the kernels line."""
+    from repro_torch.launch.mesh import spawn
+    world = RANKS_MESH[0] * RANKS_MESH[1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        recs = spawn(ranks_main, world, smoke, full, timeout=RANKS_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        raise Check(f"ranks: {e}") from e
+    emit({"phase": "ranks", "world": world, "mesh": list(RANKS_MESH),
+          "axes": ["data", "model"], "backend": RANKS_BACKEND,
+          "devices": sorted({r["device"] for r in recs}),
+          "torch": recs[0]["torch"],
+          "mesh_s_by_rank": [r["mesh_s"] for r in recs],
+          "gloo_ops_on_cuda_tensors": sorted(recs[0]["ops"]),
+          "ops_calls_by_rank": [r["ops"] for r in recs]})
+    paths = {}
+    for kind in ("smoke", "full"):
+        for i, first in enumerate(recs[0][kind]):
+            row = {k: v for k, v in first.items() if k != "path"}
+            if kind == "full":
+                for k in ("losses", "step_s", "peak_gb"):
+                    row[k + "_by_rank"] = [r[kind][i][k] for r in recs]
+                row["nvidia_smi"] = smi
+            emit({"phase": "ranks", "run": kind, **row})
+            label = first["path"]["label"]
+            launches = {}
+            for r in recs:
+                for n, c in r[kind][i]["path"]["launches"].items():
+                    launches[n] = launches.get(n, 0) + c
+            paths[label] = dict(first["path"], launches=launches)
+    return list(paths.values())
+
+
 def ptxas_summary(log: str):
     """nvcc's ``-Xptxas -v`` output per compiled kernel: [entry (mangled,
     cut to 90 characters), spill line, registers and shared memory]."""
@@ -4600,6 +4931,12 @@ def _kernel_row(name, rec, src, replaces, by_path, main, more):
     return row
 
 
+RANKS_KEYS = {"flash_attention": "flash_ranks",
+              "flash_attention_bwd": "flash_bwd_ranks",
+              "moe_dispatch": "moe_dispatch_ranks",
+              "moe_dispatch_bwd": "moe_dispatch_bwd_ranks"}
+
+
 def kernel_line(main, serves):
     """One row per kernel: its times at the main serving (or training)
     shape, its launches summed over the serve and train runs of the paths
@@ -4644,6 +4981,9 @@ def kernel_line(main, serves):
             ("wkv6_chunked_bwd", ("wkv6_bwd", 4096), "wkv6_bwd.cu",
              WKV_BWD_REPLACES, (("wkv6_bwd", 1531),))):
         rec = main[key]
+        # the same kernel at one rank's shapes of the ranks phase
+        more = more + tuple(k for k in main
+                            if k[0] == RANKS_KEYS.get(name))
         by_path = {s["label"]: s["launches"][name] for s in serves
                    if s["launches"][name]}
         declared = {s["label"] for s in serves if name in s["launch_path"]}
@@ -4675,11 +5015,12 @@ def kernel_line(main, serves):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    ap.add_argument("--only", choices=("train", "examples"),
+    ap.add_argument("--only", choices=("train", "examples", "ranks"),
                     help="build, then run only these phases (train: the "
                          "backward kernels' rows and the training phases "
                          "of the --arch configs; examples: the examples "
-                         "phase); prints no result line")
+                         "phase; ranks: the ranks phase); prints no "
+                         "result line")
     ap.add_argument("--train-layers", type=int,
                     help="with --only train: the depth of every --arch "
                          "config in the train phase (default: TRAIN_RUNS')")
@@ -4728,6 +5069,12 @@ def main(argv=None) -> int:
         # registers: any spill is a regression
         require_no_spill(_build.build_log("flash_attention_bwd"),
                          FLASH_BWD_BF16_KERNELS)
+        if args.only == "ranks":
+            seconds("kernels", "ranks", check_ranks_kernels, torch)
+            seconds("ranks", "", phase_ranks, torch, smi)
+            emit({"phase": "total", "seconds": total.elapsed()})
+            print(smi, flush=True)
+            return 0
         if args.only == "examples":
             seconds("examples", "", phase_examples, torch, smi)
             emit({"phase": "total", "seconds": total.elapsed()})
@@ -4750,6 +5097,8 @@ def main(argv=None) -> int:
             return 0
         main_shapes = seconds("kernels", "all", phase_kernels, torch)
         main_shapes.update(seconds("kernels", "bwd", phase_kernels_bwd,
+                                   torch))
+        main_shapes.update(seconds("kernels", "ranks", check_ranks_kernels,
                                    torch))
         cfg = get_config("qwen3-8b")
         rcfg = get_config("rwkv6-1.6b")
@@ -4884,6 +5233,9 @@ def main(argv=None) -> int:
         train_recs = {}
         serves += run_train_phases(torch, train_recs=train_recs)
         seconds("dryrun", "", phase_dryrun, torch, train_recs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serves += seconds("ranks", "", phase_ranks, torch, smi)
         gc.collect()
         torch.cuda.empty_cache()
         serves += seconds("examples", "", phase_examples, torch, smi)

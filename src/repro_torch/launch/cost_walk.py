@@ -24,8 +24,8 @@ it; host tensors are left out):
 - kernel calls by wrapper; breakdowns by class (``products``,
   ``elementwise``, ``reductions``, ``copies``, each kernel by name) and
   the 10 ops with the largest bound;
-- collective bytes: 0. The port runs one rank (A13b-5), and the record
-  says so;
+- collective bytes: 0. The walk runs one rank (a mesh's collectives are
+  not walked, ROADMAP A13b-5b), and the record says so;
 - the largest host tensor an op made (a dry run on ``meta`` should make
   none larger than a few constants).
 """

@@ -27,7 +27,7 @@ hold (``chip_smoke.py``'s dryrun phase measures them).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --memory-gb 80
 
 ``--multipod`` and any mesh of more than one rank are refused (ROADMAP
-A13b-5). A step that raises fails its cell; a failed cell makes the run
+A13b-5b). A step that raises fails its cell; a failed cell makes the run
 exit nonzero.
 """
 from __future__ import annotations
@@ -225,7 +225,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.multipod:
         raise NotImplementedError(f"dryrun: the (2, 16, 16) multi-pod mesh "
-                                  f"has 512 ranks; {MULTI_RANK}")
+                                  f"has 512 ranks; the walk runs one rank; "
+                                  f"{MULTI_RANK}")
     if args.all:
         cells = cell_list(args.kv_layout)
     elif args.arch and args.shape:

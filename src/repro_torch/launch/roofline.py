@@ -6,7 +6,8 @@ Terms per (arch x shape), one card:
   compute_s    = FLOPs of each type / that type's peak (989e12 bf16,
                  67e12 fp32), summed
   memory_s     = HBM bytes / 3.35e12
-  collective_s = 0 (one rank: the port has no collective, A13b-5)
+  collective_s = 0 (the walk runs one rank; a mesh's collectives are
+                 not walked, ROADMAP A13b-5b)
 plus MODEL_FLOPS = 6·N·D train, 2·N·D prefill, 2·N·B decode (N the
 active parameters at the walked depth, D the tokens, B the rows), the
 useful ratio MODEL_FLOPS / walked FLOPs and the roofline fraction: the

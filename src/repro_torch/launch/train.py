@@ -23,7 +23,9 @@ sequence parallelism and FSDP unless ``--smoke``, which at one rank
 change only the specs. The params are placed on ``train_shardings``
 before AdamW's state is made from them, and each batch on the tokens'
 sharding. ``--multipod`` asks for the two-pod production mesh of 512
-ranks, which raises ``ValueError`` on one device (ROADMAP A13b-5).
+ranks, which raises ``ValueError`` on one device; a mesh of more ranks
+trains through ``make_train_step`` (``launch/mesh.py``'s ``spawn`` and
+``make_mesh``; ROADMAP A13b-5a).
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ derived on the device (kernels/sampling.py).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -37,7 +38,9 @@ from repro_torch.kernels import sampling as ksamp
 from repro_torch.models import mamba, mla, moe, rwkv
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import init_dense_mlp, rms_norm
-from repro_torch.sharding.policy import NULL_POLICY, Policy
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.policy import (NULL_POLICY, Policy, fsdp_specs,
+                                         map_specs)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -140,9 +143,33 @@ def abstract_params(cfg: ModelConfig, tp: int = 1) -> dict:
     return init_params(cfg, None, device="meta", tp=tp)
 
 
-def embed(table, ids):
-    """ids [...] -> [..., D]."""
-    return table[ids.long()]
+@functools.lru_cache(maxsize=None)
+def _fsdp_specs(cfg: ModelConfig, tp: int, dp: int) -> dict:
+    return fsdp_specs(param_specs(cfg), abstract_params(cfg, tp=tp),
+                      cfg.d_model, dp)
+
+
+def fsdp_param_specs(cfg: ModelConfig, tp: int, dp: int) -> dict:
+    """``param_specs`` with FSDP's ``data`` axis added on the
+    ``tp``-aligned shapes (``sharding.policy.fsdp_specs``, the reference's
+    ``train_shardings``); a new tree on every call."""
+    return map_specs(lambda ax: ax, _fsdp_specs(cfg, tp, dp))
+
+
+def embed(table, ids, mg: Optional[col.MeshGroups] = None):
+    """ids [...] -> [..., D]. On a mesh (``mg``) vocab-parallel, the
+    reference's shard_map body: the rank's [V/tp, D] rows of the table
+    (gathered over ``data`` by the caller under FSDP) give the ids that
+    fall in them, zeros the others, summed over ``model``."""
+    if mg is None:
+        return table[ids.long()]
+    vloc = table.shape[0]
+    loc = ids.long() - mg.tp_rank * vloc
+    ok = (loc >= 0) & (loc < vloc)
+    rows = table[loc.clamp(0, vloc - 1)]
+    out = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                       device=rows.device))
+    return col.psum(out, mg.tp)
 
 
 def head_logits(x, head_w, policy: Policy = NULL_POLICY):
@@ -168,25 +195,84 @@ def _ce_rows(x, head_w, targets):
     return lse - tgt
 
 
-def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK):
-    """Mean CE over masked tokens (the reference's ``chunked_ce_loss``
-    without a mesh). x: [B,S,D]; targets, mask: [B,S]. The per-token
-    values are formed ``chunk`` tokens at a time, each chunk under
+def _ce_rows_sharded(x, head_w, targets, tp_rank: int, tp_group):
+    """``_ce_rows`` with the vocab over ``model``: the rank's [N, V/tp]
+    fp32 logits, the row max through ``pmax`` (no gradient), the exp-sum
+    and the target's logit (zero off its shard) through ``psum``."""
+    logits = (x @ head_w).float()
+    vloc = logits.shape[-1]
+    lmax = col.pmax(logits.max(-1).values, tp_group)
+    se = torch.exp(logits - lmax[:, None]).sum(-1)
+    lse = torch.log(col.psum(se, tp_group)) + lmax
+    loc = targets.long() - tp_rank * vloc
+    ok = (loc >= 0) & (loc < vloc)
+    tl = torch.gather(logits, -1, loc.clamp(0, vloc - 1)[:, None])[:, 0]
+    tl = col.psum(torch.where(ok, tl, torch.zeros_like(tl)), tp_group)
+    return lse - tl
+
+
+def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK,
+            mg: Optional[col.MeshGroups] = None):
+    """Mean CE over masked tokens (the reference's ``chunked_ce_loss``).
+    x: [B,S,D]; targets, mask: [B,S]. The per-token values are formed
+    ``chunk`` tokens at a time, each chunk under
     ``torch.utils.checkpoint`` when autograd records, so no more than one
     chunk's logits are alive; the mean is the reference's, over the whole
-    [B,S] at once."""
+    [B,S] at once. On a mesh (``mg``) it is vocab-parallel: x is the
+    rank's rows, replicated over ``model`` (its gradient summed there by
+    ``copy_in``), head_w the rank's [D, V/tp] columns, each chunk's
+    collectives replayed in the backward, and the masked total and count
+    summed over ``data``, so every rank returns the global batch's
+    mean."""
     B, S, D = x.shape
+    rows = _ce_rows
+    if mg is not None:
+        x = col.copy_in(x, mg.tp)
+        rows = functools.partial(_ce_rows_sharded, tp_rank=mg.tp_rank,
+                                 tp_group=mg.tp)
     xf, tf_ = x.reshape(B * S, D), targets.reshape(B * S)
     parts = []
     for lo in range(0, B * S, chunk):
         args = (xf[lo:lo + chunk], head_w, tf_[lo:lo + chunk])
         if torch.is_grad_enabled():
             parts.append(torch.utils.checkpoint.checkpoint(
-                _ce_rows, *args, use_reentrant=False))
+                rows, *args, use_reentrant=False))
         else:
-            parts.append(_ce_rows(*args))
+            parts.append(rows(*args))
     per_tok = torch.cat(parts).reshape(B, S)
-    return torch.sum(per_tok * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum(per_tok * mask), torch.sum(mask)
+    if mg is not None:
+        total, count = col.psum(total, mg.dp), col.psum(count, mg.dp)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _next_tokens(tokens):
+    """(targets, mask) of next-token prediction over tokens [B,S]: each
+    position's next token, the last position masked out."""
+    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                        dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                      torch.zeros_like(tokens[:, :1])],
+                     dim=1).to(torch.float32)
+    return targets, mask
+
+
+def _train_weights(params, cfg: ModelConfig, mg):
+    """(embedding table, final norm, head [D, V], the blocks' specs) as
+    this rank's forward uses them: the params' own on one rank (``mg``
+    None, no specs); on a mesh the rank's shards, FSDP's gathered over
+    ``data``."""
+    if mg is None:
+        return (params["embed"], params["final_norm"],
+                _head_weight(params, cfg), None)
+    specs = fsdp_param_specs(cfg, mg.tp_size, mg.dp_size) if mg.fsdp \
+        else param_specs(cfg)
+
+    def whole(k):
+        return col.gather_fsdp(params[k], specs[k], mg)
+    table = whole("embed")
+    head_w = table.T if cfg.tie_embeddings else whole("head")
+    return table, whole("final_norm"), head_w, specs["blocks"]
 
 
 def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True, *,
@@ -200,19 +286,25 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True, *,
     (``transformer.apply_stack``). Every family trains: plain and MLA
     attention through B2 and B2-bwd, MoE through B7 and B7-bwd, Mamba
     through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd. Every entry
-    point takes a sharding ``policy`` and refuses one whose mesh has more
-    than one rank."""
-    policy.require_one_rank("lm.forward_loss")
-    x = embed(params["embed"], tokens)
+    point takes a sharding ``policy``; on a mesh of more ranks (plain
+    attention stacks, ``Policy.require_supported``) ``params`` are this
+    rank's shards and ``tokens`` its data rows: embedding and CE are
+    vocab-parallel, attention and dense MLPs tensor-parallel over heads
+    and ff, MoE expert-parallel (``transformer.apply_stack`` with the
+    mesh in ``ctx``), and every rank returns the same loss and metrics,
+    the MoE stats ``pmean``ed over ``data`` as the reference's
+    ``_moe_mlp_sharded`` gives them."""
+    policy.require_supported("lm.forward_loss", cfg, train=True)
+    mg = col.MeshGroups.of(policy) if policy.n_ranks > 1 else None
+    table, final_norm, head_w, specs = _train_weights(params, cfg, mg)
+    x = embed(table, tokens, mg)
     ctx = {"mode": "train", "remat": remat}
+    if mg is not None:
+        ctx.update(mesh=mg, specs=specs)
     x, stats = tf.apply_stack(params, x, cfg, ctx)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                        dim=1)
-    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
-                      torch.zeros_like(tokens[:, :1])],
-                     dim=1).to(torch.float32)
-    ce = ce_loss(x, _head_weight(params, cfg), targets, mask)
+    x = rms_norm(x, final_norm, cfg.norm_eps)
+    targets, mask = _next_tokens(tokens)
+    ce = ce_loss(x, head_w, targets, mask, mg=mg)
     loss = ce
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * stats["moe_aux"]
@@ -228,7 +320,7 @@ def prefill(params, tokens, cfg: ModelConfig,
     cache_len)`` rows (``transformer.attn_forward``); Mamba layers' the
     final carry {conv, ssm}; RWKV layers' the final carry {wkv, shift_tm,
     shift_cm}."""
-    policy.require_one_rank("lm.prefill")
+    policy.require_supported("lm.prefill", cfg)
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
     ctx = {"mode": "prefill", "cache_len": cache_len or S}
@@ -254,7 +346,7 @@ def prefill_chunk(params, tokens, caches, start: int, n_valid: int,
     and ``n_valid`` are host ints, so no index is read back from the
     device. Returns (logits [B,V] at the last valid chunk token, the
     caches). Chaining chunks over a prompt gives ``prefill``'s logits."""
-    policy.require_one_rank("lm.prefill_chunk")
+    policy.require_supported("lm.prefill_chunk", cfg)
     if not tf.chunked_prefill_supported(cfg):
         kinds = sorted(set(cfg.layer_kinds()))
         raise ValueError(
@@ -278,7 +370,7 @@ def decode_step(params, tokens, state, cfg: ModelConfig, active=None, *,
     The caches in ``state`` (page pools, or per-slot slabs and carries)
     are written in place, inactive slots left as they were; ``lengths`` and
     ``positions`` advance only where ``active`` (all slots if None)."""
-    policy.require_one_rank("lm.decode_step")
+    policy.require_supported("lm.decode_step", cfg)
     x = embed(params["embed"], tokens)
     ctx = {"mode": "decode", "positions": state["positions"],
            "lengths": state["lengths"], "active": active,
@@ -316,7 +408,7 @@ def decode_span(params, tokens, state, cfg: ModelConfig, active, budgets, *,
     ``want_logprobs`` (toks, emit, logprobs [span,B] float32, state);
     emit[t,i] marks a real emission of slot i at step t.
     """
-    policy.require_one_rank("lm.decode_span")
+    policy.require_supported("lm.decode_span", cfg)
     toks, act, left = tokens, active, budgets
     ctr = rng[2] if rng is not None else None
     out_t, out_e, out_lp = [], [], []

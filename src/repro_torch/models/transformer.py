@@ -55,6 +55,7 @@ from repro_torch.models.attention import (chunk_prefix_attention,
                                           paged_decode_attention)
 from repro_torch.models.layers import (apply_rope, dense_mlp, mlp_specs,
                                        rms_norm, rope_angles)
+from repro_torch.sharding import collectives as col
 from repro_torch.sharding.policy import NULL_POLICY
 
 
@@ -480,7 +481,10 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
     layers in layer order from zero, as the reference's ``apply_stack``
     sums them; a layer without an MoE MLP adds zeros. They leave each
     checkpointed block as outputs of its own, so ``moe_aux`` keeps its
-    gradient through the router."""
+    gradient through the router. On a mesh (``ctx["mesh"]``, the
+    ``MeshGroups`` of ``lm.forward_loss``) each block runs
+    ``_train_block_mesh`` on the rank's shards, its FSDP gathers inside
+    the checkpoint, so the backward replays them."""
     if ctx["mode"] == "train":
         if caches is not None or want_caches:
             raise ValueError("train mode reads and writes no cache")
@@ -489,8 +493,13 @@ def apply_stack(params, x, cfg: ModelConfig, ctx, caches=None,
                                     device=x.device)
         for i, (bp, kind, mlp_kind) in enumerate(zip(
                 params["blocks"], cfg.layer_kinds(), cfg.mlp_kinds())):
-            run = functools.partial(_train_block, bp, kind, mlp_kind, cfg,
-                                    ctx)
+            if "mesh" in ctx:
+                run = functools.partial(_train_block_mesh, bp,
+                                        ctx["specs"][i], kind, mlp_kind,
+                                        cfg, ctx)
+            else:
+                run = functools.partial(_train_block, bp, kind, mlp_kind,
+                                        cfg, ctx)
             if ctx.get("remat") and i >= n_prefix:
                 x, a, d = torch.utils.checkpoint.checkpoint(
                     run, x, use_reentrant=False)
@@ -515,6 +524,33 @@ def _train_block(bp, kind: str, mlp_kind: str, cfg: ModelConfig, ctx, x):
     x = apply_block(bp, x, kind, mlp_kind, cfg, ctx, stats=stats)[0]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, stats.get("moe_aux", zero), stats.get("moe_dropped", zero)
+
+
+def _train_block_mesh(bp, specs, kind: str, mlp_kind: str,
+                      cfg: ModelConfig, ctx, x):
+    """``_train_block`` of a plain attention layer on a ("data", "model")
+    mesh, as GSPMD runs the reference's under ``stack_specs``: the block's
+    FSDP shards gathered over ``data``; attention column-parallel over the
+    rank's heads (B2 and B2-bwd on them; qk-norm and biases on local
+    heads) and ``wo`` row-parallel, a ``psum`` over ``model`` after it;
+    a dense MLP column- then row-parallel over ``ff``; an MoE MLP
+    expert-parallel (``moe.moe_mlp_sharded``). x is the rank's rows,
+    replicated over ``model``; ``copy_in`` sums its gradient there where
+    it enters each parallel region, and the qk-norm scales', which each
+    rank reaches through its own heads only."""
+    mg = ctx["mesh"]
+    bp = col.gather_fsdp(bp, specs, mg)
+    h = col.copy_in(rms_norm(x, bp["norm1"], cfg.norm_eps), mg.tp)
+    p = {k: col.copy_in(v, mg.tp) if k in ("q_norm", "k_norm") else v
+         for k, v in bp["attn"].items()}
+    x = x + col.psum(attn_forward(h, p, cfg, ctx)[0], mg.tp)
+    h2 = rms_norm(x, bp["norm2"], cfg.norm_eps)
+    if mlp_kind == "moe":
+        m, st = moe.moe_mlp_sharded(h2, bp["moe"], cfg, mg)
+        return x + m, st["moe_aux"], st["moe_dropped"]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    m = dense_mlp(col.copy_in(h2, mg.tp), bp["mlp"], cfg)
+    return x + col.psum(m, mg.tp), zero, zero
 
 
 # --------------------------------------------------------------------------

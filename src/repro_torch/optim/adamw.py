@@ -9,17 +9,17 @@ one card at full width (qwen3-8b's embedding and head alone hold 1.24 B
 parameters). The arithmetic is the reference's, op for op, in fp32.
 ``opt_state_specs`` gives the state's logical sharding axes, with
 ZeRO-1's placement of the fp32 state over the data axis
-(``_zero1_axes``).
+(``sharding.policy.zero1_axes``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.tree import leaves, map_tree
-from repro_torch.sharding.policy import map_specs
+from repro_torch.sharding.policy import map_specs, zero1_axes
 
 
 @dataclass(frozen=True)
@@ -57,23 +57,27 @@ def _global_norm(grads) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
-                 lr_fn: Optional[Callable] = None):
+                 lr_fn: Optional[Callable] = None, *, grad_norm=None):
     """One step: global-norm clip, bias-corrected moments, decoupled
     weight decay on the master, params cast back to their dtype.
     Returns (params, opt_state, {"grad_norm", "lr"}); see the module's
-    note on in-place updates."""
+    note on in-place updates. On a mesh the caller gives the global
+    ``grad_norm`` of the sharded gradients, and ``params=None`` leaves
+    the params to it (ZeRO-1 gathers them from the master's shards)."""
     step = opt_state["step"] + 1
     if lr_fn is None:
         from repro_torch.optim.schedules import cosine_schedule
         lr_fn = cosine_schedule(cfg.lr, cfg.warmup_steps, cfg.total_steps)
     lr = lr_fn(step)
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
+    ps = leaves(params) if params is not None else [None] * len(
+        leaves(grads))
     for g, m, v, ma, p in zip(leaves(grads), leaves(opt_state["m"]),
                               leaves(opt_state["v"]),
-                              leaves(opt_state["master"]), leaves(params)):
+                              leaves(opt_state["master"]), ps):
         # the reference's expression, each op rounded as there (add_'s
         # alpha would fuse a product into the sum), with at most three
         # leaf-sized temporaries alive
@@ -86,24 +90,10 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
         upd.add_(cfg.weight_decay * ma)
         ma.sub_(upd.mul_(lr))
         del upd
-        p.copy_(ma)
+        if p is not None:
+            p.copy_(ma)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
-
-
-def _zero1_axes(axes: Tuple, shape: Tuple[int, ...], dp_size: int,
-                dp_name: str = "data") -> Tuple:
-    """Put the data axis on the largest free dim that ``dp_size``
-    divides (ZeRO-1); ``axes`` as they are when none does."""
-    best, best_dim = None, -1
-    for i, (ax, n) in enumerate(zip(axes, shape)):
-        if ax is None and n % dp_size == 0 and n > best_dim:
-            best, best_dim = i, n
-    if best is None:
-        return axes
-    out = list(axes)
-    out[best] = dp_name
-    return tuple(out)
 
 
 def opt_state_specs(pspecs, params_shape, zero1: bool = False,
@@ -114,7 +104,7 @@ def opt_state_specs(pspecs, params_shape, zero1: bool = False,
     the data axis."""
     if zero1:
         f32_axes = map_specs(
-            lambda ax, sh: _zero1_axes(ax, tuple(sh.shape), dp_size),
+            lambda ax, sh: zero1_axes(ax, tuple(sh.shape), dp_size),
             pspecs, params_shape)
     else:
         f32_axes = pspecs

@@ -106,8 +106,9 @@ class ServingEngine:
         self.params = params
         self.ecfg = ecfg
         self.device = resolve_device(device)
-        # the sharding policy every model call takes; one rank
-        policy.require_one_rank("ServingEngine")
+        # the sharding policy every model call takes; serving runs one
+        # rank
+        policy.require_supported("ServingEngine", cfg)
         self.policy = policy
         B = ecfg.slots
         self.clock = ecfg.clock

@@ -25,10 +25,12 @@ Logical axes:
 tuple (``tuple(P)``), ``placements`` one ``Shard(dim)`` or
 ``Replicate()`` for each mesh dim (a tuple of mesh axes on one tensor
 dim shards that dim over each of them, in mesh order), and ``named`` the
-pair ``(mesh, placements)``, the port's ``NamedSharding``. The port runs
-one rank: ``constrain`` returns its tensor as it is on a mesh whose
-every axis has size 1, and the model's entry points refuse a mesh of
-more ranks (``require_one_rank``; ROADMAP A13b-5).
+pair ``(mesh, placements)``, the port's ``NamedSharding``. The model's
+bodies run on each rank's local shards with explicit collectives
+(``sharding/collectives.py``), so ``constrain`` returns its tensor as it
+is. A mesh of more than one rank trains plain-attention stacks on
+``("data", "model")``; the entry points refuse the rest
+(``require_supported``; ROADMAP A13b-5b).
 """
 from __future__ import annotations
 
@@ -37,10 +39,15 @@ from typing import Dict, Optional, Tuple, Union
 
 Axes = Union[None, str, Tuple[str, ...]]
 
-MULTI_RANK = ("the port runs the model on one rank; a mesh of more ranks "
-              "(vocab-parallel embed and CE, expert-parallel MoE, sequence "
-              "parallelism, FSDP gathers) waits for ROADMAP A13b-5, "
-              "multi-GPU execution")
+MULTI_RANK = ("a mesh of more ranks trains plain-attention stacks (dense, "
+              "and MoE with or without shared experts) over (data, model); "
+              "sequence parallelism, RWKV-6, Mamba and jamba (inner), MLA "
+              "(mla_seq), shard_kv_seq, the pod axis and serving under a "
+              "mesh wait for ROADMAP A13b-5b")
+
+# the rules the multi-rank bodies are written for
+_TRAIN_RULES = {"batch": ("data",), "heads": "model", "kv_heads": "model",
+                "ff": "model", "vocab": "model", "experts": "model"}
 
 
 def _base_rules(multi_pod: bool, sp: bool, shard_kv_seq: bool
@@ -86,6 +93,39 @@ def map_specs(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def zero1_axes(axes: Tuple, shape: Tuple[int, ...], dp_size: int,
+               dp_name: str = "data") -> Tuple:
+    """Put the data axis on the largest free dim that ``dp_size``
+    divides (ZeRO-1); ``axes`` as they are when none does."""
+    best, best_dim = None, -1
+    for i, (ax, n) in enumerate(zip(axes, shape)):
+        if ax is None and n % dp_size == 0 and n > best_dim:
+            best, best_dim = i, n
+    if best is None:
+        return axes
+    out = list(axes)
+    out[best] = dp_name
+    return tuple(out)
+
+
+def fsdp_specs(specs, shapes, d_model: int, dp_size: int):
+    """A param spec tree with FSDP's data axis added, as the reference's
+    ``train_shardings`` places it, given the params' shapes (a tree of
+    tensors): on an expert tensor its d_model dim (when ``dp_size``
+    divides it), on any other leaf ``zero1_axes``' dim. A leaf with no
+    such dim stays whole over ``data``. A new tree."""
+    def place(ax, sh):
+        if "experts" in ax and len(sh.shape) >= 3:
+            out = list(ax)
+            for i, (a, n) in enumerate(zip(ax, sh.shape)):
+                if a is None and n == d_model and n % dp_size == 0:
+                    out[i] = "data"
+                    return tuple(out)
+            return ax
+        return zero1_axes(ax, tuple(sh.shape), dp_size)
+    return map_specs(place, specs, shapes)
+
+
 @dataclass
 class Policy:
     mesh: Optional[object]    # torch.distributed.device_mesh.DeviceMesh
@@ -125,12 +165,36 @@ class Policy:
     def n_ranks(self) -> int:
         return int(self.mesh.size()) if self.mesh is not None else 1
 
-    def require_one_rank(self, where: str) -> None:
-        """Refuse a mesh of more than one rank."""
-        if self.n_ranks > 1:
+    def require_supported(self, where: str, cfg=None, *,
+                          train: bool = False) -> None:
+        """Refuse what a mesh of more than one rank does not run yet:
+        anything but training (``train``) a plain-attention ``cfg`` on a
+        ``("data", "model")`` mesh under the base rules, without sequence
+        parallelism or a sharded KV sequence. One rank runs everything."""
+        if self.n_ranks <= 1:
+            return
+        why = []
+        if not train:
+            why.append("serving")
+        if self._names() != ("data", "model"):
+            why.append(f"mesh axes {self._names()}")
+        if self.rules.get("act_seq"):
+            why.append("sequence parallelism (act_seq over model)")
+        if self.rules.get("kv_seq"):
+            why.append("shard_kv_seq")
+        if any(self.rules.get(k) != v for k, v in _TRAIN_RULES.items()):
+            why.append("rule overrides")
+        if cfg is not None:
+            other = sorted(set(cfg.layer_kinds()) - {"attn"})
+            if other:
+                why.append(f"{'/'.join(other)} layers (inner)")
+            if cfg.mla is not None:
+                why.append("MLA (mla_seq)")
+        if why:
             raise NotImplementedError(
                 f"{where}: a {tuple(self.mesh.shape)} mesh over "
-                f"{self._names()} has {self.n_ranks} ranks; {MULTI_RANK}")
+                f"{self._names()} has {self.n_ranks} ranks, and "
+                f"{', '.join(why)} on it is not ported; {MULTI_RANK}")
 
     # ---- specs --------------------------------------------------------
     def spec(self, *logical: Optional[str]) -> tuple:
@@ -177,10 +241,8 @@ class Policy:
         return (self.mesh, self.placements(*logical))
 
     def constrain(self, x, *logical: Optional[str]):
-        """``x`` as it is without a mesh or on a one-rank mesh, where
-        there is nothing to lay out."""
-        if self.mesh is not None:
-            self.require_one_rank("Policy.constrain")
+        """``x`` as it is: the bodies that run under a mesh produce each
+        rank's local shard, already laid out."""
         return x
 
     def tree_named(self, spec_tree):

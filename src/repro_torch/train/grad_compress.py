@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.tree import map_tree
+from repro_torch.core.tree import leaves, map_tree
 
 
 def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
@@ -40,15 +40,21 @@ def init_residuals(params):
                                           device=p.device), params)
 
 
-def compress_tree(grads, residuals, stacked: Sequence[Sequence[int]] = ()):
+def compress_tree(grads, residuals, stacked: Sequence[Sequence[int]] = (),
+                  reduce=None):
     """(dequantized grads, new residuals), two trees shaped as grads.
 
     Each leaf has its own scale, except that the blocks listed together
     in ``stacked`` (indices into ``grads["blocks"]``) share one scale a
     leaf: the largest |g + r| over those blocks' same leaf, the scale of
-    the reference's stacked leaf."""
+    the reference's stacked leaf. On a mesh each rank holds a shard of
+    every leaf, and ``reduce`` maps the vector of its leaves' largest
+    |g + r| to the largest over every rank's shards (a ``pmax``)."""
     amax = map_tree(lambda g, r: torch.max(torch.abs(g.float() + r)),
                     grads, residuals)
+    if reduce is not None:
+        it = iter(reduce(torch.stack(leaves(amax))).unbind())
+        amax = map_tree(lambda _: next(it), amax)
     for group in stacked:
         shared = map_tree(lambda *a: torch.stack(a).max(),
                           *(amax["blocks"][b] for b in group))

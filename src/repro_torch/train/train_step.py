@@ -12,8 +12,15 @@ Each step constructor takes a sharding ``policy``. ``train_shardings`` and
 ``serve_shardings`` give the reference's in and out shardings as trees
 of ``(mesh, placements)`` pairs (``Policy.named``): FSDP puts the params
 on the data axis too (expert tensors on their d_model dim), ZeRO-1 the
-fp32 state. ``checkpoint.reshard_tree`` lays a tree out on them. The
-port runs one rank, where every placement holds the whole tensor.
+fp32 state. ``checkpoint.reshard_tree`` lays a tree out on them
+(``place_train_state`` for a train step's params and state), and
+``unshard_tree`` gathers the whole leaves back. On one rank every
+placement holds the whole tensor. On a ("data", "model") mesh of more
+ranks the train step holds each rank's shards: it takes the rank's rows
+of the global batch (of each microbatch's rows), sums the gradients
+over ``data`` (FSDP's leaves in their backward's reduce-scatter), and
+updates the rank's ZeRO-1 slice of the master and moments, gathering
+the params back over ``data``.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from repro_torch.core.tree import leaves, map_tree
 from repro_torch.models import lm
 from repro_torch.models import transformer as tf
 from repro_torch.optim import AdamWConfig, adamw_update, opt_state_specs
-from repro_torch.optim.adamw import _zero1_axes
+from repro_torch.sharding import collectives as col
 from repro_torch.sharding.policy import NULL_POLICY, Policy, map_specs
 from repro_torch.train.grad_compress import compress_tree
 
@@ -53,6 +60,78 @@ def value_and_grad(params, tokens, cfg: ModelConfig, remat: bool = True,
     return (loss.detach(), metrics), grads
 
 
+def _leaf_dims(cfg: ModelConfig, policy: Policy) -> list:
+    """(model dim, FSDP data dim, ZeRO-1 data dim) of every param leaf,
+    in ``leaves`` order, each None where the leaf is whole over that
+    axis."""
+    tp, dp = policy.tp_size, policy.axis_size("data")
+    pspec = lm.param_specs(cfg)
+    fspec = lm.fsdp_param_specs(cfg, tp, dp) \
+        if policy.rules.get("fsdp_params") else pspec
+    zspec = opt_state_specs(pspec, lm.abstract_params(cfg, tp=tp),
+                            zero1=True, dp_size=dp)["master"]
+    out = []
+
+    def one(p, f, z):
+        m = [i for i, a in enumerate(policy.spec(*p)) if a == "model"]
+        out.append((m[0] if m else None,
+                    f.index("data") if "data" in f else None,
+                    z.index("data") if "data" in z else None))
+    map_specs(one, pspec, fspec, zspec)
+    return out
+
+
+def _mesh_update(grads, opt_state, params, opt_cfg, mg, dims,
+                 residuals=None, stacked=()):
+    """AdamW on a mesh: each gradient summed over ``data`` (an FSDP
+    leaf's already is) and cut to the rank's ZeRO-1 slice; with
+    ``residuals`` (shaped as those slices) int8-compressed at the whole
+    leaf's scale (the largest |g + r| over every rank's slice); the
+    global norm from every distinct shard once; the master and moments
+    updated on their slices; each param gathered back over ``data`` from
+    the master's slices, or cut to its FSDP shard."""
+    def chunk(t, dim):
+        return t if dim is None else t.chunk(mg.dp_size, dim)[mg.dp_rank]
+
+    def regather(t, have, want):
+        if have == want:
+            return t
+        if have is not None:
+            t = col.gather(t, mg.dp, have)
+        return chunk(t, want)
+
+    def pmax_all(t):
+        t = col.all_reduce(t, mg.tp, torch.distributed.ReduceOp.MAX)
+        return col.all_reduce(t, mg.dp, torch.distributed.ReduceOp.MAX)
+
+    sliced = []
+    for g, (_, f, z) in zip(leaves(grads), dims):
+        g, have = g.float(), f
+        if f is None:
+            have = z
+            g = col.all_reduce(g, mg.dp) if z is None else \
+                col.reduce_scatter(g, mg.dp, z)
+        sliced.append(regather(g, have, z))
+    it = iter(sliced)
+    g_tree = map_tree(lambda _: next(it), grads)
+    if residuals is not None:
+        g_tree, residuals = compress_tree(g_tree, residuals, stacked,
+                                          reduce=pmax_all)
+    sq = torch.zeros((), dtype=torch.float32, device=sliced[0].device)
+    for g, (m, _, z) in zip(leaves(g_tree), dims):
+        if (m is not None or mg.tp_rank == 0) and \
+                (z is not None or mg.dp_rank == 0):
+            sq = sq + torch.sum(torch.square(g))
+    gnorm = torch.sqrt(col.all_reduce(col.all_reduce(sq, mg.tp), mg.dp))
+    _, opt_state, opt_metrics = adamw_update(g_tree, opt_state, None,
+                                             opt_cfg, grad_norm=gnorm)
+    with torch.no_grad():
+        for ma, p, (_, f, z) in zip(leaves(opt_state["master"]),
+                                    leaves(params), dims):
+            p.copy_(regather(ma.to(p.dtype), z, f))
+    return params, opt_state, opt_metrics, residuals
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     grad_compression: bool = False,
                     microbatch: int = 0, *,
@@ -61,8 +140,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
     opt_state, metrics[, residuals]). ``microbatch`` > 1 accumulates
     gradients over that many row slices of the batch, in fp32, and
     reports the mean of their losses and the last slice's other
-    metrics, as the reference's scan does."""
+    metrics, as the reference's scan does. On a mesh of more ranks
+    ``params`` and ``opt_state`` are the rank's shards on
+    ``train_shardings(cfg, policy, fsdp=<the policy's fsdp_params>)``,
+    ZeRO-1's (``place_train_state``), ``tokens`` the global batch,
+    the same on every rank, and ``residuals`` shaped as the rank's master
+    slices (``init_residuals(opt_state["master"])``)."""
     opt_cfg = opt_cfg or AdamWConfig()
+    mesh = policy.n_ranks > 1
+    if mesh:
+        policy.require_supported("make_train_step", cfg, train=True)
+        mg = col.MeshGroups.of(policy)
+        dims = _leaf_dims(cfg, policy)
+
+    def rows(t):
+        """This data rank's rows of a global batch."""
+        if not mesh:
+            return t
+        if t.shape[0] % mg.dp_size:
+            raise ValueError(f"batch rows {t.shape[0]} are not a multiple "
+                             f"of the data axis {mg.dp_size}")
+        b = t.shape[0] // mg.dp_size
+        return t[mg.dp_rank * b:(mg.dp_rank + 1) * b]
     # the blocks the reference stacks into one leaf, which compression
     # scales as one tensor: block j of every repeating group
     prefix, unit, n_groups = tf.plan_layers(cfg)
@@ -71,7 +170,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def compute_grads(params, tokens):
         if not (microbatch and microbatch > 1):
-            return value_and_grad(params, tokens, cfg, policy=policy)
+            return value_and_grad(params, rows(tokens), cfg, policy=policy)
         B = tokens.shape[0]
         if B % microbatch:
             raise ValueError(f"batch {B} is not a multiple of microbatch "
@@ -82,7 +181,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         l_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(microbatch):
             (l, metrics), g = value_and_grad(
-                params, tokens[i * mb:(i + 1) * mb], cfg, policy=policy)
+                params, rows(tokens[i * mb:(i + 1) * mb]), cfg,
+                policy=policy)
             for a, b in zip(leaves(g_acc), leaves(g)):
                 a.add_(b)
             del g
@@ -92,10 +192,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def train_step(params, opt_state, tokens, residuals=None):
         (loss, metrics), grads = compute_grads(params, tokens)
-        if grad_compression:
-            grads, residuals = compress_tree(grads, residuals, stacked)
-        params, opt_state, opt_metrics = adamw_update(
-            grads, opt_state, params, opt_cfg)
+        if mesh:
+            params, opt_state, opt_metrics, residuals = _mesh_update(
+                grads, opt_state, params, opt_cfg, mg, dims,
+                residuals if grad_compression else None, stacked)
+        else:
+            if grad_compression:
+                grads, residuals = compress_tree(grads, residuals, stacked)
+            params, opt_state, opt_metrics = adamw_update(
+                grads, opt_state, params, opt_cfg)
         metrics = {"loss": loss, **metrics, **opt_metrics}
         if grad_compression:
             return params, opt_state, metrics, residuals
@@ -118,24 +223,72 @@ def train_shardings(cfg: ModelConfig, policy: Policy, zero1: bool = True,
     pspec = lm.param_specs(cfg)
     params_shape = lm.abstract_params(cfg, tp=policy.tp_size)
     dp = policy.axis_size("data")
-
-    def place(ax, sh):
-        if "experts" in ax and len(sh.shape) >= 3:
-            out = list(ax)
-            for i, (a, n) in enumerate(zip(ax, sh.shape)):
-                if a is None and n == cfg.d_model and n % dp == 0:
-                    out[i] = "data"
-                    return tuple(out)
-            return ax
-        return _zero1_axes(ax, tuple(sh.shape), dp)
-
-    pspec_eff = map_specs(place, pspec, params_shape) if fsdp else pspec
+    pspec_eff = lm.fsdp_param_specs(cfg, policy.tp_size, dp) if fsdp \
+        else pspec
     p_sh = policy.tree_named(pspec_eff)
     o_spec = opt_state_specs(pspec, params_shape, zero1=zero1, dp_size=dp)
     o_sh = {k: policy.tree_named(o_spec[k]) for k in ("master", "m", "v")}
     o_sh["step"] = policy.named()
     tok_sh = policy.named("batch", None)
     return (p_sh, o_sh, tok_sh), (p_sh, o_sh, None)
+
+
+def place_train_state(params, cfg: ModelConfig, policy: Policy,
+                      opt_state=None):
+    """(params[, opt_state]) whole on every rank -> this rank's shards
+    as ``make_train_step`` takes them on a mesh: ``train_shardings`` with
+    the policy's FSDP flag. Without ``opt_state`` a fresh AdamW state is
+    made from the rank's ZeRO-1 slices of the params (``adamw_init``), so
+    no rank holds the whole fp32 state. Copies: the step updates them in
+    place, and a shard that is the whole leaf must not write into the
+    caller's."""
+    from repro_torch.checkpoint import reshard_tree
+    from repro_torch.optim import adamw_init
+    (p_sh, o_sh, _), _ = train_shardings(
+        cfg, policy, fsdp=bool(policy.rules.get("fsdp_params")))
+
+    def place(tree, sh):
+        return map_tree(lambda t: t.clone(), reshard_tree(tree, sh))
+    if opt_state is None:
+        opt = adamw_init(reshard_tree(params, o_sh["master"]))
+    else:
+        opt = {k: place(opt_state[k], o_sh[k])
+               for k in ("master", "m", "v")}
+        opt["step"] = opt_state["step"].clone()
+    return place(params, p_sh), opt
+
+
+def unshard_tree(tree, shardings):
+    """Each rank's shard of every leaf -> the whole leaf on every rank,
+    gathered over each mesh dim that shards it (``reshard_tree``'s
+    inverse)."""
+    from torch.distributed.tensor import Shard
+
+    def walk(x, sh):
+        if isinstance(x, dict):
+            return {k: walk(x[k], sh[k]) for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(a, b) for a, b in zip(x, sh))
+        mesh, placements = sh
+        for i, pl in enumerate(placements):
+            if isinstance(pl, Shard):
+                x = col.gather(x, mesh.get_group(i), pl.dim)
+        return x
+    return walk(tree, shardings)
+
+
+def gathered_grads(grads, cfg: ModelConfig, policy: Policy):
+    """The rank's gradients of ``value_and_grad`` on a mesh -> the whole
+    gradients on every rank: summed over ``data`` (an FSDP leaf's already
+    are) and gathered over every mesh dim that shards the param."""
+    mg = col.MeshGroups.of(policy)
+    summed = [g if f is not None else col.all_reduce(g, mg.dp)
+              for g, (_, f, _) in zip(leaves(grads),
+                                      _leaf_dims(cfg, policy))]
+    it = iter(summed)
+    (p_sh, _, _), _ = train_shardings(
+        cfg, policy, fsdp=bool(policy.rules.get("fsdp_params")))
+    return unshard_tree(map_tree(lambda _: next(it), grads), p_sh)
 
 
 def serve_shardings(cfg: ModelConfig, policy: Policy):

@@ -20,7 +20,8 @@ B4-bwd) against their plain versions on shape sweeps, bit for bit across
 calls, and the gradients of SMOKE moonshot, deepseek, rwkv6 and jamba on
 the card against the CPU; the device multiqueue on the card against the
 CPU, ``batched_enqueue`` against B7's kernel, and ``reshard_tree`` on a
-one-rank ``cuda`` mesh.
+one-rank ``cuda`` mesh; four gloo ranks on a (2, 2) mesh sharing the
+card against one-rank card runs.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor ``repro``, so it also runs on a machine without
@@ -1565,3 +1566,27 @@ def test_examples_run_on_the_card_by_default(cuda, capsys):
     assert "ok" in capsys.readouterr().out and len(out["tokens"]) == 9
     out = _example("serve_live").main([])
     assert out["arrivals"] == 14 and out["premium_all_completed"]
+
+
+def test_four_ranks_sharing_the_card_equal_one_rank(cuda):
+    """Four gloo ranks on a (2, 2) ("data", "model") mesh, all on the one
+    card (chip_smoke.py's ranks phase, its fp32 part for SMOKE qwen3-8b):
+    forward_loss's loss within 1e-5 relative and every gathered gradient
+    within 1e-4 of its leaf's largest |value| of the mean over the data
+    shards of one-rank runs on the card, FSDP off and on; each rank's B2
+    and B2-bwd launches held to one gradient call."""
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import spawn
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    recs = spawn(chip_smoke.ranks_main, 4, ("qwen3-8b",), (), timeout=600)
+    assert [r["device"] for r in recs] == ["cuda:0"] * 4
+    rows = recs[0]["smoke"]
+    assert [r["fsdp"] for r in rows] == [False, True]
+    for r in rows:
+        assert max(r["errors"].values()) <= 1e-5 and r["grad_err"] <= 1e-4
+    for rec in recs:
+        for r in rec["smoke"]:
+            assert r["path"]["launches"]["flash_attention"] == 4
+            assert r["path"]["launches"]["flash_attention_bwd"] == 2

@@ -153,26 +153,57 @@ def test_placements_and_constrain():
     assert NULL_POLICY.spec("batch", "ff") == (None, None)
 
 
-def test_entry_points_refuse_a_mesh_of_more_ranks():
-    """A policy whose mesh has two ranks names ROADMAP A13b-5 at every
-    entry point (a stand-in mesh: the refusal reads only its size)."""
-    class TwoRanks:
-        mesh_dim_names = ("data", "model")
-        shape = (1, 2)
+class TwoRanks:
+    """A stand-in two-rank mesh: the refusals read only its shape, axis
+    names and size."""
+    mesh_dim_names = ("data", "model")
+    shape = (1, 2)
 
-        def size(self):
-            return 2
-    pol = make_policy(TwoRanks())
-    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(n_layers=1, dtype="float32")
-    params = lm.init_params(cfg, torch.Generator().manual_seed(0),
-                            device="cpu")
+    def size(self):
+        return 2
+
+
+def _refusal_call(what):
+    """(the call, the phrase its refusal must name) for one path a mesh
+    of more ranks does not run yet (ROADMAP A13b-5b)."""
+    arch, opts, phrase = {
+        "rwkv6": ("rwkv6-1.6b", {}, "rwkv layers"),
+        "jamba": ("jamba-v0.1-52b", {}, "mamba layers"),
+        "mla": ("deepseek-v2-lite-16b", {}, "MLA"),
+        "sp": ("qwen3-8b", {"sp": True}, "sequence parallelism"),
+        "shard_kv_seq": ("qwen3-8b", {"shard_kv_seq": True}, "shard_kv_seq"),
+        "prefill": ("qwen3-8b", {}, "serving"),
+        "decode_step": ("qwen3-8b", {}, "serving"),
+    }[what]
+    pol = make_policy(TwoRanks(), **opts)
+    cfg = SMOKE_CONFIGS[arch].scaled(n_layers=1, dtype="float32")
     toks = torch.zeros(1, 8, dtype=torch.int32)
-    calls = [lambda: lm.forward_loss(params, toks, cfg, policy=pol),
-             lambda: lm.prefill(params, toks, cfg, policy=pol),
-             lambda: pol.constrain(toks, "batch", None)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A13b-5"):
-            call()
+    if what == "prefill":
+        return (lambda: lm.prefill(None, toks, cfg, policy=pol)), phrase
+    if what == "decode_step":
+        return (lambda: lm.decode_step(None, toks[:, 0], {}, cfg,
+                                       policy=pol)), phrase
+    return (lambda: lm.forward_loss(None, toks, cfg, policy=pol)), phrase
+
+
+@pytest.mark.parametrize("what", ["rwkv6", "jamba", "mla", "sp",
+                                  "shard_kv_seq", "prefill", "decode_step"])
+def test_entry_points_refuse_a_mesh_of_more_ranks(what):
+    """On a policy whose mesh has two ranks, training an RWKV-6, jamba or
+    MLA stack, sequence parallelism, a sharded KV sequence and every
+    serving entry point raise, naming ROADMAP A13b-5b and what is missing
+    (a stand-in mesh: the refusal reads only its size and axes)."""
+    call, phrase = _refusal_call(what)
+    with pytest.raises(NotImplementedError, match="A13b-5b") as e:
+        call()
+    assert phrase in str(e.value)
+
+
+def test_constrain_is_the_identity_on_a_mesh():
+    """``constrain`` returns its tensor on a mesh of any size: the bodies
+    that run under a mesh produce each rank's local shard."""
+    x = torch.ones(2, 3)
+    assert make_policy(TwoRanks()).constrain(x, "batch", "vocab") is x
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +434,8 @@ def test_serving_steps_under_the_smoke_mesh_equal_null_policy():
 @pytest.mark.parametrize("layout", ["paged", "dense"])
 def test_engine_under_the_smoke_mesh_equals_null_policy(layout):
     """make_engine(policy=) on SMOKE qwen3-8b: the same streams and
-    counters as NULL_POLICY's engine; a mesh of two ranks is refused."""
+    counters as NULL_POLICY's engine; a mesh of two ranks is refused
+    (serving under a mesh is ROADMAP A13b-5b)."""
     from repro_torch.serve import api
     cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(n_layers=2, dtype="float32")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0),
@@ -424,14 +456,7 @@ def test_engine_under_the_smoke_mesh_equals_null_policy(layout):
         runs.append(({r.req_id: r.tokens_out for r in done},
                      dict(eng.stats)))
     assert runs[0] == runs[1]
-
-    class TwoRanks:
-        mesh_dim_names = ("data", "model")
-        shape = (2, 1)
-
-        def size(self):
-            return 2
-    with pytest.raises(NotImplementedError, match="A13b-5"):
+    with pytest.raises(NotImplementedError, match="A13b-5b"):
         api.make_engine(cfg, params, ecfg, device="cpu",
                         policy=make_policy(TwoRanks()))
 
