@@ -227,6 +227,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -4579,47 +4580,66 @@ def phase_examples(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# ranks: training on a ("data", "model") mesh of four ranks on the one card
+# ranks: training on meshes of four ranks on the one card
 # --------------------------------------------------------------------------
 
-# four ranks share the card over gloo (NCCL takes one GPU per rank); the
-# fp32 SMOKE configs are held to one-rank runs on the card, the full-width
-# bf16 ones train a few steps at 2 layers on a repeated batch
+# four ranks share the card over gloo (NCCL takes one GPU per rank), on a
+# (2, 2) ("data", "model") mesh and a (2, 1, 2) ("pod", "data", "model")
+# mesh whose pod x data is as long as the other's data axis; the fp32
+# SMOKE configs are held to one-rank runs on the card and to each other,
+# the full-width bf16 ones train a few steps on a repeated batch
 RANKS_MESH = (2, 2)
+RANKS_POD_MESH = (2, 1, 2)
 RANKS_BACKEND = "gloo"
 RANKS_SMOKE = ("qwen3-8b", "qwen1.5-4b", "moonshot-v1-16b-a3b")
 RANKS_FULL = ("qwen3-8b", "moonshot-v1-16b-a3b")
+# (mesh, sp, fsdp) of each fp32 SMOKE run of a config: each held to the
+# one-rank runs; an SP run also to the run before it, the pod run to the
+# (2, 2) SP run
+RANKS_SMOKE_RUNS = ((RANKS_MESH, False, False), (RANKS_MESH, False, True),
+                    (RANKS_MESH, True, True), (RANKS_POD_MESH, True, True))
+# (sp, layers, steps) of each full-width run on the (2, 2) mesh: FSDP and
+# ZeRO-1 without SP at one layer, for time, then the launcher's
+# production policy (SP, FSDP, ZeRO-1) at two
+RANKS_FULL_RUNS = ((False, 1, 2), (True, 2, 4))
 RANKS_SMOKE_SHAPE = (4, 64)
 RANKS_FULL_SHAPE = (4, 1024)
-RANKS_LAYERS = 2
-RANKS_STEPS = 4
 RANKS_TIMEOUT = 600
+
+
+def _ranks_axes(shape):
+    return ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
 
 
 def ranks_kernel_shapes():
     """What B2, B2-bwd, B7 and B7-bwd take on one rank of the ranks
     phase, from the configs as ``ranks_main`` runs them: B2 [b, H_eff/tp,
-    KV_eff/tp, S, hd] on the rank's b = B/dp rows and local heads
-    (``eff_heads``); B7 [T = b S K, d_model] into b E/tp queues of
-    capacity(S) slots. One row a config: arch, dtype, flash, moe (None
-    without MoE)."""
+    KV_eff/tp, S, hd] on the rank's b = B/(pod x data) rows and local
+    heads (``eff_heads``), the whole sequence with or without SP (it is
+    gathered before attention); B7 [T = b S K, d_model] into b E/tp
+    queues of capacity(S) slots. Both meshes give the same. One row a
+    config: arch, dtype, flash, moe (None without MoE)."""
     from repro_torch.configs.registry import SMOKE_CONFIGS, get_config
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import eff_heads
-    dp, tp = RANKS_MESH
     rows = []
     for archs, (B, S), dtype, of in (
             (RANKS_SMOKE, RANKS_SMOKE_SHAPE, "float32",
              SMOKE_CONFIGS.__getitem__),
             (RANKS_FULL, RANKS_FULL_SHAPE, "bfloat16", get_config)):
         for arch in archs:
-            cfg, b = of(arch), B // dp
-            H, KV = eff_heads(cfg, tp)
-            moe = cfg.moe and (b * S * cfg.moe.top_k, cfg.d_model,
-                               b * cfg.moe.n_experts // tp,
-                               capacity(S, cfg))
-            rows.append({"arch": arch, "dtype": dtype,
-                         "flash": (b, H // tp, KV // tp, S, cfg.head_dim),
+            shapes = set()
+            for mesh in (RANKS_MESH, RANKS_POD_MESH):
+                cfg, b, tp = of(arch), B // math.prod(mesh[:-1]), mesh[-1]
+                H, KV = eff_heads(cfg, tp)
+                moe = cfg.moe and (b * S * cfg.moe.top_k, cfg.d_model,
+                                   b * cfg.moe.n_experts // tp,
+                                   capacity(S, cfg))
+                shapes.add(((b, H // tp, KV // tp, S, cfg.head_dim), moe))
+            require(len(shapes) == 1, f"ranks {arch}: the meshes give "
+                    f"ranks other shapes: {shapes}")
+            (flash, moe), = shapes
+            rows.append({"arch": arch, "dtype": dtype, "flash": flash,
                          "moe": moe})
     return rows
 
@@ -4684,12 +4704,14 @@ def _mesh_reference(torch, cfg, params, toks, dp, grads: bool):
     return loss, mets, acc
 
 
-def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
-    """SMOKE ``arch`` in fp32 (TF32 off) on the mesh: forward_loss's
-    loss, stats and gathered gradients on the rank's shards, each rank's
-    B2/B2-bwd/B7/B7-bwd launches held to one gradient call; on rank 0
-    against ``_mesh_reference`` on the card: loss and stats within 1e-5
-    relative, every gradient within 1e-4 of its leaf's largest |value|."""
+def _ranks_smoke(torch, mesh, arch, sp, fsdp, rank, seed=0):
+    """SMOKE ``arch`` in fp32 (TF32 off) on the mesh, SP and FSDP as
+    given: forward_loss's loss, stats and gathered gradients on the
+    rank's shards, each rank's B2/B2-bwd/B7/B7-bwd launches held to one
+    gradient call; on rank 0 against ``_mesh_reference`` on the card:
+    loss and stats within 1e-5 relative, every gradient within 1e-4 of
+    its leaf's largest |value| (rank 0 keeps the gradients, ``grads``,
+    for ``_ranks_same``)."""
     from repro_torch.configs.registry import SMOKE_CONFIGS
     from repro_torch.core.tree import leaves
     from repro_torch.models import lm
@@ -4697,7 +4719,8 @@ def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
     from repro_torch.sharding import make_policy
     from repro_torch.train import train_step as ts
     cfg = SMOKE_CONFIGS[arch].scaled(dtype="float32")
-    pol = make_policy(mesh, fsdp=fsdp)
+    shape = tuple(mesh.shape)
+    pol = make_policy(mesh, multi_pod=len(shape) == 3, sp=sp, fsdp=fsdp)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     whole = lm.init_params(cfg, gen, device="cuda", tp=pol.tp_size)
     B, S = RANKS_SMOKE_SHAPE
@@ -4705,16 +4728,18 @@ def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
                          generator=torch.Generator().manual_seed(seed + 1)
                          ).cuda()
     params, _ = ts.place_train_state(whole, cfg, pol)
-    d, b = col.axis_index(pol, "data"), B // pol.dp_size
+    mg = col.MeshGroups.of(pol)
+    d, b = mg.batch_rank, B // mg.batch_size
     wrappers = _reset_launches()
     (loss, mets), grads = ts.value_and_grad(params, toks[d * b:(d + 1) * b],
                                             cfg, policy=pol)
     torch.cuda.synchronize()
-    label = f"ranks {arch} fp32 fsdp={fsdp}"
+    label = f"ranks {arch} fp32 {shape} sp={sp} fsdp={fsdp}"
     path = _train_launches(label, wrappers, cfg, S, 1)
     grads = ts.gathered_grads(grads, cfg, pol)
-    rec = {"arch": arch, "fsdp": fsdp, "loss": float(loss),
-           **{k: float(v) for k, v in mets.items()}, "path": path}
+    rec = {"arch": arch, "mesh": list(shape), "sp": sp, "fsdp": fsdp,
+           "loss": float(loss), **{k: float(v) for k, v in mets.items()},
+           "path": path}
     if rank == 0:
         ref_loss, ref_mets, ref_g = _mesh_reference(torch, cfg, whole, toks,
                                                     pol.dp_size, True)
@@ -4722,7 +4747,8 @@ def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
         for k, v in ref_mets.items():
             errs[k] = abs(rec[k] - v) / max(abs(v), 1e-30) if v else \
                 abs(rec[k])
-        g_errs = [_err_of_max(g, r) for g, r in zip(leaves(grads), ref_g)]
+        rec["grads"] = leaves(grads)
+        g_errs = [_err_of_max(g, r) for g, r in zip(rec["grads"], ref_g)]
         names = _leaf_names(whole)
         worst = max(range(len(g_errs)), key=g_errs.__getitem__)
         rec.update(ref_loss=ref_loss, errors=errs,
@@ -4735,15 +4761,30 @@ def _ranks_smoke(torch, mesh, arch, fsdp, rank, seed=0):
     return rec
 
 
-def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
-    """``arch`` at full width and RANKS_LAYERS layers in bf16 on the
-    mesh, ZeRO-1 and FSDP, RANKS_STEPS steps on one repeated
+def _ranks_same(rec, base):
+    """Rank 0: an fp32 run against another on the same weights and tokens
+    (SP against none, the pod mesh against the (2, 2) one): loss and
+    stats within 1e-5 relative, every gradient within 1e-4 of its leaf's
+    largest |value|."""
+    errs = {k: abs(rec[k] - base[k]) / max(abs(base[k]), 1e-30)
+            for k in ("loss", "ce", "moe_aux", "moe_dropped")}
+    g = max(_err_of_max(a, b) for a, b in zip(rec["grads"], base["grads"]))
+    rec["vs"] = {"mesh": base["mesh"], "sp": base["sp"], "errors": errs,
+                 "grad_err": g}
+    require(max(errs.values()) <= 1e-5 and g <= 1e-4,
+            f"{rec['path']['label']}: off {base['path']['label']}: "
+            f"{errs}, gradients {g}")
+
+
+def _ranks_full(torch, mesh, arch, rank, sp, layers, steps, seed=0,
+                lr=3e-4):
+    """``arch`` at full width and ``layers`` layers in bf16 on the mesh,
+    ZeRO-1 and FSDP, SP as given, ``steps`` steps on one repeated
     RANKS_FULL_SHAPE batch: each step's loss and seconds, the rank's peak
     memory, its B2/B2-bwd/B7/B7-bwd launches held to one gradient call a
     step, one step's collectives and bytes; on rank 0 the losses finite
     and falling, step 1's within 2e-2 of ``_mesh_reference`` on the
     card."""
-    import math
     from repro_torch.configs.registry import get_config
     from repro_torch.core.timing import Timer
     from repro_torch.models import lm
@@ -4751,8 +4792,8 @@ def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
     from repro_torch.sharding import collectives as col
     from repro_torch.sharding import make_policy
     from repro_torch.train import train_step as ts
-    cfg = get_config(arch).scaled(n_layers=RANKS_LAYERS)
-    pol = make_policy(mesh, fsdp=True)
+    cfg = get_config(arch).scaled(n_layers=layers)
+    pol = make_policy(mesh, sp=sp, fsdp=True)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4774,7 +4815,7 @@ def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
                                                total_steps=100), policy=pol)
     wrappers = _reset_launches()
     losses, secs, colls = [], [], None
-    for _ in range(RANKS_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         col.reset_counts()
         t = Timer()
@@ -4782,9 +4823,9 @@ def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
         losses.append(float(m["loss"]))
         secs.append(t.elapsed())
         colls = col.counts()
-    label = f"ranks {arch} bf16"
-    path = _train_launches(label, wrappers, cfg, S, RANKS_STEPS)
-    rec = {"arch": arch, "layers": RANKS_LAYERS, "batch": B, "seq": S,
+    label = f"ranks {arch} bf16 sp={sp}"
+    path = _train_launches(label, wrappers, cfg, S, steps)
+    rec = {"arch": arch, "sp": sp, "layers": layers, "batch": B, "seq": S,
            "losses": losses, "step_s": secs,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "collectives_a_step": colls, "path": path}
@@ -4800,54 +4841,71 @@ def _ranks_full(torch, mesh, arch, rank, seed=0, lr=3e-4):
 
 
 def ranks_main(rank, store, smoke=RANKS_SMOKE, full=RANKS_FULL):
-    """One rank of the ranks phase: the mesh over ``cuda`` (rank r on
-    card r % count: all on the one card here), then the fp32 SMOKE
-    comparisons and the full-width bf16 runs."""
+    """One rank of the ranks phase: the two meshes over ``cuda`` (rank r
+    on card r % count: all on the one card here), then the fp32 SMOKE
+    comparisons (``RANKS_SMOKE_RUNS``) and the full-width bf16 runs
+    (``RANKS_FULL_RUNS``)."""
     import torch
     from repro_torch.core.timing import Timer
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding import collectives as col
     torch.backends.cuda.matmul.allow_tf32 = False
     t = Timer()
-    mesh = make_mesh(RANKS_MESH, device="cuda", backend=RANKS_BACKEND,
-                     store=store, rank=rank)
+    meshes = {shape: make_mesh(shape, _ranks_axes(shape), device="cuda",
+                               backend=RANKS_BACKEND, store=store,
+                               rank=rank)
+              for shape in (RANKS_MESH, RANKS_POD_MESH)}
     out = {"rank": rank, "torch": torch.__version__, "smoke": [],
            "full": [], "ops": {}, "mesh_s": t.elapsed(),
            "device": f"cuda:{torch.cuda.current_device()}"}
+
+    def tally(calls):
+        for k, v in calls.items():
+            out["ops"][k] = out["ops"].get(k, 0) + v["calls"]
     for arch in smoke:
-        for fsdp in (False, True):
+        runs = []
+        for shape, sp, fsdp in RANKS_SMOKE_RUNS:
             col.reset_counts()
             t = Timer()
-            out["smoke"].append(_ranks_smoke(torch, mesh, arch, fsdp, rank))
-            out["smoke"][-1]["seconds"] = t.elapsed()
-            for k, v in col.counts().items():
-                out["ops"][k] = out["ops"].get(k, 0) + v["calls"]
+            rec = _ranks_smoke(torch, meshes[shape], arch, sp, fsdp, rank)
+            if rank == 0 and sp:
+                _ranks_same(rec, runs[-1])
+            rec["seconds"] = t.elapsed()
+            tally(col.counts())
+            runs.append(rec)
+        for rec in runs:
+            rec.pop("grads", None)
+        out["smoke"] += runs
     for arch in full:
-        t = Timer()
-        out["full"].append(_ranks_full(torch, mesh, arch, rank))
-        out["full"][-1]["seconds"] = t.elapsed()
-        for k, v in out["full"][-1]["collectives_a_step"].items():
-            out["ops"][k] = out["ops"].get(k, 0) + v["calls"]
+        for sp, layers, steps in RANKS_FULL_RUNS:
+            t = Timer()
+            out["full"].append(_ranks_full(torch, meshes[RANKS_MESH], arch,
+                                           rank, sp, layers, steps))
+            out["full"][-1]["seconds"] = t.elapsed()
+            tally(out["full"][-1]["collectives_a_step"])
     return out
 
 
 def phase_ranks(torch, smi, smoke=RANKS_SMOKE, full=RANKS_FULL):
-    """Four processes on a (2, 2) ("data", "model") mesh sharing the card
-    over gloo (``launch.mesh.spawn``; the kernels built by the build
-    phase, loaded from its directory): the fp32 SMOKE comparisons and the
-    full-width bf16 training of ``ranks_main``. A rank that fails fails
-    the phase. Returns the ranks' paths, with their launches summed, for
-    the kernels line."""
+    """Four processes sharing the card over gloo on a (2, 2) ("data",
+    "model") mesh and a (2, 1, 2) ("pod", "data", "model") mesh
+    (``launch.mesh.spawn``; the kernels built by the build phase, loaded
+    from its directory): the fp32 SMOKE comparisons and the full-width
+    bf16 training of ``ranks_main``. A rank that fails fails the phase.
+    Returns the ranks' paths, with their launches summed, for the
+    kernels line."""
     from repro_torch.launch.mesh import spawn
-    world = RANKS_MESH[0] * RANKS_MESH[1]
+    world = math.prod(RANKS_MESH)
     gc.collect()
     torch.cuda.empty_cache()
     try:
         recs = spawn(ranks_main, world, smoke, full, timeout=RANKS_TIMEOUT)
     except (RuntimeError, TimeoutError) as e:
         raise Check(f"ranks: {e}") from e
-    emit({"phase": "ranks", "world": world, "mesh": list(RANKS_MESH),
-          "axes": ["data", "model"], "backend": RANKS_BACKEND,
+    emit({"phase": "ranks", "world": world,
+          "meshes": {str(m): _ranks_axes(m)
+                     for m in (RANKS_MESH, RANKS_POD_MESH)},
+          "backend": RANKS_BACKEND,
           "devices": sorted({r["device"] for r in recs}),
           "torch": recs[0]["torch"],
           "mesh_s_by_rank": [r["mesh_s"] for r in recs],

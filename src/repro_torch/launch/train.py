@@ -17,15 +17,18 @@ qwen3-8b with AdamW's fp32 state needs 131 GB) and ``--device``. Every
 registry config trains: ``--arch rwkv6-1.6b``, ``moonshot-v1-16b-a3b``,
 ``deepseek-v2-lite-16b`` and ``jamba-v0.1-52b`` as the dense ones.
 
-The run is laid out by a sharding policy, as the reference's: on the
-one-rank smoke mesh (``launch/mesh.py``) with the reference's choices,
-sequence parallelism and FSDP unless ``--smoke``, which at one rank
-change only the specs. The params are placed on ``train_shardings``
-before AdamW's state is made from them, and each batch on the tokens'
-sharding. ``--multipod`` asks for the two-pod production mesh of 512
-ranks, which raises ``ValueError`` on one device; a mesh of more ranks
-trains through ``make_train_step`` (``launch/mesh.py``'s ``spawn`` and
-``make_mesh``; ROADMAP A13b-5a).
+The run is laid out by a sharding policy, as the reference's, with the
+reference's choices: sequence parallelism and FSDP unless ``--smoke``,
+ZeRO-1 always, and the pod axis's batch rules on a ("pod", "data",
+"model") mesh. The mesh is the one-rank smoke mesh (``launch/mesh.py``),
+where the policy changes only the specs, or the mesh of ranks ``main``
+is given (``mesh=``: each rank of a ``launch/mesh.py`` ``spawn`` calls
+it with its ``make_mesh``), on which the run trains its rank's shards
+(``place_train_state``: the params on ``train_shardings``, AdamW's state
+made from the rank's ZeRO-1 slices; each step takes the global batch and
+keeps the rank's rows), each rank checkpointing its own shards under
+``<ckpt-dir>/rank<r>``. ``--multipod`` asks for the two-pod production
+mesh of 512 ranks: in a world of another size it raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -33,26 +36,28 @@ import argparse
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.checkpoint import Checkpointer, latest_step, reshard_tree
+from repro_torch.checkpoint import Checkpointer, latest_step
 from repro_torch.configs.registry import ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.timing import Timer
 from repro_torch.data import DataConfig, SyntheticPackedDataset
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 from repro_torch.models import lm
-from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim import AdamWConfig
 from repro_torch.sharding import make_policy
-from repro_torch.train.train_step import make_train_step, train_shardings
+from repro_torch.train.train_step import make_train_step, place_train_state
 
 DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "build"
                        / "train_ckpt")
 
 
-def main(argv=None) -> dict:
-    """Train as the flags say; returns every step's metrics (host
-    floats), the run's totals, and the final params and optimizer
-    state."""
+def main(argv=None, mesh=None) -> dict:
+    """Train as the flags say, on ``mesh`` if given (a mesh of ranks),
+    else the smoke mesh or ``--multipod``'s; returns every step's metrics
+    (host floats), the run's totals, and the final params and optimizer
+    state (the rank's shards on a mesh of more ranks)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-8b", choices=list(ARCH_NAMES))
     ap.add_argument("--smoke", action="store_true",
@@ -74,27 +79,30 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    mesh = (make_production_mesh(multi_pod=True, device=device)
-            if args.multipod else make_smoke_mesh(device))
-    policy = make_policy(mesh, multi_pod=args.multipod, sp=not args.smoke,
-                         fsdp=not args.smoke)
+    if mesh is None:
+        mesh = (make_production_mesh(multi_pod=True, device=device)
+                if args.multipod else make_smoke_mesh(device))
+    policy = make_policy(mesh, multi_pod="pod" in mesh.mesh_dim_names,
+                         sp=not args.smoke, fsdp=not args.smoke)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = cfg.scaled(n_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(0)
-    (p_sh, _, tok_sh), _ = train_shardings(cfg, policy)
-    params = reshard_tree(
-        lm.init_params(cfg, gen, device=device, tp=policy.tp_size), p_sh)
-    opt = adamw_init(params)
+    params, opt = place_train_state(
+        lm.init_params(cfg, gen, device=device, tp=policy.tp_size), cfg,
+        policy)
     step = make_train_step(cfg, AdamWConfig(lr=args.lr, warmup_steps=10,
                                             total_steps=args.steps),
                            microbatch=args.microbatch, policy=policy)
     data = SyntheticPackedDataset(DataConfig(
         seq_len=args.seq, global_batch=args.batch,
         vocab_size=cfg.vocab_size))
-    ckpt = Checkpointer(args.ckpt_dir)
+    ckpt_dir = args.ckpt_dir
+    if policy.n_ranks > 1:
+        ckpt_dir = str(Path(ckpt_dir) / f"rank{dist.get_rank()}")
+    ckpt = Checkpointer(ckpt_dir)
     start = 0
-    if args.resume and latest_step(args.ckpt_dir) is not None:
+    if args.resume and latest_step(ckpt_dir) is not None:
         (params, opt), meta = ckpt.restore((params, opt))
         start = meta["step"]
         data.load_state_dict(meta["extra"].get("data", {"step": start}))
@@ -106,8 +114,7 @@ def main(argv=None) -> dict:
         t = Timer()
         toks, _ = data.next_batch()
         params, opt, metrics = step(params, opt,
-                                    reshard_tree(torch.as_tensor(toks),
-                                                 tok_sh))
+                                    torch.as_tensor(toks, device=device))
         rec = {"step": i, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "seconds": t.elapsed()}

@@ -160,7 +160,9 @@ def embed(table, ids, mg: Optional[col.MeshGroups] = None):
     """ids [...] -> [..., D]. On a mesh (``mg``) vocab-parallel, the
     reference's shard_map body: the rank's [V/tp, D] rows of the table
     (gathered over ``data`` by the caller under FSDP) give the ids that
-    fall in them, zeros the others, summed over ``model``."""
+    fall in them, zeros the others, summed over ``model``; under SP
+    ids [b, S] give the rank's [b, S/tp, D] sequence slice of the sum
+    (``MeshGroups.leave``)."""
     if mg is None:
         return table[ids.long()]
     vloc = table.shape[0]
@@ -169,7 +171,7 @@ def embed(table, ids, mg: Optional[col.MeshGroups] = None):
     rows = table[loc.clamp(0, vloc - 1)]
     out = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                        device=rows.device))
-    return col.psum(out, mg.tp)
+    return mg.leave(out)
 
 
 def head_logits(x, head_w, policy: Policy = NULL_POLICY):
@@ -219,17 +221,18 @@ def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK,
     ``torch.utils.checkpoint`` when autograd records, so no more than one
     chunk's logits are alive; the mean is the reference's, over the whole
     [B,S] at once. On a mesh (``mg``) it is vocab-parallel: x is the
-    rank's rows, replicated over ``model`` (its gradient summed there by
-    ``copy_in``), head_w the rank's [D, V/tp] columns, each chunk's
-    collectives replayed in the backward, and the masked total and count
-    summed over ``data``, so every rank returns the global batch's
-    mean."""
-    B, S, D = x.shape
+    rank's rows, replicated over ``model``, or under SP the rank's
+    sequence slice of them, entering through ``MeshGroups.enter`` (which
+    sums its gradient over ``model``), head_w the rank's [D, V/tp]
+    columns, each chunk's collectives replayed in the backward, and the
+    masked total and count summed over the batch group (``pod`` x
+    ``data``), so every rank returns the global batch's mean."""
     rows = _ce_rows
     if mg is not None:
-        x = col.copy_in(x, mg.tp)
+        x = mg.enter(x)
         rows = functools.partial(_ce_rows_sharded, tp_rank=mg.tp_rank,
                                  tp_group=mg.tp)
+    B, S, D = x.shape
     xf, tf_ = x.reshape(B * S, D), targets.reshape(B * S)
     parts = []
     for lo in range(0, B * S, chunk):
@@ -242,7 +245,8 @@ def ce_loss(x, head_w, targets, mask, chunk: int = CE_CHUNK,
     per_tok = torch.cat(parts).reshape(B, S)
     total, count = torch.sum(per_tok * mask), torch.sum(mask)
     if mg is not None:
-        total, count = col.psum(total, mg.dp), col.psum(count, mg.dp)
+        total, count = col.psum(total, mg.batch), col.psum(count,
+                                                           mg.batch)
     return total / torch.clamp(count, min=1.0)
 
 
@@ -288,19 +292,24 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True, *,
     through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd. Every entry
     point takes a sharding ``policy``; on a mesh of more ranks (plain
     attention stacks, ``Policy.require_supported``) ``params`` are this
-    rank's shards and ``tokens`` its data rows: embedding and CE are
-    vocab-parallel, attention and dense MLPs tensor-parallel over heads
-    and ff, MoE expert-parallel (``transformer.apply_stack`` with the
-    mesh in ``ctx``), and every rank returns the same loss and metrics,
-    the MoE stats ``pmean``ed over ``data`` as the reference's
-    ``_moe_mlp_sharded`` gives them."""
-    policy.require_supported("lm.forward_loss", cfg, train=True)
+    rank's shards and ``tokens`` its rows of the batch (``pod`` x
+    ``data``): embedding and CE are vocab-parallel, attention and dense
+    MLPs tensor-parallel over heads and ff, MoE expert-parallel
+    (``transformer.apply_stack`` with the mesh in ``ctx``), and every
+    rank returns the same loss and metrics, the MoE stats ``pmean``ed
+    over the batch group as the reference's ``_moe_mlp_sharded`` gives
+    them. Under sequence parallelism (``act_seq`` over ``model``) the
+    residual stream between the blocks, and the final norm, hold the
+    rank's 1/tp of the sequence, which must divide."""
+    policy.require_supported("lm.forward_loss", cfg, train=True,
+                             seq_len=tokens.shape[-1])
     mg = col.MeshGroups.of(policy) if policy.n_ranks > 1 else None
     table, final_norm, head_w, specs = _train_weights(params, cfg, mg)
     x = embed(table, tokens, mg)
     ctx = {"mode": "train", "remat": remat}
     if mg is not None:
         ctx.update(mesh=mg, specs=specs)
+        final_norm = mg.norm_weight(final_norm)
     x, stats = tf.apply_stack(params, x, cfg, ctx)
     x = rms_norm(x, final_norm, cfg.norm_eps)
     targets, mask = _next_tokens(tokens)

@@ -158,23 +158,27 @@ def moe_mlp(x, p, cfg: ModelConfig,
 
 def moe_mlp_sharded(x, p, cfg: ModelConfig, mg
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``moe_mlp`` expert-parallel on a ("data", "model") mesh (the
-    reference's ``_moe_mlp_sharded``): x [G_loc,S,D] is the rank's
-    sequences, replicated over ``model``; the router's [D, E/tp] shard is
-    gathered over ``model``, routing runs over all E experts, and the
-    rank enqueues (B7, B7-bwd), runs and combines only its E/tp experts;
-    with the shared experts' column/row-parallel partial, the output is
-    summed over ``model``. ``moe_aux`` is the experts' shares summed over
-    ``model``, then, as ``moe_dropped``, averaged over ``data``: the mean
-    of each data shard's product of means."""
+    """``moe_mlp`` expert-parallel on a mesh (the reference's
+    ``_moe_mlp_sharded``): x [G_loc,S,D] is the rank's sequences,
+    replicated over ``model`` (under SP its 1/tp of each sequence,
+    gathered along it first: ``MeshGroups.enter``); the router's [D,
+    E/tp] shard is gathered over ``model``, routing runs over all E
+    experts, and the rank enqueues (B7, B7-bwd), runs and combines only
+    its E/tp experts; with the shared experts' column/row-parallel
+    partial, the output is summed over ``model`` (under SP
+    reduce-scattered back to the rank's slice: ``MeshGroups.leave``).
+    ``moe_aux`` is the experts' shares summed over ``model``, then, as
+    ``moe_dropped``, averaged over the batch group (``pod`` x ``data``,
+    the reference's ``dp_axes``): the mean of each batch shard's product
+    of means."""
+    x = mg.enter(x)
     C = capacity(x.shape[1], cfg)
-    x = col.copy_in(x, mg.tp)
     router = col.all_gather(p["router"], mg.tp, 1)
     e0 = mg.tp_rank * p["w_gate"].shape[0]
     out, aux, dropped = _routed_experts(x, router, p["w_gate"], p["w_up"],
                                         p["w_down"], cfg, C, e0)
     if cfg.moe.n_shared:
         out = out + dense_mlp(x, p["shared"], cfg)
-    aux = col.pmean(col.psum(aux, mg.tp), mg.dp)
-    return col.psum(out, mg.tp), {"moe_aux": aux,
-                                  "moe_dropped": col.pmean(dropped, mg.dp)}
+    aux = col.pmean(col.psum(aux, mg.tp), mg.batch)
+    return mg.leave(out), {"moe_aux": aux,
+                           "moe_dropped": col.pmean(dropped, mg.batch)}

@@ -528,29 +528,34 @@ def _train_block(bp, kind: str, mlp_kind: str, cfg: ModelConfig, ctx, x):
 
 def _train_block_mesh(bp, specs, kind: str, mlp_kind: str,
                       cfg: ModelConfig, ctx, x):
-    """``_train_block`` of a plain attention layer on a ("data", "model")
-    mesh, as GSPMD runs the reference's under ``stack_specs``: the block's
-    FSDP shards gathered over ``data``; attention column-parallel over the
-    rank's heads (B2 and B2-bwd on them; qk-norm and biases on local
-    heads) and ``wo`` row-parallel, a ``psum`` over ``model`` after it;
-    a dense MLP column- then row-parallel over ``ff``; an MoE MLP
-    expert-parallel (``moe.moe_mlp_sharded``). x is the rank's rows,
-    replicated over ``model``; ``copy_in`` sums its gradient there where
-    it enters each parallel region, and the qk-norm scales', which each
-    rank reaches through its own heads only."""
+    """``_train_block`` of a plain attention layer on a mesh, as GSPMD
+    runs the reference's under ``stack_specs``: the block's FSDP shards
+    gathered over ``data``; attention column-parallel over the rank's
+    heads (B2 and B2-bwd on them; qk-norm and biases on local heads) and
+    ``wo`` row-parallel; a dense MLP column- then row-parallel over
+    ``ff``; an MoE MLP expert-parallel (``moe.moe_mlp_sharded``). x is
+    the rank's rows, replicated over ``model``: each parallel region's
+    input enters through ``copy_in``, which sums its gradient there, and
+    its output leaves through a ``psum``. Under sequence parallelism x
+    is the rank's 1/tp of the sequence, the norms run on it (their
+    scales' gradients summed over ``model``), each region's input is
+    gathered along the sequence (attention and RoPE see all of it) and
+    its output leaves reduce-scattered (``MeshGroups.enter``,
+    ``leave``). The qk-norm scales' gradients are summed over ``model``
+    either way: each rank reaches them through its own heads only."""
     mg = ctx["mesh"]
     bp = col.gather_fsdp(bp, specs, mg)
-    h = col.copy_in(rms_norm(x, bp["norm1"], cfg.norm_eps), mg.tp)
+    h = mg.enter(rms_norm(x, mg.norm_weight(bp["norm1"]), cfg.norm_eps))
     p = {k: col.copy_in(v, mg.tp) if k in ("q_norm", "k_norm") else v
          for k, v in bp["attn"].items()}
-    x = x + col.psum(attn_forward(h, p, cfg, ctx)[0], mg.tp)
-    h2 = rms_norm(x, bp["norm2"], cfg.norm_eps)
+    x = x + mg.leave(attn_forward(h, p, cfg, ctx)[0])
+    h2 = rms_norm(x, mg.norm_weight(bp["norm2"]), cfg.norm_eps)
     if mlp_kind == "moe":
         m, st = moe.moe_mlp_sharded(h2, bp["moe"], cfg, mg)
         return x + m, st["moe_aux"], st["moe_dropped"]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    m = dense_mlp(col.copy_in(h2, mg.tp), bp["mlp"], cfg)
-    return x + col.psum(m, mg.tp), zero, zero
+    m = dense_mlp(mg.enter(h2), bp["mlp"], cfg)
+    return x + mg.leave(m), zero, zero
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,12 @@ axis)``), as autograd Functions:
   reference's ``pmax`` of a ``stop_gradient``).
 - ``all_gather``: shards concatenated along a dim (tiled); its backward
   is the reduce-scatter of the FSDP gradient flow: the cotangent summed
-  over the group, this rank's slice kept.
+  over the group, this rank's slice kept. Along the sequence it is the
+  entry of a sequence-parallel region.
+- ``reduce_scatter_seq``: the sum over the group, this rank's slice
+  along a dim kept; its backward is the tiled gather of the cotangent.
+  It is the exit of a sequence-parallel region (``all_gather``'s
+  counterpart), where ``psum`` exits a tensor-parallel one.
 
 One transport serves every backend, with calls that gloo and NCCL both
 take: gloo has no CUDA reduce-scatter and moves CUDA tensors through the
@@ -32,6 +37,7 @@ each rank's tensor entering them.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Dict
 
@@ -173,6 +179,17 @@ class _AllGather(torch.autograd.Function):
         return reduce_scatter(dy, ctx.g, ctx.dim), None, None
 
 
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim):
+        ctx.g, ctx.dim = g, dim
+        return reduce_scatter(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return gather(dy, ctx.g, ctx.dim), None, None
+
+
 def psum(x: torch.Tensor, g) -> torch.Tensor:
     return x if _size(g) == 1 else _Psum.apply(x, g)
 
@@ -194,27 +211,91 @@ def all_gather(x: torch.Tensor, g, dim: int) -> torch.Tensor:
     return x if _size(g) == 1 else _AllGather.apply(x, g, dim)
 
 
+def reduce_scatter_seq(x: torch.Tensor, g, dim: int) -> torch.Tensor:
+    return x if _size(g) == 1 else _ReduceScatterSeq.apply(x, g, dim)
+
+
+# the batch group of each (pod, data, model) mesh, built once: every rank
+# must take part in building every such group (``new_group``)
+_BATCH_GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _batch_group(mesh):
+    """This rank's group of the ranks that share its model coordinate on
+    a ("pod", "data", "model") mesh, pod-major: the reference's batch
+    axes ``("pod", "data")`` as one."""
+    if mesh not in _BATCH_GROUPS:
+        ranks = mesh.mesh.reshape(-1, mesh.mesh.shape[-1]).T.tolist()
+        _BATCH_GROUPS[mesh] = dist.new_subgroups_by_enumeration(ranks)[0]
+    return _BATCH_GROUPS[mesh]
+
+
 @dataclass(frozen=True)
 class MeshGroups:
-    """A ``("data", "model")`` mesh as the bodies use it: each axis's
-    group, size and this rank's coordinate, and whether the params are
-    FSDP-sharded over ``data`` (``fsdp_params``)."""
+    """A ``("data", "model")`` or ``("pod", "data", "model")`` mesh as the
+    bodies use it: each axis's group, size and this rank's coordinate;
+    the batch group over ``pod`` x ``data`` (``batch``: the tokens' rows,
+    the CE's total and count, the MoE stats' mean), while FSDP gathers
+    and ZeRO-1 slices stay on ``data`` alone, as the reference places
+    them; ``pod`` (None without the axis) sums the gradients, pure data
+    parallelism; whether the params are FSDP-sharded over ``data``
+    (``fsdp_params``) and the residual stream over ``model`` between
+    blocks (``sp``, ``act_seq``)."""
     dp: object
     tp: object
+    pod: object
+    batch: object
     dp_size: int
     tp_size: int
+    pod_size: int
     dp_rank: int
     tp_rank: int
+    batch_rank: int
     fsdp: bool
+    sp: bool
 
     @classmethod
     def of(cls, policy) -> "MeshGroups":
-        return cls(dp=group(policy, "data"), tp=group(policy, "model"),
-                   dp_size=policy.axis_size("data"),
-                   tp_size=policy.axis_size("model"),
-                   dp_rank=axis_index(policy, "data"),
+        has_pod = "pod" in policy.mesh.mesh_dim_names
+        dp = group(policy, "data")
+        dp_size, dp_rank = policy.axis_size("data"), axis_index(policy,
+                                                                "data")
+        pod_size = policy.axis_size("pod") if has_pod else 1
+        pod_rank = axis_index(policy, "pod") if has_pod else 0
+        return cls(dp=dp, tp=group(policy, "model"),
+                   pod=group(policy, "pod") if has_pod else None,
+                   batch=_batch_group(policy.mesh) if has_pod else dp,
+                   dp_size=dp_size, tp_size=policy.axis_size("model"),
+                   pod_size=pod_size, dp_rank=dp_rank,
                    tp_rank=axis_index(policy, "model"),
-                   fsdp=bool(policy.rules.get("fsdp_params")))
+                   batch_rank=pod_rank * dp_size + dp_rank,
+                   fsdp=bool(policy.rules.get("fsdp_params")),
+                   sp=policy.rules.get("act_seq") == "model")
+
+    @property
+    def batch_size(self) -> int:
+        return self.pod_size * self.dp_size
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x [b, S', D] into a region parallel over ``model``: Megatron's
+        f (``copy_in``) on the rank's rows; under SP the rank's sequence
+        slice gathered along dim 1, whose backward sums the cotangent
+        over ``model`` and keeps the slice."""
+        return all_gather(x, self.tp, 1) if self.sp else copy_in(x,
+                                                                 self.tp)
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A partial sum y [b, S, D] out of the region: Megatron's g
+        (``psum``); under SP summed and cut to the rank's sequence slice
+        (``reduce_scatter_seq``)."""
+        return reduce_scatter_seq(y, self.tp, 1) if self.sp else psum(
+            y, self.tp)
+
+    def norm_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A norm's scale between regions: whole as it is; under SP each
+        rank applies it to its own sequence slice, so its gradient is a
+        partial sum over ``model`` (``copy_in``)."""
+        return copy_in(w, self.tp) if self.sp else w
 
 
 def gather_fsdp(tree, specs, mg: MeshGroups):

@@ -29,7 +29,8 @@ pair ``(mesh, placements)``, the port's ``NamedSharding``. The model's
 bodies run on each rank's local shards with explicit collectives
 (``sharding/collectives.py``), so ``constrain`` returns its tensor as it
 is. A mesh of more than one rank trains plain-attention stacks on
-``("data", "model")``; the entry points refuse the rest
+``("data", "model")`` or ``("pod", "data", "model")``, with or without
+sequence parallelism; the entry points refuse the rest
 (``require_supported``; ROADMAP A13b-5b).
 """
 from __future__ import annotations
@@ -40,14 +41,18 @@ from typing import Dict, Optional, Tuple, Union
 Axes = Union[None, str, Tuple[str, ...]]
 
 MULTI_RANK = ("a mesh of more ranks trains plain-attention stacks (dense, "
-              "and MoE with or without shared experts) over (data, model); "
-              "sequence parallelism, RWKV-6, Mamba and jamba (inner), MLA "
-              "(mla_seq), shard_kv_seq, the pod axis and serving under a "
+              "and MoE with or without shared experts) over (data, model) "
+              "or (pod, data, model), with or without sequence "
+              "parallelism; RWKV-6, Mamba and jamba (inner), MLA "
+              "(mla_seq), shard_kv_seq, serving and the dry run under a "
               "mesh wait for ROADMAP A13b-5b")
 
-# the rules the multi-rank bodies are written for
-_TRAIN_RULES = {"batch": ("data",), "heads": "model", "kv_heads": "model",
-                "ff": "model", "vocab": "model", "experts": "model"}
+# the mesh axes and the rules the multi-rank bodies are written for: the
+# batch over every axis but ``model``, the residual stream's sequence
+# whole or over ``model`` (sp)
+_TRAIN_AXES = (("data", "model"), ("pod", "data", "model"))
+_TRAIN_RULES = {"heads": "model", "kv_heads": "model", "ff": "model",
+                "vocab": "model", "experts": "model"}
 
 
 def _base_rules(multi_pod: bool, sp: bool, shard_kv_seq: bool
@@ -166,23 +171,30 @@ class Policy:
         return int(self.mesh.size()) if self.mesh is not None else 1
 
     def require_supported(self, where: str, cfg=None, *,
-                          train: bool = False) -> None:
+                          train: bool = False,
+                          seq_len: Optional[int] = None) -> None:
         """Refuse what a mesh of more than one rank does not run yet:
         anything but training (``train``) a plain-attention ``cfg`` on a
-        ``("data", "model")`` mesh under the base rules, without sequence
-        parallelism or a sharded KV sequence. One rank runs everything."""
+        ``("data", "model")`` or ``("pod", "data", "model")`` mesh under
+        the base rules, the batch over every axis but ``model``, with or
+        without sequence parallelism, without a sharded KV sequence. Under
+        sequence parallelism ``seq_len`` must be a multiple of the model
+        axis (``ValueError``). One rank runs everything."""
         if self.n_ranks <= 1:
             return
         why = []
+        names = self._names()
         if not train:
             why.append("serving")
-        if self._names() != ("data", "model"):
-            why.append(f"mesh axes {self._names()}")
-        if self.rules.get("act_seq"):
-            why.append("sequence parallelism (act_seq over model)")
+        if names not in _TRAIN_AXES:
+            why.append(f"mesh axes {names}")
+        elif self.dp_axes != names[:-1]:
+            why.append(f"the batch over {self.dp_axes} (make_policy's "
+                       f"multi_pod picks ('pod', 'data'))")
         if self.rules.get("kv_seq"):
             why.append("shard_kv_seq")
-        if any(self.rules.get(k) != v for k, v in _TRAIN_RULES.items()):
+        if self.rules.get("act_seq") not in (None, "model") or any(
+                self.rules.get(k) != v for k, v in _TRAIN_RULES.items()):
             why.append("rule overrides")
         if cfg is not None:
             other = sorted(set(cfg.layer_kinds()) - {"attn"})
@@ -193,8 +205,14 @@ class Policy:
         if why:
             raise NotImplementedError(
                 f"{where}: a {tuple(self.mesh.shape)} mesh over "
-                f"{self._names()} has {self.n_ranks} ranks, and "
+                f"{names} has {self.n_ranks} ranks, and "
                 f"{', '.join(why)} on it is not ported; {MULTI_RANK}")
+        if self.rules.get("act_seq") and seq_len is not None \
+                and seq_len % self.tp_size:
+            raise ValueError(
+                f"{where}: sequence parallelism cuts the sequence over the "
+                f"model axis, and a sequence of {seq_len} tokens does not "
+                f"divide over {self.tp_size} model ranks")
 
     # ---- specs --------------------------------------------------------
     def spec(self, *logical: Optional[str]) -> tuple:

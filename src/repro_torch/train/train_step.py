@@ -15,12 +15,14 @@ on the data axis too (expert tensors on their d_model dim), ZeRO-1 the
 fp32 state. ``checkpoint.reshard_tree`` lays a tree out on them
 (``place_train_state`` for a train step's params and state), and
 ``unshard_tree`` gathers the whole leaves back. On one rank every
-placement holds the whole tensor. On a ("data", "model") mesh of more
-ranks the train step holds each rank's shards: it takes the rank's rows
-of the global batch (of each microbatch's rows), sums the gradients
-over ``data`` (FSDP's leaves in their backward's reduce-scatter), and
-updates the rank's ZeRO-1 slice of the master and moments, gathering
-the params back over ``data``.
+placement holds the whole tensor. On a ("data", "model") or ("pod",
+"data", "model") mesh of more ranks the train step holds each rank's
+shards: it takes the rank's rows of the global batch (of each
+microbatch's rows; pod-major over ``pod`` x ``data``), sums the
+gradients over ``data`` (FSDP's leaves in their backward's
+reduce-scatter) and then over ``pod``, and updates the rank's ZeRO-1
+slice of the master and moments, gathering the params back over
+``data``: params, master and moments are whole across ``pod``.
 """
 from __future__ import annotations
 
@@ -84,7 +86,8 @@ def _leaf_dims(cfg: ModelConfig, policy: Policy) -> list:
 def _mesh_update(grads, opt_state, params, opt_cfg, mg, dims,
                  residuals=None, stacked=()):
     """AdamW on a mesh: each gradient summed over ``data`` (an FSDP
-    leaf's already is) and cut to the rank's ZeRO-1 slice; with
+    leaf's already is), cut to the rank's ZeRO-1 slice and summed over
+    ``pod``; with
     ``residuals`` (shaped as those slices) int8-compressed at the whole
     leaf's scale (the largest |g + r| over every rank's slice); the
     global norm from every distinct shard once; the master and moments
@@ -111,7 +114,9 @@ def _mesh_update(grads, opt_state, params, opt_cfg, mg, dims,
             have = z
             g = col.all_reduce(g, mg.dp) if z is None else \
                 col.reduce_scatter(g, mg.dp, z)
-        sliced.append(regather(g, have, z))
+        g = regather(g, have, z)
+        sliced.append(col.all_reduce(g, mg.pod) if mg.pod is not None
+                      else g)
     it = iter(sliced)
     g_tree = map_tree(lambda _: next(it), grads)
     if residuals is not None:
@@ -154,14 +159,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
         dims = _leaf_dims(cfg, policy)
 
     def rows(t):
-        """This data rank's rows of a global batch."""
+        """This rank's rows of a global batch: its slice over ``pod`` x
+        ``data``, pod-major."""
         if not mesh:
             return t
-        if t.shape[0] % mg.dp_size:
+        if t.shape[0] % mg.batch_size:
             raise ValueError(f"batch rows {t.shape[0]} are not a multiple "
-                             f"of the data axis {mg.dp_size}")
-        b = t.shape[0] // mg.dp_size
-        return t[mg.dp_rank * b:(mg.dp_rank + 1) * b]
+                             f"of the batch axes {mg.batch_size}")
+        b = t.shape[0] // mg.batch_size
+        return t[mg.batch_rank * b:(mg.batch_rank + 1) * b]
     # the blocks the reference stacks into one leaf, which compression
     # scales as one tensor: block j of every repeating group
     prefix, unit, n_groups = tf.plan_layers(cfg)
@@ -280,11 +286,14 @@ def unshard_tree(tree, shardings):
 def gathered_grads(grads, cfg: ModelConfig, policy: Policy):
     """The rank's gradients of ``value_and_grad`` on a mesh -> the whole
     gradients on every rank: summed over ``data`` (an FSDP leaf's already
-    are) and gathered over every mesh dim that shards the param."""
+    are) and ``pod``, and gathered over every mesh dim that shards the
+    param."""
     mg = col.MeshGroups.of(policy)
     summed = [g if f is not None else col.all_reduce(g, mg.dp)
               for g, (_, f, _) in zip(leaves(grads),
                                       _leaf_dims(cfg, policy))]
+    if mg.pod is not None:
+        summed = [col.all_reduce(g, mg.pod) for g in summed]
     it = iter(summed)
     (p_sh, _, _), _ = train_shardings(
         cfg, policy, fsdp=bool(policy.rules.get("fsdp_params")))

@@ -34,6 +34,16 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TOL = 1e-4
 L, PS, MAX_NEW = 64, 8, 12
 MARGIN = 1e-3

@@ -1569,12 +1569,14 @@ def test_examples_run_on_the_card_by_default(cuda, capsys):
 
 
 def test_four_ranks_sharing_the_card_equal_one_rank(cuda):
-    """Four gloo ranks on a (2, 2) ("data", "model") mesh, all on the one
-    card (chip_smoke.py's ranks phase, its fp32 part for SMOKE qwen3-8b):
-    forward_loss's loss within 1e-5 relative and every gathered gradient
-    within 1e-4 of its leaf's largest |value| of the mean over the data
-    shards of one-rank runs on the card, FSDP off and on; each rank's B2
-    and B2-bwd launches held to one gradient call."""
+    """Four gloo ranks on a (2, 2) ("data", "model") mesh and a (2, 1, 2)
+    ("pod", "data", "model") mesh, all on the one card (chip_smoke.py's
+    ranks phase, its fp32 part for SMOKE qwen3-8b): forward_loss's loss
+    within 1e-5 relative and every gathered gradient within 1e-4 of its
+    leaf's largest |value| of the mean over the data shards of one-rank
+    runs on the card, FSDP off and on, then under sequence parallelism
+    and on the pod mesh, each of those also held to the run before it;
+    each rank's B2 and B2-bwd launches held to one gradient call."""
     import sys
     from pathlib import Path
     from repro_torch.launch.mesh import spawn
@@ -1583,9 +1585,14 @@ def test_four_ranks_sharing_the_card_equal_one_rank(cuda):
     recs = spawn(chip_smoke.ranks_main, 4, ("qwen3-8b",), (), timeout=600)
     assert [r["device"] for r in recs] == ["cuda:0"] * 4
     rows = recs[0]["smoke"]
-    assert [r["fsdp"] for r in rows] == [False, True]
+    assert [(r["mesh"], r["sp"], r["fsdp"]) for r in rows] == [
+        ([2, 2], False, False), ([2, 2], False, True), ([2, 2], True, True),
+        ([2, 1, 2], True, True)]
     for r in rows:
         assert max(r["errors"].values()) <= 1e-5 and r["grad_err"] <= 1e-4
+        if r["sp"]:
+            assert max(r["vs"]["errors"].values()) <= 1e-5
+            assert r["vs"]["grad_err"] <= 1e-4
     for rec in recs:
         for r in rec["smoke"]:
             assert r["path"]["launches"]["flash_attention"] == 4

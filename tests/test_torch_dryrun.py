@@ -50,6 +50,16 @@ from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.sharding.policy import NULL_POLICY  # noqa: E402
 from repro_torch.train import train_step as ts  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = [(a, s.name) for a in ARCH_NAMES
          for s in j_shapes.applicable_shapes(a)]

@@ -30,6 +30,16 @@ from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve import frontend as tfe  # noqa: E402
 from repro_torch.serve import loadgen as tlg  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 TINY = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
             d_ff=128, vocab_size=256, dtype="float32")
 SIDES = ("ref", "port")

@@ -20,6 +20,16 @@ from repro.kernels import paged_attention as jpa  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

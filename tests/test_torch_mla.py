@@ -42,6 +42,16 @@ from repro_torch.models.layers import rope_angles  # noqa: E402
 from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ARCH = "deepseek-v2-lite-16b"
 TOL = 1e-4
 B2_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -4,10 +4,12 @@ package's multi-device mesh, both on the CPU.
 The reference runs in one subprocess with eight forced XLA host devices
 (``--xla_force_host_platform_device_count=8``, as tests/test_sharding.py
 does): ``lm.forward_loss`` and its gradients under ``jax.value_and_grad``
-on ``("data", "model")`` meshes, and one ``make_train_step`` step jitted
-on ``train_shardings``. The port runs each mesh shape as that many gloo
-ranks on a ``FileStore`` (``repro_torch.launch.mesh.spawn``, one torch
-thread each; tests/torch_ranks.py), on the same fp32 SMOKE weights,
+on ``("data", "model")`` and ``("pod", "data", "model")`` meshes, each
+case with its ``make_policy`` flags (sequence parallelism, the pod axis,
+FSDP), and one ``make_train_step`` step jitted on ``train_shardings``.
+The port runs every mesh of one world size in one spawn of that many
+gloo ranks on a ``FileStore`` (``repro_torch.launch.mesh.spawn``, one
+torch thread each; tests/torch_ranks.py), on the same fp32 SMOKE weights,
 tp-aligned for the mesh's model axis (``init_params(tp=)``: qwen3-8b's
 2 KV heads duplicated to 4 at tp 4, and a qwen1.5-4b of 6 heads and 2 KV
 heads padded to 8 and 4), made by the port and carried to the reference
@@ -15,11 +17,19 @@ through ``models/convert.py``. Meshes: qwen3-8b on (2, 1), (1, 4) and
 (2, 2); the padded qwen1.5-4b and moonshot-v1-16b-a3b (8 experts, 2 a
 rank) on (2, 4), the reference test's own mesh; the port with FSDP off
 and on (the reference's values do not depend on where its params lie).
+Under SP (``act_seq`` over ``model``): qwen3-8b on (2, 2) and (1, 4),
+moonshot on (2, 4), each on the weights and tokens of its mesh's case
+without SP, which the port's SP run must also equal; pod + SP on (2, 2,
+2): qwen3-8b (the (2, 2) case's weights, a step and an int8 step) and
+moonshot (8 rows, two microbatches, a step); the port alone on a (2, 1,
+2) pod mesh, which must equal its (2, 2) SP run, and the train launcher
+on it against ``make_train_step``.
 
 Under a data axis of 2 the reference's MoE stats are the mean over the
 data shards of each shard's statistics (``_moe_mlp_sharded``'s
 ``pmean``), so moonshot's ``moe_aux`` and loss on the mesh differ from
-its one-device values; the port reproduces the mesh's. The port's
+its one-device values; the port reproduces the mesh's; on the pod mesh
+the mean runs over pod x data, four shards. The port's
 one-rank values are held too: against the reference's mesh for the dense
 configs (the same function there), against its one-device run for
 moonshot.
@@ -54,10 +64,21 @@ from repro_torch.train import train_step as ts  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_ranks  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 ROOT = Path(__file__).resolve().parents[1]
 LR = 1e-4
 MOON = "moonshot-v1-16b-a3b"
 PAD = {"n_heads": 6, "n_kv_heads": 2}
+DM, POD = ("data", "model"), ("pod", "data", "model")
 CASES = [
     dict(key="qwen3_dp", arch="qwen3-8b", mesh=(2, 1), fsdp=(False, True)),
     dict(key="qwen3_tp", arch="qwen3-8b", mesh=(1, 4), fsdp=(True,)),
@@ -67,13 +88,42 @@ CASES = [
          fsdp=(False,), step=True),
     dict(key="moonshot", arch=MOON, mesh=(2, 4), fsdp=(False, True),
          step=True, microbatch=2),
+    # sequence parallelism (sp) and the pod axis, on the weights and
+    # tokens of the case they are held to (params_of) where there is one
+    dict(key="qwen3_2x2_sp", arch="qwen3-8b", mesh=(2, 2), sp=True,
+         fsdp=(True,), params_of="qwen3_2x2"),
+    dict(key="qwen3_tp_sp", arch="qwen3-8b", mesh=(1, 4), sp=True,
+         fsdp=(True,), params_of="qwen3_tp"),
+    dict(key="moonshot_sp", arch=MOON, mesh=(2, 4), sp=True, fsdp=(True,),
+         params_of="moonshot"),
+    dict(key="qwen3_pod", arch="qwen3-8b", mesh=(2, 2, 2), axes=POD, sp=True,
+         fsdp=(True,), step=True, compress=True, params_of="qwen3_2x2"),
+    # 8 rows: each of 2 microbatches gives each of the 4 batch shards one
+    dict(key="moonshot_pod", arch=MOON, mesh=(2, 2, 2), axes=POD, sp=True,
+         fsdp=(True,), step=True, microbatch=2, batch=8),
+    # the port's own: pod x data as the (2, 2) mesh's data axis
+    dict(key="qwen3_pod_2x1x2", arch="qwen3-8b", mesh=(2, 1, 2), axes=POD,
+         sp=True, fsdp=(True,), params_of="qwen3_2x2", ref=False),
 ]
+for _c in CASES:
+    _c.setdefault("axes", DM)
+REF_CASES = [c for c in CASES if c.get("ref", True)]
 # the reference's one-device run of moonshot's weights
 NULL_CASE = dict(key="moonshot_null", arch=MOON, mesh=None, params_of=
                  "moonshot")
-RUNS = [(c["key"], f) for c in CASES for f in c["fsdp"]]
-STEP_RUNS = [(c["key"], f) for c in CASES if c.get("step")
+RUNS = [(c["key"], f) for c in REF_CASES for f in c["fsdp"]]
+STEP_RUNS = [(c["key"], f) for c in REF_CASES if c.get("step")
              for f in c["fsdp"]]
+# the train launcher's run on a pod mesh of four ranks
+LAUNCH = ((2, 1, 2), POD)
+# the port's runs that must equal another of its runs: SP against none
+# on the same mesh, a pod mesh against the (2, 2) mesh whose data axis
+# is as long as its pod x data
+SAME_RUNS = [(("qwen3_2x2_sp", True), ("qwen3_2x2", True)),
+             (("qwen3_tp_sp", True), ("qwen3_tp", True)),
+             (("moonshot_sp", True), ("moonshot", True)),
+             (("qwen3_pod_2x1x2", True), ("qwen3_2x2_sp", True)),
+             (("qwen3_pod", True), ("qwen3_2x2_sp", True))]
 
 REFERENCE = textwrap.dedent('''
     import json, os, sys
@@ -110,10 +160,13 @@ REFERENCE = textwrap.dedent('''
         if c["mesh"] is None:
             mesh, pol, tp = None, NULL_POLICY, c["tp"]
         else:
-            mesh = jax.make_mesh(tuple(c["mesh"]), ("data", "model"),
-                                 **({"axis_types": (at.Auto,) * 2}
+            axes = tuple(c["axes"])
+            mesh = jax.make_mesh(tuple(c["mesh"]), axes,
+                                 **({"axis_types": (at.Auto,) * len(axes)}
                                     if at else {}))
-            pol = make_policy(mesh, fsdp=True in c["fsdp"])
+            pol = make_policy(mesh, multi_pod="pod" in axes,
+                              sp=c.get("sp", False),
+                              fsdp=True in c["fsdp"])
             tp = pol.tp_size
         shape = lm.abstract_params(cfg, tp=tp)
         leaves, tdef = jax.tree_util.tree_flatten_with_path(shape)
@@ -188,23 +241,28 @@ def _flat(tree, prefix=""):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's values (one subprocess) and the port's (a spawn of
-    ranks per mesh shape, meanwhile), on the same weights and tokens."""
+    ranks per world size, every mesh of that size inside it, meanwhile),
+    on the same weights and tokens."""
     tmp = tmp_path_factory.mktemp("multirank")
     inputs, weights = {}, {}
     for i, case in enumerate(CASES):
         cfg = _config(case)
+        if "params_of" in case:
+            case["tokens"] = _case(case["params_of"])["tokens"]
+            case["params"] = weights[case["params_of"]]
+            continue
         params = lm.init_params(cfg, torch.Generator().manual_seed(i),
-                                device="cpu", tp=case["mesh"][1])
+                                device="cpu", tp=case["mesh"][-1])
         weights[case["key"]] = params_to_numpy(params, cfg)
         case["params"] = weights[case["key"]]
-        case["tokens"] = torch_ranks.np_tokens(4, 32, cfg.vocab_size,
-                                               seed=100 + i)
+        case["tokens"] = torch_ranks.np_tokens(case.get("batch", 4), 32,
+                                               cfg.vocab_size, seed=100 + i)
         inputs[case["key"] + ":tokens"] = case["tokens"]
         for k, v in _flat(weights[case["key"]]).items():
             inputs[f"{case['key']}:params/{k}"] = v
     np.savez(tmp / "inputs.npz", **inputs)
     meta = [{k: v for k, v in c.items() if k not in ("params", "tokens")}
-            for c in CASES]
+            for c in REF_CASES]
     meta.append(dict(NULL_CASE, tp=4))
     (tmp / "cases.json").write_text(json.dumps(meta))
     t0 = time.monotonic()
@@ -215,10 +273,12 @@ def runs(tmp_path_factory):
         stderr=subprocess.PIPE, text=True)
     try:
         port = {}
-        for shape in dict.fromkeys(c["mesh"] for c in CASES):
-            mine = [c for c in CASES if c["mesh"] == shape]
-            port.update(spawn(torch_ranks.train_cases, shape[0] * shape[1],
-                              shape, mine, LR, timeout=300)[0])
+        for world in dict.fromkeys(int(np.prod(c["mesh"])) for c in CASES):
+            mine = [c for c in CASES if np.prod(c["mesh"]) == world]
+            launch = LAUNCH + (str(tmp / "launch"),) if world == 4 \
+                else None
+            port.update(spawn(torch_ranks.train_cases, world, mine, LR,
+                              launch, timeout=300)[0])
         out, err = ref.communicate(timeout=480)
     finally:
         ref.kill()
@@ -284,7 +344,7 @@ def test_mesh_train_step_equals_reference(runs, key, fsdp):
         assert _rel(rec["step_metrics"][name], want) <= 1e-5, (name, want)
     got = _flat(rec["params"])
     assert len(got) == sum(1 for k in ref if k.startswith(f"{key}:params/"))
-    before = _flat(runs["weights"][key])
+    before = _flat(_case(key)["params"])
     for k, v in got.items():
         want = ref[f"{key}:params/{k}"]
         tol = max(1e-4 * float(np.abs(want).max()), 0.1 * LR)
@@ -294,7 +354,8 @@ def test_mesh_train_step_equals_reference(runs, key, fsdp):
         assert moved > 0.5 * LR, (k, moved)
 
 
-@pytest.mark.parametrize("key", [c["key"] for c in CASES])
+@pytest.mark.parametrize("key", ["qwen3_dp", "qwen3_tp", "qwen3_2x2",
+                                 "qwen15_pad", "moonshot"])
 def test_one_rank_equals_reference(runs, key):
     """The port on one rank (NULL_POLICY) over the same tp-aligned
     weights: the dense configs' loss and gradients equal the reference's
@@ -373,19 +434,21 @@ def test_make_mesh_refusals(monkeypatch):
         make_mesh((2, 2), device="cuda", backend="cpu:gloo,cuda:nccl")
 
 
-@pytest.mark.parametrize("fsdp", [False, True])
-def test_mesh_int8_compression_equals_reference(runs, fsdp):
+@pytest.mark.parametrize("key,fsdp", [("qwen3_2x2", False),
+                                      ("qwen3_2x2", True),
+                                      ("qwen3_pod", True)])
+def test_mesh_int8_compression_equals_reference(runs, key, fsdp):
     """One step with int8 gradient compression on qwen3-8b's (2, 2) mesh
-    against the reference's: each leaf's scale is the whole leaf's (a
-    pmax over the ranks' ZeRO-1 slices; qwen3's two layers share one, the
+    and its (2, 2, 2) pod mesh under SP against the reference's: each
+    leaf's scale is the whole leaf's (a pmax over the ranks' ZeRO-1
+    slices, after the sum over pod; qwen3's two layers share one, the
     reference's stacked leaf), so the loss agrees within 1e-5 and the
     compressed gradients' norm within 2e-5. A gradient 1e-7 from the
     reference's can round to the neighbouring quantum near a half, which
     moves a zero quantum's first update by up to lr: at most 1e-4 of the
     stepped params lie outside the step test's tolerance, each within
     lr of the reference's."""
-    rec, ref, key = runs["port"][("qwen3_2x2", fsdp)], runs["ref"], \
-        "qwen3_2x2"
+    rec, ref = runs["port"][(key, fsdp)], runs["ref"]
     m = rec["int8_metrics"]
     assert _rel(m["loss"], float(ref[f"{key}:int8_loss"])) <= 1e-5
     assert _rel(m["grad_norm"], float(ref[f"{key}:int8_grad_norm"])) <= 2e-5
@@ -402,3 +465,58 @@ def test_mesh_int8_compression_equals_reference(runs, fsdp):
     # compression moved the step: not the uncompressed one
     plain = _flat(rec["params"])
     assert max(float(np.abs(got[k] - plain[k]).max()) for k in got) > 0
+
+
+@pytest.mark.parametrize("run,same", SAME_RUNS)
+def test_sp_and_pod_runs_equal_the_port_without_them(runs, run, same):
+    """The port against itself on the same weights and tokens: sequence
+    parallelism gives what its mesh gives without it, and a pod mesh
+    what the (2, 2) mesh gives whose data axis is as long as its pod x
+    data: loss and stats within 1e-5 relative, every gathered gradient
+    within 1e-4 of its leaf's largest |value| (the sums run in another
+    order)."""
+    got, want = runs["port"][run], runs["port"][same]
+    for name in ("loss", "ce", "moe_aux", "moe_dropped"):
+        assert _rel(got[name], want[name]) <= 1e-5 or (
+            want[name] == got[name] == 0), (name, got[name], want[name])
+    g, w = _flat(got["grads"]), _flat(want["grads"])
+    assert g.keys() == w.keys()
+    for k in g:
+        err = float(np.abs(g[k] - w[k]).max())
+        assert err <= 1e-4 * max(float(np.abs(w[k]).max()), 1e-30), (k, err)
+
+
+def test_pod_moe_stats_are_the_mean_over_pod_x_data(runs):
+    """moonshot on the (2, 2, 2) pod mesh: moe_aux and moe_dropped are
+    the mean over the four pod x data shards of each shard's one-rank
+    statistics (the reference's pmean over ("pod", "data")), within
+    1e-5 relative, and moe_aux is not the mean over two halves of the
+    batch."""
+    case = _case("moonshot_pod")
+    cfg = _config(case)
+    params = params_from_numpy(case["params"], cfg, device="cpu")
+    toks = torch.from_numpy(case["tokens"])
+
+    def shard_mean(n):
+        b, got = toks.shape[0] // n, {"moe_aux": 0.0, "moe_dropped": 0.0}
+        with torch.no_grad():
+            for i in range(n):
+                _, m = lm.forward_loss(params, toks[i * b:(i + 1) * b], cfg,
+                                       remat=False)
+                for k in got:
+                    got[k] += float(m[k]) / n
+        return got
+    four, rec = shard_mean(4), runs["port"][("moonshot_pod", True)]
+    for k, v in four.items():
+        assert _rel(rec[k], v) <= 1e-5 or rec[k] == v == 0, (k, rec[k], v)
+    assert _rel(rec["moe_aux"], shard_mean(2)["moe_aux"]) > 1e-4
+
+
+def test_launcher_on_a_pod_mesh_equals_make_train_step(runs):
+    """The train launcher given a (2, 1, 2) pod mesh of four ranks
+    (``--smoke``: SMOKE qwen3-8b in bf16 without SP or FSDP; ZeRO-1 and
+    the pod axis's batch rules) gives make_train_step's losses and grad
+    norms on that mesh, weights, data and schedule, bit for bit."""
+    rec = runs["port"]["launcher"]
+    assert len(rec["launcher"]) == 2
+    assert rec["launcher"] == rec["make_train_step"]

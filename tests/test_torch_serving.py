@@ -29,6 +29,16 @@ from repro_torch.serve import api  # noqa: E402
 from repro_torch.serve.engine import ServingEngine  # noqa: E402
 from repro_torch.serve.prefix_cache import PrefixCache  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 L, PS, MAX_NEW = 64, 8, 12
 # request seed -> prompt length; every one keeps a reference top-1/top-2
 # margin >= 1e-3 over its MAX_NEW greedy tokens

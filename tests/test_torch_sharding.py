@@ -163,6 +163,15 @@ class TwoRanks:
         return 2
 
 
+class PodRanks(TwoRanks):
+    """A stand-in (2, 1, 2) mesh over ("pod", "data", "model")."""
+    mesh_dim_names = ("pod", "data", "model")
+    shape = (2, 1, 2)
+
+    def size(self):
+        return 4
+
+
 def _refusal_call(what):
     """(the call, the phrase its refusal must name) for one path a mesh
     of more ranks does not run yet (ROADMAP A13b-5b)."""
@@ -170,15 +179,19 @@ def _refusal_call(what):
         "rwkv6": ("rwkv6-1.6b", {}, "rwkv layers"),
         "jamba": ("jamba-v0.1-52b", {}, "mamba layers"),
         "mla": ("deepseek-v2-lite-16b", {}, "MLA"),
-        "sp": ("qwen3-8b", {"sp": True}, "sequence parallelism"),
+        "sp": ("rwkv6-1.6b", {"sp": True}, "rwkv layers"),
         "shard_kv_seq": ("qwen3-8b", {"shard_kv_seq": True}, "shard_kv_seq"),
         "prefill": ("qwen3-8b", {}, "serving"),
         "decode_step": ("qwen3-8b", {}, "serving"),
+        "pod_prefill": ("qwen3-8b", {"multi_pod": True, "sp": True},
+                        "serving"),
+        "pod_no_pod_rules": ("qwen3-8b", {}, "the batch over ('data',)"),
     }[what]
-    pol = make_policy(TwoRanks(), **opts)
+    mesh = PodRanks() if what.startswith("pod") else TwoRanks()
+    pol = make_policy(mesh, **opts)
     cfg = SMOKE_CONFIGS[arch].scaled(n_layers=1, dtype="float32")
     toks = torch.zeros(1, 8, dtype=torch.int32)
-    if what == "prefill":
+    if what in ("prefill", "pod_prefill"):
         return (lambda: lm.prefill(None, toks, cfg, policy=pol)), phrase
     if what == "decode_step":
         return (lambda: lm.decode_step(None, toks[:, 0], {}, cfg,
@@ -187,16 +200,34 @@ def _refusal_call(what):
 
 
 @pytest.mark.parametrize("what", ["rwkv6", "jamba", "mla", "sp",
-                                  "shard_kv_seq", "prefill", "decode_step"])
+                                  "shard_kv_seq", "prefill", "decode_step",
+                                  "pod_prefill", "pod_no_pod_rules"])
 def test_entry_points_refuse_a_mesh_of_more_ranks(what):
     """On a policy whose mesh has two ranks, training an RWKV-6, jamba or
-    MLA stack, sequence parallelism, a sharded KV sequence and every
-    serving entry point raise, naming ROADMAP A13b-5b and what is missing
-    (a stand-in mesh: the refusal reads only its size and axes)."""
+    MLA stack (with sequence parallelism too), a sharded KV sequence and
+    every serving entry point raise, naming ROADMAP A13b-5b and what is
+    missing; on a (2, 1, 2) pod mesh, serving under SP and a policy made
+    without the pod axis's batch rules (a stand-in mesh: the refusal
+    reads only its size and axes)."""
     call, phrase = _refusal_call(what)
     with pytest.raises(NotImplementedError, match="A13b-5b") as e:
         call()
     assert phrase in str(e.value)
+
+
+@pytest.mark.parametrize("mesh,seq", [(TwoRanks, 7), (PodRanks, 31)])
+def test_sp_refuses_a_sequence_tp_does_not_divide(mesh, seq):
+    """Sequence parallelism cuts the sequence over the model axis: a
+    sequence of an odd length on 2 model ranks raises, naming both
+    numbers, before anything runs; the same policies take the plain
+    stack's training on any length (``require_supported`` passes)."""
+    pol = make_policy(mesh(), multi_pod=mesh is PodRanks, sp=True)
+    cfg = SMOKE_CONFIGS["qwen3-8b"].scaled(n_layers=1, dtype="float32")
+    toks = torch.zeros(2, seq, dtype=torch.int32)
+    with pytest.raises(ValueError, match=f"{seq} tokens") as e:
+        lm.forward_loss(None, toks, cfg, policy=pol)
+    assert "over 2 model ranks" in str(e.value)
+    pol.require_supported("lm.forward_loss", cfg, train=True)
 
 
 def test_constrain_is_the_identity_on_a_mesh():

@@ -17,6 +17,7 @@ hypothesis = pytest.importorskip(
     "hypothesis", reason="property tests need hypothesis (requirements.txt)")
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import multiqueue as jmq  # noqa: E402
@@ -31,7 +32,31 @@ from repro_torch.core import simulation as sim  # noqa: E402
 from repro_torch.kernels import moe_dispatch as md  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one intra-op thread: these shapes are too small to gain
+    from more, and with several test workers on one host the idle threads'
+    spin-waits slow every worker many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 Q, CAP, P = 4, 3, (2,)
+
+
+# the reference's push and pop, compiled once for the state's shapes:
+# op-by-op dispatch of their dozen ops took ~1 s an example
+@jax.jit
+def _j_push(buf, head, tail, q, item):
+    s, ok = jmq.mq_push(jmq.MQState(buf, head, tail), q, item)
+    return s.buf, s.head, s.tail, ok
+
+
+@jax.jit
+def _j_pop(buf, head, tail, q):
+    s, item, ok = jmq.mq_pop(jmq.MQState(buf, head, tail), q)
+    return s.buf, s.head, s.tail, item, ok
 
 
 # ---------------------------------------------------------------------------
@@ -46,25 +71,26 @@ def test_mq_sequence_equals_reference(ops_):
     """Pushes and pops on 4 queues of capacity 3 (so the rings wrap and
     fill): every ok, item and size, and the final buffers and counters,
     equal the reference's."""
-    js = jmq.mq_init(Q, CAP, P)
+    j0 = jmq.mq_init(Q, CAP, P)
+    js = (j0.buf, j0.head, j0.tail)
     ts = mq.mq_init(Q, CAP, P, device="cpu")
     for push, q, val in ops_:
         item = np.full(P, val, np.float32)
         if push:
-            js, jok = jmq.mq_push(js, jnp.int32(q), jnp.asarray(item))
+            *js, jok = _j_push(*js, jnp.int32(q), jnp.asarray(item))
             ts, ok = mq.mq_push(ts, torch.tensor(q, dtype=torch.int32),
                                 torch.from_numpy(item))
         else:
-            js, jitem, jok = jmq.mq_pop(js, jnp.int32(q))
+            *js, jitem, jok = _j_pop(*js, jnp.int32(q))
             ts, got, ok = mq.mq_pop(ts, torch.tensor(q, dtype=torch.int32))
             np.testing.assert_array_equal(got.numpy(), np.asarray(jitem))
             assert got.shape == P
         assert ok.dim() == 0 and bool(ok) == bool(jok)
-        np.testing.assert_array_equal(mq.mq_sizes(ts).numpy(),
-                                      np.asarray(jmq.mq_sizes(js)))
-    np.testing.assert_array_equal(ts.buf.numpy(), np.asarray(js.buf))
-    np.testing.assert_array_equal(ts.head.numpy(), np.asarray(js.head))
-    np.testing.assert_array_equal(ts.tail.numpy(), np.asarray(js.tail))
+        np.testing.assert_array_equal(
+            mq.mq_sizes(ts).numpy(),
+            np.asarray(jmq.mq_sizes(jmq.MQState(*js))))
+    for got, want in zip((ts.buf, ts.head, ts.tail), js):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_in_graph_mq_roundtrip():

@@ -21,25 +21,36 @@ def case_config(case):
                                               **case.get("scale", {}))
 
 
-def train_cases(rank, store, shape, cases, lr):
-    """Every case of one mesh shape: forward_loss's metrics and the
-    gathered gradients, FSDP off and on, and, where the case asks, one
-    make_train_step step's gathered params. Returns {key: record} on
-    rank 0."""
-    mesh = make_mesh(shape, device="cpu", backend="gloo", store=store,
-                     rank=rank)
-    out = {}
+def train_cases(rank, store, cases, lr, launch=None):
+    """Every case of one world size, each on its mesh (shape and axes)
+    of that many ranks: forward_loss's metrics and the gathered
+    gradients, FSDP off and on, and, where the case asks, one
+    make_train_step step's gathered params; with ``launch`` (mesh shape,
+    axes, checkpoint directory) ``launcher_run`` under "launcher".
+    Returns {(key, fsdp): record} on rank 0."""
+    meshes, out = {}, {}
+
+    def mesh_of(shape, axes):
+        where = (tuple(shape), tuple(axes))
+        if where not in meshes:
+            meshes[where] = make_mesh(*where, device="cpu", backend="gloo",
+                                      store=store, rank=rank)
+        return meshes[where]
     for case in cases:
+        mesh = mesh_of(case["mesh"], case["axes"])
         cfg = case_config(case)
         toks = torch.from_numpy(case["tokens"])
         for fsdp in case["fsdp"]:
-            pol = make_policy(mesh, fsdp=fsdp)
+            # the pod axis's batch rules on a pod mesh, SP as the case says
+            pol = make_policy(mesh, multi_pod="pod" in case["axes"],
+                              sp=case.get("sp", False), fsdp=fsdp)
+            mg = col.MeshGroups.of(pol)
             whole = params_from_numpy(case["params"], cfg, device="cpu")
             params, opt = ts.place_train_state(whole, cfg, pol)
-            b = toks.shape[0] // pol.dp_size
-            d = col.axis_index(pol, "data")
+            b = toks.shape[0] // mg.batch_size
             (loss, metrics), grads = ts.value_and_grad(
-                params, toks[d * b:(d + 1) * b], cfg, policy=pol)
+                params, toks[mg.batch_rank * b:(mg.batch_rank + 1) * b],
+                cfg, policy=pol)
             grads = ts.gathered_grads(grads, cfg, pol)
             rec = {"loss": float(loss),
                    **{k: float(v) for k, v in metrics.items()},
@@ -65,7 +76,39 @@ def train_cases(rank, store, shape, cases, lr):
                 rec["params"] = params_to_numpy(
                     ts.unshard_tree(params, p_sh), cfg)
             out[(case["key"], fsdp)] = rec
+    if launch is not None:
+        out["launcher"] = launcher_run(mesh_of(*launch[:2]), *launch[2:])
     return out if rank == 0 else None
+
+
+def launcher_run(mesh, ckpt_dir, steps=2, seq=32, batch=4):
+    """The train launcher on ``mesh`` (SMOKE qwen3-8b on the CPU,
+    ``--smoke``'s policy), and make_train_step on the same mesh, weights
+    (seed 0), data and schedule: each step's loss and grad norm of
+    both."""
+    from repro_torch.data import DataConfig, SyntheticPackedDataset
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import lm
+    got = launcher.main(["--smoke", "--device", "cpu", "--steps", str(steps),
+                         "--seq", str(seq), "--batch", str(batch),
+                         "--ckpt-dir", ckpt_dir], mesh=mesh)
+    cfg = SMOKE_CONFIGS["qwen3-8b"]
+    pol = make_policy(mesh, multi_pod="pod" in mesh.mesh_dim_names)
+    params, opt = ts.place_train_state(
+        lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                       tp=pol.tp_size), cfg, pol)
+    step = ts.make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                               total_steps=steps),
+                              policy=pol)
+    data = SyntheticPackedDataset(DataConfig(
+        seq_len=seq, global_batch=batch, vocab_size=cfg.vocab_size))
+    want = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt,
+                              torch.from_numpy(data.next_batch()[0]))
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"launcher": [(r["loss"], r["grad_norm"]) for r in got["steps"]],
+            "make_train_step": want}
 
 
 def collectives(rank, store):
