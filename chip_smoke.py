@@ -184,19 +184,25 @@ Phases, each printing one JSON object per line:
              libraries' memory and the cuBLAS workspace, which the walk
              leaves out;
    ranks   — four processes (``launch.mesh.spawn``) on a (2, 2)
-             ("data", "model") mesh, all on the one card over gloo (NCCL
-             takes one GPU per rank), the kernels loaded from the build
-             phase's directory: SMOKE qwen3-8b, qwen1.5-4b and
-             moonshot-v1-16b-a3b in fp32 (TF32 off), FSDP off and on,
-             forward_loss's loss, stats and gathered gradients against the
-             mean over the data shards of one-rank runs on the card (loss
-             1e-5 relative, gradients 1e-4 of each leaf's largest); then
-             qwen3-8b and moonshot at full width, 2 layers, bf16, batch 4
-             x 1024, FSDP and ZeRO-1, 4 steps on a repeated batch: losses
-             finite and falling, step 1 within 2e-2 of the one-rank card
-             run's, each rank's step seconds, peak memory and a step's
-             collectives with their bytes; every rank's B2, B2-bwd, B7 and
-             B7-bwd launches held to its gradient calls;
+             ("data", "model") mesh and a (2, 1, 2) ("pod", "data",
+             "model") one, all on the one card over gloo (NCCL takes one
+             GPU per rank), the kernels loaded from the build phase's
+             directory: SMOKE qwen3-8b, qwen1.5-4b, moonshot-v1-16b-a3b,
+             rwkv6-1.6b and jamba-v0.1-52b in fp32 (TF32 off), FSDP off
+             and on, SP, and SP on the pod mesh: forward_loss's loss,
+             stats and gathered gradients against the mean over the data
+             shards of one-rank runs on the card (loss 1e-5 relative,
+             gradients 1e-4 of each leaf's largest; rwkv6's no further
+             from its float64 value on any leaf than the one-rank runs'
+             plus 1e-4), each SP run also against the run before it;
+             then qwen3-8b, moonshot and rwkv6 at 2 layers and jamba at
+             1, at full width, bf16, batch 4 x 1024, under the launcher's
+             production policy (SP, FSDP, ZeRO-1), 2 steps (qwen3,
+             moonshot) or 4 on a repeated batch: losses finite and
+             falling, step 1 within 2e-2 of the one-rank card run's, each
+             rank's step seconds, peak memory and a step's collectives
+             with their bytes; every rank's B2, B2-bwd, B4, B4-bwd, B6,
+             B6-bwd, B7 and B7-bwd launches held to its gradient calls;
    examples — the six scripts of examples_torch/, each through its
              ``run`` on the card and, in worker processes meanwhile, on
              the CPU from the same weights and inputs: the quickstart on
@@ -4591,18 +4597,31 @@ def phase_examples(torch, smi):
 RANKS_MESH = (2, 2)
 RANKS_POD_MESH = (2, 1, 2)
 RANKS_BACKEND = "gloo"
-RANKS_SMOKE = ("qwen3-8b", "qwen1.5-4b", "moonshot-v1-16b-a3b")
-RANKS_FULL = ("qwen3-8b", "moonshot-v1-16b-a3b")
+RANKS_SMOKE = ("qwen3-8b", "qwen1.5-4b", "moonshot-v1-16b-a3b",
+               "rwkv6-1.6b", "jamba-v0.1-52b")
 # (mesh, sp, fsdp) of each fp32 SMOKE run of a config: each held to the
 # one-rank runs; an SP run also to the run before it, the pod run to the
 # (2, 2) SP run
 RANKS_SMOKE_RUNS = ((RANKS_MESH, False, False), (RANKS_MESH, False, True),
                     (RANKS_MESH, True, True), (RANKS_POD_MESH, True, True))
-# (sp, layers, steps) of each full-width run on the (2, 2) mesh: FSDP and
-# ZeRO-1 without SP at one layer, for time, then the launcher's
-# production policy (SP, FSDP, ZeRO-1) at two
-RANKS_FULL_RUNS = ((False, 1, 2), (True, 2, 4))
+# (arch, layers, steps) of each full-width run on the (2, 2) mesh under
+# the launcher's production policy (SP, FSDP, ZeRO-1); the fp32 runs
+# cover the path without SP. For time, qwen3-8b and moonshot take 2 steps
+# (their 4-6 s steps follow the host). jamba at 1 layer (Mamba, dense
+# MLP): its second carries the 16-expert MoE, ~2.8 B params, which at 20
+# bytes a param over four ranks does not fit beside the rest of the card
+RANKS_FULL = (("qwen3-8b", 2, 2), ("moonshot-v1-16b-a3b", 2, 2),
+              ("rwkv6-1.6b", 2, 4), ("jamba-v0.1-52b", 1, 4))
 RANKS_SMOKE_SHAPE = (4, 64)
+# each fp32 SMOKE run's gradients against the one-rank card runs: within
+# this of each leaf's largest |value|. rwkv6's fp32 gradient on one rank
+# lies up to 1.7e-4 of a leaf's largest from its float64 value (PERF.md
+# §6; scripts/rwkv6_fp32_spread.py, seeds 0-3), so two fp32 runs that sum
+# in other orders are not that close to each other: its runs
+# are held to the float64 witness instead (``_float64_spread``), no
+# further from it on any leaf than the one-rank card run is, plus this
+RANKS_GRAD_TOL = 1e-4
+RANKS_FLOAT64 = ("rwkv6-1.6b",)
 RANKS_FULL_SHAPE = (4, 1024)
 RANKS_TIMEOUT = 600
 
@@ -4612,68 +4631,100 @@ def _ranks_axes(shape):
 
 
 def ranks_kernel_shapes():
-    """What B2, B2-bwd, B7 and B7-bwd take on one rank of the ranks
-    phase, from the configs as ``ranks_main`` runs them: B2 [b, H_eff/tp,
-    KV_eff/tp, S, hd] on the rank's b = B/(pod x data) rows and local
-    heads (``eff_heads``), the whole sequence with or without SP (it is
-    gathered before attention); B7 [T = b S K, d_model] into b E/tp
-    queues of capacity(S) slots. Both meshes give the same. One row a
-    config: arch, dtype, flash, moe (None without MoE)."""
+    """What the train kernels take on one rank of the ranks phase, from
+    the configs as ``ranks_main`` runs them (SMOKE whole, full width at
+    its ``RANKS_FULL`` depth): B2 [b, H_eff/tp, KV_eff/tp, S, hd] on the
+    rank's b = B/(pod x data) rows and local heads (``eff_heads``), the
+    whole sequence with or without SP (it is gathered before a region);
+    B4 [b, S, H/tp, hd] on the rank's heads; B6 [b, T, Di/tp, N] on its
+    channels, T a chunk of min(256, S); B7 [T = b S K, d_model] into b
+    E/tp queues of capacity(S) slots. Both meshes give the same. One row
+    a config: arch, dtype, whether full width (``full``), and each
+    kernel's shape, None where the config as run has no such layer, and
+    the rank's rows b (``rows``)."""
     from repro_torch.configs.registry import SMOKE_CONFIGS, get_config
+    from repro_torch.models.mamba import CHUNK
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import eff_heads
     rows = []
-    for archs, (B, S), dtype, of in (
-            (RANKS_SMOKE, RANKS_SMOKE_SHAPE, "float32",
-             SMOKE_CONFIGS.__getitem__),
-            (RANKS_FULL, RANKS_FULL_SHAPE, "bfloat16", get_config)):
-        for arch in archs:
-            shapes = set()
+    for runs, (B, S), dtype, full in (
+            ([(a, SMOKE_CONFIGS[a]) for a in RANKS_SMOKE],
+             RANKS_SMOKE_SHAPE, "float32", False),
+            ([(a, get_config(a).scaled(n_layers=n)) for a, n, _ in
+              RANKS_FULL], RANKS_FULL_SHAPE, "bfloat16", True)):
+        for arch, cfg in runs:
+            kinds, shapes = set(cfg.layer_kinds()), set()
             for mesh in (RANKS_MESH, RANKS_POD_MESH):
-                cfg, b, tp = of(arch), B // math.prod(mesh[:-1]), mesh[-1]
+                b, tp = B // math.prod(mesh[:-1]), mesh[-1]
                 H, KV = eff_heads(cfg, tp)
-                moe = cfg.moe and (b * S * cfg.moe.top_k, cfg.d_model,
-                                   b * cfg.moe.n_experts // tp,
-                                   capacity(S, cfg))
-                shapes.add(((b, H // tp, KV // tp, S, cfg.head_dim), moe))
+                flash = "attn" in kinds and (b, H // tp, KV // tp, S,
+                                             cfg.head_dim)
+                moe = "moe" in cfg.mlp_kinds() and (
+                    b * S * cfg.moe.top_k, cfg.d_model,
+                    b * cfg.moe.n_experts // tp, capacity(S, cfg))
+                wkv = "rwkv" in kinds and (
+                    b, S, cfg.d_model // cfg.rwkv.head_dim // tp,
+                    cfg.rwkv.head_dim)
+                scan = "mamba" in kinds and (
+                    b, min(CHUNK, S), cfg.mamba.expand * cfg.d_model // tp,
+                    cfg.mamba.d_state)
+                shapes.add((b,) + tuple(x or None for x in (flash, moe,
+                                                            wkv, scan)))
             require(len(shapes) == 1, f"ranks {arch}: the meshes give "
                     f"ranks other shapes: {shapes}")
-            (flash, moe), = shapes
-            rows.append({"arch": arch, "dtype": dtype, "flash": flash,
-                         "moe": moe})
+            (b, flash, moe, wkv, scan), = shapes
+            rows.append({"arch": arch, "dtype": dtype, "full": full,
+                         "rows": b, "flash": flash, "moe": moe, "wkv": wkv,
+                         "scan": scan})
     return rows
 
 
 def check_ranks_kernels(torch):
-    """B2, B2-bwd, B7 and B7-bwd against their plain versions at one
-    rank's shapes in the ranks phase (``ranks_kernel_shapes``), the
-    dispatch's rows placed as the expert-parallel path places them
-    (``_dispatch_rows``' ``mesh``: half the rows another rank's); timed
-    at the full-width bf16 shapes. Returns the timed records by key."""
+    """B2, B2-bwd, B4, B4-bwd, B6, B6-bwd, B7 and B7-bwd against their
+    plain versions at one rank's shapes in the ranks phase
+    (``ranks_kernel_shapes``; PERF.md's tolerances), the dispatch's rows
+    placed as the expert-parallel path places them (``_dispatch_rows``'
+    ``mesh``: half the rows another rank's); timed at the full-width
+    shapes. Returns the timed records by key."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import wkv6 as wk
     tp = RANKS_MESH[1]
     main, seen = {}, set()
     for row in ranks_kernel_shapes():
         dtype, arch = getattr(torch, row["dtype"]), row["arch"]
-        timed = dtype == torch.bfloat16
+        timed = row["full"]
         recs = {}
-        if (row["flash"], dtype) not in seen:
-            seen.add((row["flash"], dtype))
+
+        def first(kind):
+            new = row[kind] is not None and (kind, row[kind],
+                                             dtype) not in seen
+            seen.add((kind, row[kind], dtype))
+            return new
+        if first("flash"):
             recs["flash_ranks"] = check_flash(torch, fa, *row["flash"],
                                               dtype, timed=timed)
             recs["flash_bwd_ranks"] = check_flash_bwd(
                 torch, fa, *row["flash"], dtype, timed=timed)
-        if row["moe"] and (row["moe"], dtype) not in seen:
-            seen.add((row["moe"], dtype))
+        if first("moe"):
             T, D, Q, C = row["moe"]
-            b = row["flash"][0]
             recs["moe_dispatch_ranks"] = check_moe_dispatch(
                 torch, md, T, D, Q, C, dtype, timed=timed,
-                positions="mesh", groups=b, tp=tp)
+                positions="mesh", groups=row["rows"], tp=tp)
             recs["moe_dispatch_bwd_ranks"] = check_moe_dispatch_bwd(
                 torch, md, T, D, Q, C, dtype, timed=timed,
-                positions="mesh", groups=b, tp=tp)
+                positions="mesh", groups=row["rows"], tp=tp)
+        if first("wkv"):
+            recs["wkv6_ranks"] = check_wkv_chunked(torch, wk, *row["wkv"],
+                                                   dtype, timed=timed)
+            recs["wkv6_bwd_ranks"] = check_wkv6_bwd(torch, wk, *row["wkv"],
+                                                    dtype, timed=timed)
+        if first("scan"):
+            recs["linear_scan_ranks"] = check_linear_scan(
+                torch, ls, *row["scan"], timed=timed)
+            recs["linear_scan_bwd_ranks"] = check_linear_scan_bwd(
+                torch, ls, *row["scan"], timed=timed)
         if timed:
             main.update({(k, arch): r for k, r in recs.items()})
     return main
@@ -4704,14 +4755,16 @@ def _mesh_reference(torch, cfg, params, toks, dp, grads: bool):
     return loss, mets, acc
 
 
-def _ranks_smoke(torch, mesh, arch, sp, fsdp, rank, seed=0):
+def _ranks_smoke(torch, mesh, arch, sp, fsdp, rank, seed=0, check=True):
     """SMOKE ``arch`` in fp32 (TF32 off) on the mesh, SP and FSDP as
     given: forward_loss's loss, stats and gathered gradients on the
-    rank's shards, each rank's B2/B2-bwd/B7/B7-bwd launches held to one
-    gradient call; on rank 0 against ``_mesh_reference`` on the card:
-    loss and stats within 1e-5 relative, every gradient within 1e-4 of
-    its leaf's largest |value| (rank 0 keeps the gradients, ``grads``,
-    for ``_ranks_same``)."""
+    rank's shards, each rank's kernel launches held to one gradient
+    call; on rank 0 against ``_mesh_reference`` on the card: loss and
+    stats within 1e-5 relative, every gradient within ``RANKS_GRAD_TOL``
+    of its leaf's largest |value| (``ranks_grads_ok``; for
+    ``RANKS_FLOAT64`` against the float64 witness, ``float64``). Rank 0
+    keeps the gradients, ``grads``, for ``_ranks_same``. ``check=False``
+    records the comparisons without holding them."""
     from repro_torch.configs.registry import SMOKE_CONFIGS
     from repro_torch.core.tree import leaves
     from repro_torch.models import lm
@@ -4753,12 +4806,59 @@ def _ranks_smoke(torch, mesh, arch, sp, fsdp, rank, seed=0):
         worst = max(range(len(g_errs)), key=g_errs.__getitem__)
         rec.update(ref_loss=ref_loss, errors=errs,
                    grad_err=g_errs[worst], grad_worst=names[worst])
-        require(all(e <= 1e-5 for e in errs.values()),
-                f"{label}: loss or stats off the one-rank card run: {errs}")
-        require(g_errs[worst] <= 1e-4,
-                f"{label}: gradient {names[worst]} off by {g_errs[worst]} "
-                f"of its largest")
+        if arch in RANKS_FLOAT64:
+            rec["float64"] = _float64_spread(torch, cfg, whole, toks,
+                                             pol.dp_size, rec["grads"],
+                                             ref_g, names)
+        if check:
+            require(all(e <= 1e-5 for e in errs.values()),
+                    f"{label}: loss or stats off the one-rank card run: "
+                    f"{errs}")
+            require(ranks_grads_ok(rec),
+                    f"{label}: gradient {names[worst]} off by "
+                    f"{g_errs[worst]} of its largest; against float64: "
+                    f"{rec.get('float64')}")
     return rec
+
+
+def ranks_grads_ok(rec) -> bool:
+    """An fp32 SMOKE run's gradients (``_ranks_smoke``'s record) within
+    ``RANKS_GRAD_TOL`` of each leaf's largest |value| of the one-rank
+    card runs; where there is a float64 witness, no further from it on
+    any leaf than the one-rank card runs are, plus ``RANKS_GRAD_TOL``."""
+    if "float64" in rec:
+        return rec["float64"]["excess"] <= RANKS_GRAD_TOL
+    return rec["grad_err"] <= RANKS_GRAD_TOL
+
+
+def _float64_spread(torch, cfg, whole, toks, dp, grads, one_rank, names):
+    """The one-rank gradient of ``_mesh_reference`` in float64 on the CPU
+    (the port's fp32 casts keep float64, ``Tensor.float`` the identity on
+    a float64 tensor while it runs, and the WKV takes its plain version:
+    its wrapper takes float32 and bfloat16), and each leaf's max
+    |difference| from it over its largest |value| of the run's gradients
+    (``grads``) and of the one-rank card run's (``one_rank``): the worst
+    of each, and the largest excess of the run's over the one-rank run's
+    on a leaf."""
+    from repro_torch.core.tree import map_tree
+    from repro_torch.kernels import wkv6 as wk
+    from repro_torch.models import rwkv
+    cast, kernel = torch.Tensor.float, rwkv.wkv6_chunked
+    torch.Tensor.float = lambda t: t if t.dtype == torch.float64 else cast(t)
+    rwkv.wkv6_chunked = lambda *a, chunk: wk.wkv6_chunked_plain(*a,
+                                                                chunk=chunk)
+    try:
+        exact = _mesh_reference(torch, cfg,
+                                map_tree(lambda x: x.cpu().double(), whole),
+                                toks.cpu(), dp, True)[2]
+    finally:
+        torch.Tensor.float, rwkv.wkv6_chunked = cast, kernel
+    run = [_err_of_max(g.cpu(), e) for g, e in zip(grads, exact)]
+    one = [_err_of_max(g.cpu(), e) for g, e in zip(one_rank, exact)]
+    excess = [a - b for a, b in zip(run, one)]
+    w = max(range(len(excess)), key=excess.__getitem__)
+    return {"run": max(run), "one_rank": max(one), "excess": excess[w],
+            "excess_leaf": names[w]}
 
 
 def _ranks_same(rec, base):
@@ -4776,15 +4876,14 @@ def _ranks_same(rec, base):
             f"{errs}, gradients {g}")
 
 
-def _ranks_full(torch, mesh, arch, rank, sp, layers, steps, seed=0,
-                lr=3e-4):
-    """``arch`` at full width and ``layers`` layers in bf16 on the mesh,
-    ZeRO-1 and FSDP, SP as given, ``steps`` steps on one repeated
-    RANKS_FULL_SHAPE batch: each step's loss and seconds, the rank's peak
-    memory, its B2/B2-bwd/B7/B7-bwd launches held to one gradient call a
-    step, one step's collectives and bytes; on rank 0 the losses finite
-    and falling, step 1's within 2e-2 of ``_mesh_reference`` on the
-    card."""
+def _ranks_full(torch, mesh, arch, rank, layers, steps, seed=0, lr=3e-4):
+    """``arch`` at full width and ``layers`` layers in bf16 on the mesh
+    under the launcher's production policy (SP, FSDP, ZeRO-1), ``steps``
+    steps on one repeated RANKS_FULL_SHAPE batch: each step's loss and
+    seconds, the rank's peak memory, its kernels' launches held to one
+    gradient call a step, one step's collectives and bytes; on rank 0 the
+    losses finite and falling, step 1's within 2e-2 of
+    ``_mesh_reference`` on the card."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.timing import Timer
     from repro_torch.models import lm
@@ -4793,7 +4892,7 @@ def _ranks_full(torch, mesh, arch, rank, sp, layers, steps, seed=0,
     from repro_torch.sharding import make_policy
     from repro_torch.train import train_step as ts
     cfg = get_config(arch).scaled(n_layers=layers)
-    pol = make_policy(mesh, sp=sp, fsdp=True)
+    pol = make_policy(mesh, sp=True, fsdp=True)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4823,9 +4922,9 @@ def _ranks_full(torch, mesh, arch, rank, sp, layers, steps, seed=0,
         losses.append(float(m["loss"]))
         secs.append(t.elapsed())
         colls = col.counts()
-    label = f"ranks {arch} bf16 sp={sp}"
+    label = f"ranks {arch} bf16 sp=True"
     path = _train_launches(label, wrappers, cfg, S, steps)
-    rec = {"arch": arch, "sp": sp, "layers": layers, "batch": B, "seq": S,
+    rec = {"arch": arch, "sp": True, "layers": layers, "batch": B, "seq": S,
            "losses": losses, "step_s": secs,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "collectives_a_step": colls, "path": path}
@@ -4844,7 +4943,7 @@ def ranks_main(rank, store, smoke=RANKS_SMOKE, full=RANKS_FULL):
     """One rank of the ranks phase: the two meshes over ``cuda`` (rank r
     on card r % count: all on the one card here), then the fp32 SMOKE
     comparisons (``RANKS_SMOKE_RUNS``) and the full-width bf16 runs
-    (``RANKS_FULL_RUNS``)."""
+    (``RANKS_FULL``)."""
     import torch
     from repro_torch.core.timing import Timer
     from repro_torch.launch.mesh import make_mesh
@@ -4876,13 +4975,12 @@ def ranks_main(rank, store, smoke=RANKS_SMOKE, full=RANKS_FULL):
         for rec in runs:
             rec.pop("grads", None)
         out["smoke"] += runs
-    for arch in full:
-        for sp, layers, steps in RANKS_FULL_RUNS:
-            t = Timer()
-            out["full"].append(_ranks_full(torch, meshes[RANKS_MESH], arch,
-                                           rank, sp, layers, steps))
-            out["full"][-1]["seconds"] = t.elapsed()
-            tally(out["full"][-1]["collectives_a_step"])
+    for arch, layers, steps in full:
+        t = Timer()
+        out["full"].append(_ranks_full(torch, meshes[RANKS_MESH], arch,
+                                       rank, layers, steps))
+        out["full"][-1]["seconds"] = t.elapsed()
+        tally(out["full"][-1]["collectives_a_step"])
     return out
 
 
@@ -4992,7 +5090,11 @@ def _kernel_row(name, rec, src, replaces, by_path, main, more):
 RANKS_KEYS = {"flash_attention": "flash_ranks",
               "flash_attention_bwd": "flash_bwd_ranks",
               "moe_dispatch": "moe_dispatch_ranks",
-              "moe_dispatch_bwd": "moe_dispatch_bwd_ranks"}
+              "moe_dispatch_bwd": "moe_dispatch_bwd_ranks",
+              "wkv6_chunked": "wkv6_ranks",
+              "wkv6_chunked_bwd": "wkv6_bwd_ranks",
+              "linear_scan": "linear_scan_ranks",
+              "linear_scan_bwd": "linear_scan_bwd_ranks"}
 
 
 def kernel_line(main, serves):

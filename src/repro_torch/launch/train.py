@@ -26,7 +26,9 @@ is given (``mesh=``: each rank of a ``launch/mesh.py`` ``spawn`` calls
 it with its ``make_mesh``), on which the run trains its rank's shards
 (``place_train_state``: the params on ``train_shardings``, AdamW's state
 made from the rank's ZeRO-1 slices; each step takes the global batch and
-keeps the rank's rows), each rank checkpointing its own shards under
+keeps the rank's rows; every config but deepseek-v2-lite-16b's MLA, so
+rwkv6-1.6b and jamba-v0.1-52b too), each rank checkpointing its own
+shards under
 ``<ckpt-dir>/rank<r>``. ``--multipod`` asks for the two-pod production
 mesh of 512 ranks: in a world of another size it raises ``ValueError``.
 """

@@ -290,12 +290,14 @@ def forward_loss(params, tokens, cfg: ModelConfig, remat: bool = True, *,
     (``transformer.apply_stack``). Every family trains: plain and MLA
     attention through B2 and B2-bwd, MoE through B7 and B7-bwd, Mamba
     through B6 and B6-bwd, RWKV-6 through B4 and B4-bwd. Every entry
-    point takes a sharding ``policy``; on a mesh of more ranks (plain
-    attention stacks, ``Policy.require_supported``) ``params`` are this
+    point takes a sharding ``policy``; on a mesh of more ranks (every
+    family but MLA, ``Policy.require_supported``) ``params`` are this
     rank's shards and ``tokens`` its rows of the batch (``pod`` x
     ``data``): embedding and CE are vocab-parallel, attention and dense
-    MLPs tensor-parallel over heads and ff, MoE expert-parallel
-    (``transformer.apply_stack`` with the mesh in ``ctx``), and every
+    MLPs tensor-parallel over heads and ff, Mamba and RWKV-6 over
+    ``inner`` (RWKV's heads, Mamba's channels) and ff, MoE
+    expert-parallel (``transformer.apply_stack`` with the mesh in
+    ``ctx``), and every
     rank returns the same loss and metrics, the MoE stats ``pmean``ed
     over the batch group as the reference's ``_moe_mlp_sharded`` gives
     them. Under sequence parallelism (``act_seq`` over ``model``) the

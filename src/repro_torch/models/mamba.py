@@ -22,6 +22,15 @@ Ops round where the JAX model's do: the prefill conv is K shifted adds
 from the bias, each rounding in the model dtype; the decode conv is one
 contraction accumulated in fp32; softplus is ``jax.nn.softplus``'s
 ``logaddexp(x, 0)``; silu rounds each op (``layers.silu``).
+
+On a mesh of ranks (``mamba_forward``'s ``mg``) prefill runs on the
+rank's Di/tp channels, as ``mamba_specs`` place the leaves: ``in_proj``
+column-parallel, its output moved to the rank's channels of xm and z
+(``_rank_halves``); the conv, ``dt_proj``, ``dt_bias``, ``A_log``,
+``D_skip`` and B6 on its channels; ``x_proj`` row-parallel, its partial
+sums summed both ways (``collectives.psum_inside``); ``out_proj``
+row-parallel, left for the caller to sum. The conv runs on the whole
+sequence the region sees.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linear_scan import linear_scan
 from repro_torch.kernels.ssm_decode import ssm_decode_step
 from repro_torch.models.layers import silu
+from repro_torch.sharding import collectives as col
 
 CHUNK = 256
 
@@ -99,12 +109,16 @@ def _causal_conv(xm, conv_w, conv_b, conv_state=None):
     return out, (xp[:, xp.shape[1] - (K - 1):].clone() if K > 1 else None)
 
 
-def _ssm_inputs(xc, p, cfg: ModelConfig):
+def _ssm_inputs(xc, p, cfg: ModelConfig, tp=None):
     """dt [..., Di], B_ssm and C_ssm [..., N], all fp32, from the
-    activated conv output."""
+    activated conv output. With ``tp`` xc is a rank's channels and
+    ``x_proj`` its rows: the product is a partial sum, and so is its
+    cotangent, since dt and the scan use only the rank's channels."""
     m = cfg.mamba
     dtr = m.resolved_dt_rank(cfg.d_model)
     xdbl = xc @ p["x_proj"]
+    if tp is not None:
+        xdbl = col.psum_inside(xdbl, tp)
     dt_r = xdbl[..., :dtr]
     B_ssm = xdbl[..., dtr:dtr + m.d_state].float().contiguous()
     C_ssm = xdbl[..., dtr + m.d_state:].float().contiguous()
@@ -122,18 +136,45 @@ def _chunk_body(h, dt_i, x_i, B_i, C_i, A):
     return h_last, torch.einsum("bcdn,bcn->bcd", h_all, C_i)
 
 
+def _rank_halves(xz, mg):
+    """This rank's channels of xm and z, [b, S, 2 Di/tp], from its
+    columns of x @ in_proj. ``reshard_tree`` cuts in_proj's 2 Di columns
+    over ``model`` contiguously, as GSPMD does, so rank q holds blocks 2q
+    and 2q + 1 of 2 tp blocks of Di/tp columns, block j being xm's
+    (j < tp) or z's (j >= tp) slice of rank j mod tp: at tp 2 rank 0
+    holds all of xm and rank 1 all of z. One all_to_all sends each block
+    to its rank, which receives its xm slice from rank r // 2 and its z
+    slice from rank (tp + r) // 2, in that order."""
+    n, r, w = mg.tp_size, mg.tp_rank, xz.shape[-1] // 2
+    if n == 1:
+        return xz
+    dest = [(2 * r) % n, (2 * r + 1) % n]
+    if dest[0] > dest[1]:       # an odd tp's last rank: its second block
+        xz = torch.cat([xz[..., w:], xz[..., :w]], dim=-1)  # goes to 0
+    send = [w * dest.count(d) for d in range(n)]
+    recv = [w * (s in (r // 2, (n + r) // 2)) for s in range(n)]
+    return col.all_to_all(xz, mg.tp, -1, send, recv)
+
+
 def mamba_forward(x, p, cfg: ModelConfig, chunk: int = CHUNK,
-                  state: Optional[dict] = None, want_state: bool = False):
+                  state: Optional[dict] = None, want_state: bool = False,
+                  mg=None):
     """Prefill over x [B,S,D] from an optional carried state, the scan of
     each chunk on kernel B6. Returns (out [B,S,D], {conv, ssm} or
-    None)."""
+    None). With ``mg`` (a ``collectives.MeshGroups``) x is the whole
+    input of a region parallel over ``model`` and ``p`` the rank's
+    shards: the result is the rank's partial sum of out."""
     B, S, D = x.shape
-    di = cfg.mamba.expand * D
-    xm, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    di = p["D_skip"].shape[0]       # the rank's channels on a mesh
+    xz = x @ p["in_proj"]
+    if mg is not None:
+        xz = _rank_halves(xz, mg)
+    xm, z = torch.chunk(xz, 2, dim=-1)
     xc, new_conv = _causal_conv(xm, p["conv_w"], p["conv_b"],
                                 state["conv"] if state is not None else None)
     xc = silu(xc)
-    dt, B_ssm, C_ssm = _ssm_inputs(xc, p, cfg)
+    dt, B_ssm, C_ssm = _ssm_inputs(xc, p, cfg,
+                                   mg.tp if mg is not None else None)
     A = -torch.exp(p["A_log"])                        # [Di,N] fp32
     xcf = xc.float()
     h = (state["ssm"].float().contiguous() if state is not None

@@ -12,6 +12,15 @@ stays inside fp32.
 The activations round bf16 where the JAX model does: mixing of a bf16
 activation with an fp32 ``mu`` promotes to fp32 and casts back, and
 sigmoid and silu round each op (``layers.sigmoid``, ``layers.silu``).
+
+On a mesh of ranks (``transformer._train_block_mesh``) both mixes run
+on a rank's shards as ``rwkv_specs`` place them: time-mix on the rank's
+H/tp heads (``wr``/``wk``/``wv``/``wg``/``w2`` its columns, ``u`` and
+``ln_x`` its channels, B4 on its heads, ``wo`` row-parallel), channel-mix
+column-parallel over ``ff`` into the row-parallel ``wv_cm``, with the
+rank's columns of the gate gathered (``rwkv_channel_mix``'s ``tp``).
+``rank_params`` gives the replicated leaves their gradient over the
+ranks. The token shift runs on the whole sequence the region sees.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import wkv6_chunked, wkv6_decode
 from repro_torch.models.layers import sigmoid, silu
+from repro_torch.sharding import collectives as col
 
 DECAY_LORA = 64
 WKV_CHUNK = 32
@@ -67,6 +77,27 @@ def rwkv_specs(cfg: ModelConfig) -> dict:
             "wo": ("inner", None), "u": ("inner",), "ln_x": ("inner",),
             "mu_cm": (None, None), "wk_cm": (None, "ff"),
             "wv_cm": ("ff", None), "wr_cm": (None, "inner")}
+
+
+# replicated leaves used on the whole input x, each rank reaching them
+# only through its own columns of the products that follow
+_WHOLE_INPUT = ("mu", "w1", "mu_cm")
+
+
+def rank_params(p: dict, tp, tp_rank: int, tp_size: int) -> dict:
+    """One block's params as a rank of a region parallel over ``tp``
+    uses them: the leaves used on the whole input (``mu``, ``w1``,
+    ``mu_cm``) through ``copy_in``, whose backward sums their partial
+    gradients over the ranks; ``w_base``, replicated, of which a rank
+    adds only its own channels to the decay, through ``copy_in`` and
+    then cut to them, so that every rank's gradient is the whole leaf.
+    The other leaves are the rank's shards as they are."""
+    out = {k: col.copy_in(v, tp) if k in _WHOLE_INPUT else v
+           for k, v in p.items()}
+    n = p["w_base"].shape[0] // tp_size
+    out["w_base"] = col.copy_in(p["w_base"], tp)[tp_rank * n:
+                                                 (tp_rank + 1) * n]
+    return out
 
 
 def _shift(x, prev=None):
@@ -139,14 +170,22 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, state: Optional[dict] = None,
 
 
 def rwkv_channel_mix(x, p, cfg: ModelConfig, state: Optional[dict] = None,
-                     want_state: bool = False):
-    """Prefill channel-mix: sigmoid(r) * (relu(k)^2 @ wv)."""
+                     want_state: bool = False, tp=None):
+    """Prefill channel-mix: sigmoid(r) * (relu(k)^2 @ wv). With ``tp``
+    (a rank of a region parallel over that group) ``kk @ wv_cm`` is the
+    rank's partial sum over ``ff`` and the gate its columns of D: the
+    gate gathered along D (whose backward sums its partial cotangent
+    and keeps the rank's columns) multiplies the partial sum, and the
+    caller sums the product over the ranks."""
     prev = state["shift_cm"] if state is not None else None
     xs = _shift(x, prev)
     xk = _mix(x, xs, p["mu_cm"][0])
     xr = _mix(x, xs, p["mu_cm"][1])
     kk = torch.square(torch.relu(xk @ p["wk_cm"]))
-    out = sigmoid(xr @ p["wr_cm"]) * (kk @ p["wv_cm"])
+    gate = sigmoid(xr @ p["wr_cm"])
+    if tp is not None:
+        gate = col.all_gather(gate, tp, -1)
+    out = gate * (kk @ p["wv_cm"])
     new_state = {"shift_cm": x[:, -1]} if want_state else None
     return out, new_state
 

@@ -528,34 +528,57 @@ def _train_block(bp, kind: str, mlp_kind: str, cfg: ModelConfig, ctx, x):
 
 def _train_block_mesh(bp, specs, kind: str, mlp_kind: str,
                       cfg: ModelConfig, ctx, x):
-    """``_train_block`` of a plain attention layer on a mesh, as GSPMD
-    runs the reference's under ``stack_specs``: the block's FSDP shards
-    gathered over ``data``; attention column-parallel over the rank's
-    heads (B2 and B2-bwd on them; qk-norm and biases on local heads) and
-    ``wo`` row-parallel; a dense MLP column- then row-parallel over
-    ``ff``; an MoE MLP expert-parallel (``moe.moe_mlp_sharded``). x is
-    the rank's rows, replicated over ``model``: each parallel region's
-    input enters through ``copy_in``, which sums its gradient there, and
-    its output leaves through a ``psum``. Under sequence parallelism x
-    is the rank's 1/tp of the sequence, the norms run on it (their
-    scales' gradients summed over ``model``), each region's input is
-    gathered along the sequence (attention and RoPE see all of it) and
-    its output leaves reduce-scattered (``MeshGroups.enter``,
+    """``_train_block`` on a mesh, as GSPMD runs the reference's under
+    ``stack_specs``: the block's FSDP shards gathered over ``data``;
+    each mixer and MLP a region parallel over ``model``, entered after
+    its norm and left summed (``region``): attention column-parallel over
+    the rank's heads (B2 and B2-bwd on them; qk-norm and biases on local
+    heads) and ``wo`` row-parallel; Mamba on the rank's channels of
+    ``inner`` (B6 and B6-bwd on them, ``mamba.mamba_forward``'s ``mg``);
+    RWKV's time-mix on its heads (B4 and B4-bwd) and its channel-mix over
+    ``ff`` (``rwkv.rank_params``, ``rwkv_channel_mix``'s ``tp``); a dense
+    MLP column- then row-parallel over ``ff``; an MoE MLP
+    expert-parallel (``moe.moe_mlp_sharded``). x is the rank's rows,
+    replicated over ``model``: each region's input enters through
+    ``copy_in``, which sums its gradient there, and its output leaves
+    through a ``psum``. Under sequence parallelism x is the rank's 1/tp
+    of the sequence, the norms run on it (their scales' gradients summed
+    over ``model``), each region's input is gathered along the sequence
+    (attention, RoPE, RWKV's token shift and Mamba's conv see all of it)
+    and its output leaves reduce-scattered (``MeshGroups.enter``,
     ``leave``). The qk-norm scales' gradients are summed over ``model``
     either way: each rank reaches them through its own heads only."""
     mg = ctx["mesh"]
     bp = col.gather_fsdp(bp, specs, mg)
-    h = mg.enter(rms_norm(x, mg.norm_weight(bp["norm1"]), cfg.norm_eps))
-    p = {k: col.copy_in(v, mg.tp) if k in ("q_norm", "k_norm") else v
-         for k, v in bp["attn"].items()}
-    x = x + mg.leave(attn_forward(h, p, cfg, ctx)[0])
-    h2 = rms_norm(x, mg.norm_weight(bp["norm2"]), cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def region(fn, norm_w, x):
+        h = rms_norm(x, mg.norm_weight(norm_w), cfg.norm_eps)
+        return mg.leave(fn(mg.enter(h)))
+    if kind == "rwkv":
+        p = rwkv.rank_params(bp["rwkv"], mg.tp, mg.tp_rank, mg.tp_size)
+        x = x + region(lambda h: rwkv.rwkv_time_mix(h, p, cfg)[0],
+                       bp["norm1"], x)
+        x = x + region(lambda h: rwkv.rwkv_channel_mix(h, p, cfg,
+                                                       tp=mg.tp)[0],
+                       bp["norm2"], x)
+        return x, zero, zero
+    if kind == "mamba":
+        def mix(h):
+            return mamba.mamba_forward(h, bp["mamba"], cfg, mg=mg)[0]
+    else:
+        p = {k: col.copy_in(v, mg.tp) if k in ("q_norm", "k_norm") else v
+             for k, v in bp["attn"].items()}
+
+        def mix(h):
+            return attn_forward(h, p, cfg, ctx)[0]
+    x = x + region(mix, bp["norm1"], x)
     if mlp_kind == "moe":
+        h2 = rms_norm(x, mg.norm_weight(bp["norm2"]), cfg.norm_eps)
         m, st = moe.moe_mlp_sharded(h2, bp["moe"], cfg, mg)
         return x + m, st["moe_aux"], st["moe_dropped"]
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    m = dense_mlp(mg.enter(h2), bp["mlp"], cfg)
-    return x + mg.leave(m), zero, zero
+    return (x + region(lambda h: dense_mlp(h, bp["mlp"], cfg), bp["norm2"],
+                       x), zero, zero)
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,11 @@ axis)``), as autograd Functions:
 - ``copy_in``: the identity; its backward sums the cotangent over the
   group. It is Megatron's f, the entry of a tensor-parallel block, where
   each rank's cotangent of a replicated input is a partial sum.
+- ``psum_inside``: the sum over the group whose backward sums too: a
+  partial sum inside a parallel region (a row-parallel product) whose
+  users are each rank's own slices, so that each rank's cotangent of
+  the sum is partial as well (Mamba's ``x_proj``): ``copy_in(psum(y))``,
+  one collective each way.
 - ``pmean``: the mean over the group; its backward divides by the
   group's size.
 - ``pmax``: the maximum over the group, with no gradient (the
@@ -24,6 +29,11 @@ axis)``), as autograd Functions:
   along a dim kept; its backward is the tiled gather of the cotangent.
   It is the exit of a sequence-parallel region (``all_gather``'s
   counterpart), where ``psum`` exits a tensor-parallel one.
+- ``all_to_all``: parts of a dim of the sizes given sent one to each
+  rank, the parts received concatenated along it in rank order; its
+  backward is the inverse exchange. It moves activations from one cut
+  over the group to another (Mamba's ``in_proj`` output,
+  ``models/mamba.py``).
 
 One transport serves every backend, with calls that gloo and NCCL both
 take: gloo has no CUDA reduce-scatter and moves CUDA tensors through the
@@ -119,21 +129,38 @@ def reduce_scatter(t: torch.Tensor, g, dim: int) -> torch.Tensor:
     n = _size(g)
     if n == 1:
         return t
-    w = t.movedim(dim, 0).contiguous()
-    # part j of every rank to rank j (16-bit floats as their raw bytes),
-    # then the n parts summed in rank order, in float32 for 16-bit floats:
-    # (n - 1) / n of the tensor leaves each rank, half of what an
-    # all_reduce of it sends
-    wire = w.view(torch.uint8) if w.dtype in _HALF else w
-    got = torch.empty_like(wire)
-    _count("all_to_all", wire)
-    dist.all_to_all_single(got, wire, group=g)
-    parts = got.view(w.dtype).view((n, w.shape[0] // n)
-                                   + tuple(w.shape[1:]))
+    # part j of every rank to rank j, then the n parts summed in rank
+    # order, in float32 for 16-bit floats: (n - 1) / n of the tensor
+    # leaves each rank, half of what an all_reduce of it sends
+    m = t.shape[dim] // n
+    parts = exchange(t, g, dim, (m,) * n, (m,) * n).chunk(n, dim)
     out = _wide(parts[0])
-    for j in range(1, n):
-        out = out + _wide(parts[j])
-    return out.movedim(0, dim).contiguous().to(t.dtype)
+    for p in parts[1:]:
+        out = out + _wide(p)
+    return out.to(t.dtype)
+
+
+def exchange(t: torch.Tensor, g, dim: int, send, recv) -> torch.Tensor:
+    """Parts of ``t`` along ``dim`` of sizes ``send`` to ranks 0, 1, ...
+    of ``g``; the parts received, of sizes ``recv``, concatenated along
+    ``dim`` in the senders' rank order (no autograd). 16-bit floats
+    travel as their raw bytes."""
+    if _size(g) == 1:
+        return t
+    w = t.movedim(dim, 0).contiguous()
+    wire = w.reshape(w.shape[0], -1)
+    if w.dtype in _HALF:
+        wire = wire.view(torch.uint8)
+    got = wire.new_empty((sum(recv), wire.shape[1]))
+    _count("all_to_all", wire)
+    # equal parts each way take the call without sizes
+    equal = len(set(send)) == 1 and list(send) == list(recv)
+    dist.all_to_all_single(got, wire,
+                           output_split_sizes=None if equal else list(recv),
+                           input_split_sizes=None if equal else list(send),
+                           group=g)
+    out = got.view(w.dtype).reshape((sum(recv),) + tuple(w.shape[1:]))
+    return out.movedim(0, dim).contiguous()
 
 
 class _Psum(torch.autograd.Function):
@@ -190,12 +217,28 @@ class _ReduceScatterSeq(torch.autograd.Function):
         return gather(dy, ctx.g, ctx.dim), None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, dim, send, recv):
+        ctx.g, ctx.dim, ctx.send, ctx.recv = g, dim, send, recv
+        return exchange(x, g, dim, send, recv)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (exchange(dy, ctx.g, ctx.dim, ctx.recv, ctx.send), None,
+                None, None, None)
+
+
 def psum(x: torch.Tensor, g) -> torch.Tensor:
     return x if _size(g) == 1 else _Psum.apply(x, g)
 
 
 def copy_in(x: torch.Tensor, g) -> torch.Tensor:
     return x if _size(g) == 1 else _CopyIn.apply(x, g)
+
+
+def psum_inside(x: torch.Tensor, g) -> torch.Tensor:
+    return copy_in(psum(x, g), g)
 
 
 def pmean(x: torch.Tensor, g) -> torch.Tensor:
@@ -213,6 +256,13 @@ def all_gather(x: torch.Tensor, g, dim: int) -> torch.Tensor:
 
 def reduce_scatter_seq(x: torch.Tensor, g, dim: int) -> torch.Tensor:
     return x if _size(g) == 1 else _ReduceScatterSeq.apply(x, g, dim)
+
+
+def all_to_all(x: torch.Tensor, g, dim: int, send, recv) -> torch.Tensor:
+    """``exchange`` with the inverse exchange as its backward."""
+    if _size(g) == 1:
+        return x
+    return _AllToAll.apply(x, g, dim, tuple(send), tuple(recv))
 
 
 # the batch group of each (pod, data, model) mesh, built once: every rank

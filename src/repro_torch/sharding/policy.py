@@ -28,10 +28,10 @@ dim shards that dim over each of them, in mesh order), and ``named`` the
 pair ``(mesh, placements)``, the port's ``NamedSharding``. The model's
 bodies run on each rank's local shards with explicit collectives
 (``sharding/collectives.py``), so ``constrain`` returns its tensor as it
-is. A mesh of more than one rank trains plain-attention stacks on
-``("data", "model")`` or ``("pod", "data", "model")``, with or without
-sequence parallelism; the entry points refuse the rest
-(``require_supported``; ROADMAP A13b-5b).
+is. A mesh of more than one rank trains plain-attention, RWKV-6, Mamba
+and hybrid stacks on ``("data", "model")`` or ``("pod", "data",
+"model")``, with or without sequence parallelism; the entry points
+refuse the rest (``require_supported``; ROADMAP A13b-5b).
 """
 from __future__ import annotations
 
@@ -41,11 +41,11 @@ from typing import Dict, Optional, Tuple, Union
 Axes = Union[None, str, Tuple[str, ...]]
 
 MULTI_RANK = ("a mesh of more ranks trains plain-attention stacks (dense, "
-              "and MoE with or without shared experts) over (data, model) "
-              "or (pod, data, model), with or without sequence "
-              "parallelism; RWKV-6, Mamba and jamba (inner), MLA "
-              "(mla_seq), shard_kv_seq, serving and the dry run under a "
-              "mesh wait for ROADMAP A13b-5b")
+              "and MoE with or without shared experts), RWKV-6, Mamba and "
+              "jamba (inner) over (data, model) or (pod, data, model), "
+              "with or without sequence parallelism; MLA (mla_seq), "
+              "shard_kv_seq, serving and the dry run under a mesh wait "
+              "for ROADMAP A13b-5b")
 
 # the mesh axes and the rules the multi-rank bodies are written for: the
 # batch over every axis but ``model``, the residual stream's sequence
@@ -174,7 +174,8 @@ class Policy:
                           train: bool = False,
                           seq_len: Optional[int] = None) -> None:
         """Refuse what a mesh of more than one rank does not run yet:
-        anything but training (``train``) a plain-attention ``cfg`` on a
+        anything but training (``train``) a ``cfg`` without MLA (plain
+        attention, RWKV-6, Mamba or a hybrid of them) on a
         ``("data", "model")`` or ``("pod", "data", "model")`` mesh under
         the base rules, the batch over every axis but ``model``, with or
         without sequence parallelism, without a sharded KV sequence. Under
@@ -196,12 +197,8 @@ class Policy:
         if self.rules.get("act_seq") not in (None, "model") or any(
                 self.rules.get(k) != v for k, v in _TRAIN_RULES.items()):
             why.append("rule overrides")
-        if cfg is not None:
-            other = sorted(set(cfg.layer_kinds()) - {"attn"})
-            if other:
-                why.append(f"{'/'.join(other)} layers (inner)")
-            if cfg.mla is not None:
-                why.append("MLA (mla_seq)")
+        if cfg is not None and cfg.mla is not None:
+            why.append("MLA (mla_seq)")
         if why:
             raise NotImplementedError(
                 f"{where}: a {tuple(self.mesh.shape)} mesh over "

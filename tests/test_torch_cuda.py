@@ -1568,6 +1568,42 @@ def test_examples_run_on_the_card_by_default(cuda, capsys):
     assert out["arrivals"] == 14 and out["premium_all_completed"]
 
 
+def _four_ranks_on_the_card(arch):
+    """chip_smoke.py's ranks phase, its fp32 part for SMOKE ``arch``, on
+    four gloo ranks sharing the card: every run held to the one-rank
+    card runs within 1e-5 (loss) and 1e-4 of each leaf's largest
+    (gradients, ``chip_smoke.ranks_grads_ok``: rwkv6's held to its
+    float64 witness, no further from it than the one-rank runs plus
+    1e-4), each SP run to the run before it within 1e-5 and 1e-4; each
+    rank's launches held to one gradient call
+    (``chip_smoke.train_kernel_calls``)."""
+    import sys
+    from pathlib import Path
+    from repro_torch.launch.mesh import spawn
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    recs = spawn(chip_smoke.ranks_main, 4, (arch,), (), timeout=600)
+    assert [r["device"] for r in recs] == ["cuda:0"] * 4
+    rows = recs[0]["smoke"]
+    assert [(r["mesh"], r["sp"], r["fsdp"]) for r in rows] == [
+        ([2, 2], False, False), ([2, 2], False, True), ([2, 2], True, True),
+        ([2, 1, 2], True, True)]
+    for r in rows:
+        assert max(r["errors"].values()) <= 1e-5
+        assert ("float64" in r) == (arch in chip_smoke.RANKS_FLOAT64)
+        assert chip_smoke.ranks_grads_ok(r)
+        if r["sp"]:
+            assert max(r["vs"]["errors"].values()) <= 1e-5
+            assert r["vs"]["grad_err"] <= 1e-4
+    want = chip_smoke.train_kernel_calls(
+        SMOKE_CONFIGS[arch], chip_smoke.RANKS_SMOKE_SHAPE[1])
+    for rec in recs:
+        for r in rec["smoke"]:
+            got = {n: c for n, c in r["path"]["launches"].items() if c}
+            assert got == want
+    return want
+
+
 def test_four_ranks_sharing_the_card_equal_one_rank(cuda):
     """Four gloo ranks on a (2, 2) ("data", "model") mesh and a (2, 1, 2)
     ("pod", "data", "model") mesh, all on the one card (chip_smoke.py's
@@ -1577,23 +1613,19 @@ def test_four_ranks_sharing_the_card_equal_one_rank(cuda):
     runs on the card, FSDP off and on, then under sequence parallelism
     and on the pod mesh, each of those also held to the run before it;
     each rank's B2 and B2-bwd launches held to one gradient call."""
-    import sys
-    from pathlib import Path
-    from repro_torch.launch.mesh import spawn
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-    recs = spawn(chip_smoke.ranks_main, 4, ("qwen3-8b",), (), timeout=600)
-    assert [r["device"] for r in recs] == ["cuda:0"] * 4
-    rows = recs[0]["smoke"]
-    assert [(r["mesh"], r["sp"], r["fsdp"]) for r in rows] == [
-        ([2, 2], False, False), ([2, 2], False, True), ([2, 2], True, True),
-        ([2, 1, 2], True, True)]
-    for r in rows:
-        assert max(r["errors"].values()) <= 1e-5 and r["grad_err"] <= 1e-4
-        if r["sp"]:
-            assert max(r["vs"]["errors"].values()) <= 1e-5
-            assert r["vs"]["grad_err"] <= 1e-4
-    for rec in recs:
-        for r in rec["smoke"]:
-            assert r["path"]["launches"]["flash_attention"] == 4
-            assert r["path"]["launches"]["flash_attention_bwd"] == 2
+    assert _four_ranks_on_the_card("qwen3-8b") == {
+        "flash_attention": 4, "flash_attention_bwd": 2}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-v0.1-52b"])
+def test_four_ranks_sharing_the_card_equal_one_rank_inner(cuda, arch):
+    """The same for the stacks with ``inner`` layers: SMOKE rwkv6-1.6b
+    (B4 and B4-bwd on each rank's heads) and jamba-v0.1-52b (B6 and
+    B6-bwd on each rank's Mamba channels, B2 and B7 on its heads and
+    experts), each against one-rank card runs on all four meshes and
+    policies."""
+    kinds = {"rwkv6-1.6b": {"wkv6_chunked", "wkv6_chunked_bwd"},
+             "jamba-v0.1-52b": {"linear_scan", "linear_scan_bwd",
+                                "flash_attention", "flash_attention_bwd",
+                                "moe_dispatch", "moe_dispatch_bwd"}}[arch]
+    assert set(_four_ranks_on_the_card(arch)) == kinds

@@ -554,3 +554,38 @@ def test_dense_layout_refused(arch):
                                api.EngineConfig(kv_layout="latent"), "cpu")
     with pytest.raises(ValueError, match="unknown kv layout"):
         api.make_state_backend("ring", cfg, api.EngineConfig(), "cpu")
+
+
+def test_smoke_float64_witness_of_the_ranks_gate():
+    """chip_smoke.py's float64 witness of rwkv6's fp32 ranks runs
+    (``_float64_spread``, ``ranks_grads_ok``) on the CPU, SMOKE at the
+    ranks phase's 4 rows of 64 tokens over two data shards: the fp32
+    one-rank gradient lies within 1e-4 of each leaf's largest of the
+    float64 one, ``Tensor.float`` is itself again after the witness, a
+    run equal to the one-rank run passes with no excess, and one whose
+    ``w_base`` gradients are off by half (as where a rank's partial
+    gradient of a replicated leaf is not summed) fails on that leaf."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = SMOKE_CONFIGS[ARCH].scaled(dtype="float32")
+    whole = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", tp=2)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32))
+    one = [g.float() for g in smoke._mesh_reference(torch, cfg, whole, toks,
+                                                    2, True)[2]]
+    names = smoke._leaf_names(whole)
+    cast = torch.Tensor.float
+    rec = smoke._float64_spread(torch, cfg, whole, toks, 2, one, one, names)
+    assert torch.Tensor.float is cast
+    assert rec["one_rank"] <= 1e-4 and rec["excess"] == 0
+    assert smoke.ranks_grads_ok({"float64": rec})
+    off = [g * 0.5 if n.endswith("/w_base") else g
+           for g, n in zip(one, names)]
+    rec = smoke._float64_spread(torch, cfg, whole, toks, 2, off, one, names)
+    assert rec["excess_leaf"].endswith("/w_base") and rec["excess"] > 0.4
+    assert not smoke.ranks_grads_ok({"float64": rec})

@@ -176,10 +176,11 @@ def _refusal_call(what):
     """(the call, the phrase its refusal must name) for one path a mesh
     of more ranks does not run yet (ROADMAP A13b-5b)."""
     arch, opts, phrase = {
-        "rwkv6": ("rwkv6-1.6b", {}, "rwkv layers"),
-        "jamba": ("jamba-v0.1-52b", {}, "mamba layers"),
+        # RWKV-6, Mamba and jamba train on a mesh; serving them does not
+        "rwkv6": ("rwkv6-1.6b", {}, "serving"),
+        "jamba": ("jamba-v0.1-52b", {}, "serving"),
         "mla": ("deepseek-v2-lite-16b", {}, "MLA"),
-        "sp": ("rwkv6-1.6b", {"sp": True}, "rwkv layers"),
+        "sp": ("deepseek-v2-lite-16b", {"sp": True}, "MLA"),
         "shard_kv_seq": ("qwen3-8b", {"shard_kv_seq": True}, "shard_kv_seq"),
         "prefill": ("qwen3-8b", {}, "serving"),
         "decode_step": ("qwen3-8b", {}, "serving"),
@@ -191,9 +192,9 @@ def _refusal_call(what):
     pol = make_policy(mesh, **opts)
     cfg = SMOKE_CONFIGS[arch].scaled(n_layers=1, dtype="float32")
     toks = torch.zeros(1, 8, dtype=torch.int32)
-    if what in ("prefill", "pod_prefill"):
+    if what in ("prefill", "pod_prefill", "rwkv6"):
         return (lambda: lm.prefill(None, toks, cfg, policy=pol)), phrase
-    if what == "decode_step":
+    if what in ("decode_step", "jamba"):
         return (lambda: lm.decode_step(None, toks[:, 0], {}, cfg,
                                        policy=pol)), phrase
     return (lambda: lm.forward_loss(None, toks, cfg, policy=pol)), phrase
@@ -203,12 +204,14 @@ def _refusal_call(what):
                                   "shard_kv_seq", "prefill", "decode_step",
                                   "pod_prefill", "pod_no_pod_rules"])
 def test_entry_points_refuse_a_mesh_of_more_ranks(what):
-    """On a policy whose mesh has two ranks, training an RWKV-6, jamba or
-    MLA stack (with sequence parallelism too), a sharded KV sequence and
-    every serving entry point raise, naming ROADMAP A13b-5b and what is
-    missing; on a (2, 1, 2) pod mesh, serving under SP and a policy made
-    without the pod axis's batch rules (a stand-in mesh: the refusal
-    reads only its size and axes)."""
+    """On a policy whose mesh has two ranks, training an MLA stack (with
+    sequence parallelism too), a sharded KV sequence and every serving
+    entry point (an RWKV-6 stack's prefill and a jamba stack's decode
+    step among them: those stacks train on a mesh, and are not served
+    on one) raise, naming ROADMAP A13b-5b and what is missing; on a (2,
+    1, 2) pod mesh, serving under SP and a policy made without the pod
+    axis's batch rules (a stand-in mesh: the refusal reads only its size
+    and axes)."""
     call, phrase = _refusal_call(what)
     with pytest.raises(NotImplementedError, match="A13b-5b") as e:
         call()
